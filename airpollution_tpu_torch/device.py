@@ -1,0 +1,22 @@
+"""Device selection shared by the port's entry points.
+
+The port runs on the CUDA card. An entry point given no ``device`` takes
+``cuda`` and raises when no card is present: the port never falls back to
+the CPU on its own. Callers that want the CPU (the tests) ask for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the CUDA card."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: pass device='cpu' to run the "
+                "plain PyTorch path on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

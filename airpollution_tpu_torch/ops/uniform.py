@@ -1,0 +1,124 @@
+"""Translation-invariant (uniform) stencil operator, PyTorch counterpart
+of ``airpollution_tpu/ops/uniform.py``.
+
+On ``create_mesh`` grids with constant ``v`` and ``D`` every cell is
+congruent, so each of the 15 stencil terms carries one scalar over its
+whole validity region, Dirichlet rows are identity rows, and within each
+edge family the validity regions collapse to one interior rectangle. The
+operator is 15 scalars plus the per-family mass and diagonal constants:
+the 21 scalars the fused kernels take.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from airpollution_tpu_torch.ops.stencil import (
+    StencilPattern,
+    split_families,
+    stencil_matvec_terms,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformSpec:
+    """Static description of the uniform operator.
+
+    center_slots: (15,) flat ELL slots, one interior sample per term.
+    center_dofs: (3,) global DOF ids of one interior H, V and D DOF.
+    """
+
+    n: int
+    c: int
+    center_slots: np.ndarray
+    center_dofs: np.ndarray
+
+    @property
+    def interior_rects(self):
+        """Per-family interior rectangle (rows [lo, hi), cols [lo, hi)) in
+        (n, n)-canvas coordinates, outside which family DOFs are Dirichlet
+        rows or canvas padding."""
+        c = self.c
+        return {"H": (1, c, 0, c), "V": (0, c, 1, c), "D": (0, c, 0, c)}
+
+
+def build_uniform_spec(pattern: StencilPattern) -> UniformSpec:
+    """Derive the uniform-operator spec from a stencil pattern (n >= 3)."""
+    n, c = pattern.n, pattern.c
+    if n < 3:
+        raise ValueError("uniform operator requires n_points_per_axis >= 3")
+    slots = []
+    for t, (slot_grid, valid) in enumerate(
+        zip(pattern.term_slots, pattern.term_valid)
+    ):
+        r, col = valid.shape[0] // 2, valid.shape[1] // 2
+        if not valid[r, col]:
+            raise AssertionError(
+                f"stencil term {t}: grid center not in validity region"
+            )
+        slots.append(slot_grid[r, col])
+    h_idx = (n // 2) * c + c // 2
+    v_idx = n * c + (c // 2) * n + n // 2
+    d_idx = n * c + c * n + (c // 2) * c + c // 2
+    center_dofs = pattern.perm[np.array([h_idx, v_idx, d_idx])]
+    return UniformSpec(
+        n=n, c=c,
+        center_slots=np.asarray(slots, dtype=np.int64),
+        center_dofs=np.asarray(center_dofs, dtype=np.int64),
+    )
+
+
+def extract_constants(spec: UniformSpec, ell_vals) -> torch.Tensor:
+    """The 15 scalar stencil coefficients."""
+    idx = torch.as_tensor(spec.center_slots, device=ell_vals.device)
+    return ell_vals.reshape(-1)[idx]
+
+
+def family_constants(spec: UniformSpec, vec) -> torch.Tensor:
+    """Per-family (H, V, D) interior constants of a global DOF vector."""
+    return vec[torch.as_tensor(spec.center_dofs, device=vec.device)]
+
+
+def family_const_vector(spec: UniformSpec, c3):
+    """Family-layout vector filled blockwise with 3 per-family constants."""
+    n, c = spec.n, spec.c
+    counts = torch.tensor([n * c, c * n, c * c], device=c3.device)
+    return torch.repeat_interleave(c3, counts)
+
+
+def family_diag_vector(spec: UniformSpec, diag_c, bmask_fam):
+    """Family-layout diagonal from the 3 constants; Dirichlet rows are 1."""
+    vec = family_const_vector(spec, diag_c)
+    return torch.where(bmask_fam, torch.ones_like(vec), vec)
+
+
+def uniform_matvec(spec: UniformSpec, consts, x_fam, *,
+                   boundary: str = "identity"):
+    """y = A @ x in family layout from 15 scalar coefficients.
+
+    ``boundary="identity"``: y = x on Dirichlet rows (the row-masked
+    system). ``boundary="drop"``: y = 0 there (the unmasked K+A of the
+    Crank-Nicolson RHS, whose boundary rows the loop discards).
+    """
+    if boundary not in ("identity", "drop"):
+        raise ValueError(f"unknown boundary mode {boundary!r}")
+    n = spec.n
+    xH, xV, xD = split_families(n, x_fam)
+    yH, yV, yD = stencil_matvec_terms(n, tuple(consts), xH, xV, xD)
+
+    # Dirichlet rows: H rows {0, n-1} and V cols {0, n-1}; no D edge lies
+    # on the boundary.
+    idx = torch.arange(n, device=x_fam.device)
+    h_bnd = ((idx == 0) | (idx == n - 1))[:, None]
+    v_bnd = ((idx == 0) | (idx == n - 1))[None, :]
+    if boundary == "identity":
+        yH = torch.where(h_bnd, xH, yH)
+        yV = torch.where(v_bnd, xV, yV)
+    else:
+        yH = torch.where(h_bnd, torch.zeros_like(yH), yH)
+        yV = torch.where(v_bnd, torch.zeros_like(yV), yV)
+    return torch.cat([yH.reshape(-1), yV.reshape(-1), yD.reshape(-1)])
+
