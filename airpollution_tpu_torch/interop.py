@@ -6,7 +6,8 @@ and the initial state. ``operators_from_numpy`` builds this package's
 ``GlobalOperators`` from plain arrays, for example those of another
 implementation's assembly, so both can run on one operator; hand the
 interval to ``CRBESolver(cheb_bounds=...)`` and the operator to
-``CRBESolver.set_operators``.
+``CRBESolver.set_operators``. ``canvas_operator_from_numpy`` does the same
+for the per-DOF canvas operator that the fused canvas kernels take.
 """
 
 from __future__ import annotations
@@ -46,3 +47,21 @@ def operators_from_numpy(*, mass_diag, stiffness, advection, ka, system,
         system=ell(system),
         system_diag=real(system_diag),
     )
+
+
+def canvas_operator_from_numpy(*, coeffs, mass_fam, inv_diag_fam,
+                               dtype=None, device=None):
+    """The canvas operator of the fused canvas kernels (B4, B5) from numpy
+    arrays, in family layout: the 15 coefficient grids of the masked
+    system (H rows (n, c), V rows (c, n), D rows (c, c)), the masked mass
+    and the inverse system diagonal. Returns ``(coeffs, mass_fam,
+    inv_diag_fam)`` as tensors, ready for fused_hbm.fused_solve_canvas_hbm
+    or fused_solver.fused_solve."""
+    device = resolve_device(device)
+
+    def real(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    if len(coeffs) != 15:
+        raise ValueError("a canvas operator has 15 coefficient grids")
+    return tuple(real(g) for g in coeffs), real(mass_fam), real(inv_diag_fam)

@@ -124,6 +124,31 @@ class MeshData:
         return self._ensure_ell().cols
 
 
+def boundary_side_masks(mesh_data):
+    """``{'left', 'right', 'bottom', 'top'} -> (n_seg,) bool``: boundary
+    DOFs whose midpoint lies on that side of the box. The walls are the
+    mesh's own extent (min/max vertex coordinates), matched with the
+    Domain's atol of 1e-10. Works on any view that carries ``points``,
+    ``midpoints`` and ``boundary_mask`` (e.g. the family-layout view)."""
+    md = mesh_data
+    if not hasattr(md, "points") or not hasattr(md, "boundary_mask"):
+        raise ValueError("boundary_side_masks needs geometry (points, "
+                         "midpoints, boundary_mask)")
+    pts, mid, bmask = md.points, md.midpoints, md.boundary_mask
+    xmin, xmax = pts[:, 0].min(), pts[:, 0].max()
+    ymin, ymax = pts[:, 1].min(), pts[:, 1].max()
+
+    def on(coord, wall):
+        return bmask & ((coord - wall).abs() <= 1e-10)
+
+    return {
+        "left": on(mid[:, 0], xmin),
+        "right": on(mid[:, 0], xmax),
+        "bottom": on(mid[:, 1], ymin),
+        "top": on(mid[:, 1], ymax),
+    }
+
+
 def structured_grid(mesh_data):
     """(xmin, ymin, h) of the structured vertex grid, as host floats."""
     if getattr(mesh_data, "structured_n", None) is None:

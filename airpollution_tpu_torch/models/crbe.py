@@ -11,12 +11,18 @@ transposed one (``"reference"``).
 
 Solve paths (``matvec_impl``):
 
-- ``"ell"`` / ``"stencil"``: the step loop in Python, each step solved
-  with BiCGStab or Chebyshev on the ELL SpMV or the family-layout stencil.
-  This is the correctness oracle.
-- ``"fused"``: the whole loop in one launch of kernel B1
-  (ops/fused_solver.py) while the state fits the routing limit, else
-- ``"fused_hbm"``: one launch of kernel B2 per step (ops/fused_hbm.py).
+- ``"ell"`` / ``"stencil"`` / ``"pallas"``: the step loop in Python, each
+  step solved with BiCGStab or Chebyshev on the ELL SpMV, the
+  family-layout stencil, or the stencil as kernel B3
+  (ops/fused_stencil.py). This is the correctness oracle.
+- ``"fused"`` / ``"fused_hbm"`` (CRBESolver._fused_plan): on the
+  translation-invariant uniform operator, the whole loop in one launch of
+  kernel B1 (ops/fused_solver.py) while the state fits the routing limit,
+  else one launch of kernel B2 per step (ops/fused_hbm.py); on the
+  per-DOF canvas operator (variable coefficients, Robin walls, obstacles,
+  or ``fused_operator="canvas"``), Chebyshev takes one launch of kernel B4
+  per step (ops/fused_hbm.py) and BiCGStab the whole loop in kernel B5
+  (ops/fused_solver.py).
 
 Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
 solver that this package does not have yet raise ``NotImplementedError``
@@ -34,9 +40,15 @@ import numpy as np
 import torch
 
 from airpollution_tpu_torch.device import resolve_device
+from airpollution_tpu_torch.mesh.data import boundary_side_masks
 from airpollution_tpu_torch.ops import lifting, linalg, sparse
 from airpollution_tpu_torch.ops import stencil as stencil_mod
 from airpollution_tpu_torch.ops import uniform as uniform_mod
+from airpollution_tpu_torch.problems import (
+    SIDE_NORMALS,
+    robin_g_customized,
+    robin_g_xy_provided,
+)
 
 
 class ElementCR:
@@ -75,8 +87,11 @@ class LocalMatrices(NamedTuple):
 
 def local_matrices(vertices, areas, D, v,
                    stiffness_convention: str = "correct") -> LocalMatrices:
-    """Local CR matrices for every triangle at once (constant scalar ``D``
-    and constant ``v``). vertices: (n_tri, 3, 2); areas: (n_tri,)."""
+    """Local CR matrices for every triangle at once. vertices: (n_tri, 3,
+    2); areas: (n_tri,). ``D`` may be a scalar, a per-triangle (n_tri,)
+    field, a constant (2, 2) tensor or a per-triangle (n_tri, 2, 2)
+    tensor; ``v`` a (2,) constant or a per-triangle (n_tri, 2) field
+    (centroid samples of the problem's hooks)."""
     if stiffness_convention not in ("correct", "reference"):
         raise ValueError(f"unknown stiffness_convention {stiffness_convention}")
     dtype, device = vertices.dtype, vertices.device
@@ -96,9 +111,16 @@ def local_matrices(vertices, areas, D, v,
         g_stiff = g_phys
     else:  # the reference solver's transposed pullback (crbe.py:272-276)
         g_stiff = ref_grads @ J_inv.transpose(1, 2)
-    K = (D * areas)[:, None, None] * (g_stiff @ g_stiff.transpose(1, 2))
+    D = torch.as_tensor(D, dtype=dtype, device=device)
+    if D.ndim in (2, 3):  # diffusion tensor: integral grad phi . D grad phi
+        K = areas[:, None, None] * (g_stiff @ D @ g_stiff.transpose(1, 2))
+    else:
+        K = (D * areas)[:, None, None] * (g_stiff @ g_stiff.transpose(1, 2))
     v_vec = torch.as_tensor(v, dtype=dtype, device=device)
-    v_dot_g = g_phys @ v_vec  # (n_tri, 3)
+    if v_vec.ndim == 2:  # per-triangle wind
+        v_dot_g = (g_phys @ v_vec[:, :, None])[..., 0]
+    else:
+        v_dot_g = g_phys @ v_vec  # (n_tri, 3)
     A = (areas / 3.0)[:, None, None] * v_dot_g[:, None, :].expand(-1, 3, 3)
     m = (areas / 3.0)[:, None].expand(-1, 3)
     return LocalMatrices(mass_diag=m, stiffness=K, advection=A)
@@ -116,43 +138,111 @@ class GlobalOperators(NamedTuple):
 
 
 def reject_unported(problem):
-    """Refuse problem features this package does not solve yet."""
-    if getattr(problem, "variable_coefficients", False) or getattr(
-        problem, "time_varying", False
-    ):
+    """Refuse problem features this package does not solve yet: time-varying
+    coefficients (the JAX package reassembles them per time chunk,
+    models/unsteady, not ported)."""
+    if getattr(problem, "time_varying", False):
         raise NotImplementedError(
-            "spatially or temporally varying coefficients are not ported "
-            "yet; use the JAX package (airpollution_tpu)"
+            "temporally varying coefficients (problem.time_varying) are not "
+            "ported yet; use the JAX package (airpollution_tpu)"
         )
-    if getattr(problem, "robin_sides", None):
-        raise NotImplementedError(
-            "Robin boundaries (problem.robin_sides) are not ported yet"
+
+
+def obstacle_masks(mesh_data, problem):
+    """Solid-obstacle masks ``(tri_keep, dead_mask)``, or ``(None, None)``
+    when the problem declares no obstacles.
+
+    ``tri_keep``: (n_tri,) bool, False for triangles whose centroid lies in
+    an obstacle (their local matrices are zeroed at assembly, which leaves
+    the weak form's natural condition on the staircase cut boundary).
+    ``dead_mask``: (n_seg,) bool, DOFs with no live triangle left; they
+    become identity rows pinned to 0. A view that runs the loop in another
+    DOF order (the family view) carries ``obstacle_dead_mask`` in its own
+    order, which is returned as is (with ``tri_keep`` None)."""
+    if not getattr(problem, "obstacles", None):
+        return None, None
+    pre = getattr(mesh_data, "obstacle_dead_mask", None)
+    if pre is not None:
+        return None, pre
+    md = mesh_data
+    centroids = md.points[md.triangles].mean(dim=1)
+    tri_keep = ~problem.obstacle_fn(centroids)
+    live = torch.zeros(md.number_of_segments, dtype=torch.int64,
+                       device=centroids.device)
+    live.index_add_(0, md.triangle_to_segments.reshape(-1),
+                    tri_keep.to(torch.int64).repeat_interleave(3))
+    return tri_keep, live == 0
+
+
+def robin_terms(mesh_data, problem):
+    """``(dirichlet_mask, robin_mask, robin_alpha)`` of a problem's Robin
+    sides; ``(boundary_mask, None, None)`` without any.
+
+    Named sides leave the Dirichlet set. The CR basis function is 1 along
+    its own edge and every other one integrates to 0 there, so the
+    boundary mass is diagonal: ``robin_alpha`` is the per-DOF
+    ``alpha |e|`` added to the operator's diagonal at assembly, and the
+    g-load is ``g(mid_e, t) |e|`` on Robin DOFs (run_time_loop)."""
+    robin = getattr(problem, "robin_sides", None)
+    if not robin:
+        return mesh_data.boundary_mask, None, None
+    unknown = set(robin) - set(SIDE_NORMALS)
+    if unknown:
+        raise ValueError(
+            f"unknown robin_sides {sorted(unknown)} — expected a subset "
+            f"of {sorted(SIDE_NORMALS)}"
         )
-    if getattr(problem, "obstacles", None):
-        raise NotImplementedError(
-            "interior obstacles (problem.obstacles) are not ported yet"
-        )
+    side_masks = boundary_side_masks(mesh_data)
+    lengths = mesh_data.segment_lengths
+    robin_mask = torch.zeros_like(mesh_data.boundary_mask)
+    alpha_vec = torch.zeros_like(lengths)
+    for side, alpha in robin.items():
+        m = side_masks[side]
+        robin_mask = robin_mask | m
+        alpha_vec = alpha_vec + torch.where(m, alpha * lengths, 0.0)
+    return mesh_data.boundary_mask & ~robin_mask, robin_mask, alpha_vec
 
 
 def _local_operators(mesh_data, problem, stiffness_convention):
-    """Local matrices of every triangle for a constant-coefficient problem."""
+    """Local matrices of every triangle: constant or centroid-sampled
+    coefficients, then obstacle masking. Returns ``(loc, dead_mask)``."""
     reject_unported(problem)
     md = mesh_data
     verts = md.points[md.triangles]  # (n_tri, 3, 2)
-    return local_matrices(verts, md.triangle_areas, problem.D, problem.v,
-                          stiffness_convention)
+    if getattr(problem, "variable_coefficients", False):
+        # Piecewise-constant fields sampled at triangle centroids.
+        centroids = verts.mean(dim=1)
+        D_loc = problem.diffusion_at(centroids)
+        v_loc = problem.velocity_at(centroids)
+    else:
+        D_loc, v_loc = problem.D, problem.v
+    loc = local_matrices(verts, md.triangle_areas, D_loc, v_loc,
+                         stiffness_convention)
+    tri_keep, dead = obstacle_masks(md, problem)
+    if tri_keep is not None:
+        keep = tri_keep.to(loc.stiffness.dtype)
+        loc = loc._replace(
+            mass_diag=loc.mass_diag * keep[:, None],
+            stiffness=loc.stiffness * keep[:, None, None],
+            advection=loc.advection * keep[:, None, None],
+        )
+    return loc, dead
 
 
 def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
              stiffness_convention: str = "correct") -> GlobalOperators:
     """Assemble all global operators in one pass (crbe.py:326-362)."""
     md = mesh_data
-    loc = _local_operators(md, problem, stiffness_convention)
+    loc, dead = _local_operators(md, problem, stiffness_convention)
     t2s_flat = md.triangle_to_segments.reshape(-1)
     n_seg = md.number_of_segments
     mass_diag = torch.zeros(n_seg, dtype=loc.mass_diag.dtype,
                             device=loc.mass_diag.device)
     mass_diag.index_add_(0, t2s_flat, loc.mass_diag.reshape(-1))
+    if dead is not None:
+        # Unit mass on dead DOFs: after masking their rows are identity
+        # rows (their columns are already zero: no live triangle).
+        mass_diag = torch.where(dead, torch.ones_like(mass_diag), mass_diag)
 
     ell_cols = md.ell_cols
     ell_e2s = md.ell_entry_to_slot
@@ -162,22 +252,30 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
         return sparse.ell_from_entries(local_vals.reshape(-1), ell_e2s,
                                        ell_cols)
 
+    def add_diag(vals, vec):
+        flat = vals.reshape(-1).clone()
+        flat.index_add_(0, ell_diag_slot, vec.to(vals.dtype))
+        return flat.reshape(vals.shape)
+
     K = to_ell(loc.stiffness)
     A = to_ell(loc.advection)
     ka_vals = K.vals + A.vals
     # First-order reaction: + r c in the PDE is + r M in the operator.
     r = float(getattr(problem, "reaction", 0.0))
     if r != 0.0:
-        ka_flat = ka_vals.reshape(-1).clone()
-        ka_flat.index_add_(0, ell_diag_slot, r * mass_diag)
-        ka_vals = ka_flat.reshape(ka_vals.shape)
+        ka_vals = add_diag(ka_vals, r * mass_diag)
+    # Robin walls: the diagonal alpha |e| boundary term folds into K + A.
+    dirichlet_mask, _, robin_vec = robin_terms(md, problem)
+    if dead is not None:
+        dirichlet_mask = dirichlet_mask | dead
+    if robin_vec is not None:
+        ka_vals = add_diag(ka_vals, robin_vec)
     ka = sparse.EllMatrix(vals=ka_vals, cols=K.cols)
 
     c = {1: 1.0, 2: 0.5}[time_scheme_order]
-    flat = ((c * dt) * ka.vals).reshape(-1).clone()
-    flat.index_add_(0, ell_diag_slot, mass_diag)
-    system = sparse.EllMatrix(vals=flat.reshape(ka.vals.shape), cols=ka.cols)
-    system = sparse.ell_mask_dirichlet_rows(system, md.boundary_mask,
+    system = sparse.EllMatrix(vals=add_diag((c * dt) * ka.vals, mass_diag),
+                              cols=ka.cols)
+    system = sparse.ell_mask_dirichlet_rows(system, dirichlet_mask,
                                             ell_diag_slot)
     system_diag = sparse.ell_diagonal(system, ell_diag_slot)
     return GlobalOperators(mass_diag=mass_diag, stiffness=K, advection=A,
@@ -194,14 +292,36 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     Each step forms the RHS, masks Dirichlet rows, and solves the fixed
     masked system from a warm start (the previous state, or ``2u - u_prev``
     with ``extrapolate_warm_start``). Boundary values are added to the
-    output only. ``mesh_data`` may be a family-layout view (midpoints,
-    boundary_mask, nt). ``bounds``: the Chebyshev interval; estimated with
-    power_bounds when None. Returns ``(solutions, iterations)``.
+    output only. Robin DOFs are unknowns (their ``alpha |e|`` term is in
+    the operator) and take the ``g |e|`` load; obstacle dead DOFs join the
+    masked set with a zero lift and a zero initial value. ``mesh_data``
+    may be a family-layout view (stencil.FamilyView). ``bounds``: the
+    Chebyshev interval; estimated with power_bounds when None. Returns
+    ``(solutions, iterations)``.
     """
     md = mesh_data
     midpoints = md.midpoints
-    bmask = md.boundary_mask
     nt = md.nt
+    bmask, robin_mask, _ = robin_terms(md, problem)
+    _, dead = obstacle_masks(md, problem)
+    zero = torch.zeros((), dtype=u0.dtype, device=u0.device)
+    if dead is not None:
+        bmask = bmask | dead
+        u0 = torch.where(dead, zero, u0)
+    robin_load = None
+    if robin_mask is not None:
+        side_masks = boundary_side_masks(md)
+        lengths = md.segment_lengths
+        robin_items = sorted(problem.robin_sides)
+
+        def robin_load(t):
+            # One-point edge quadrature: g(mid_e, t) |e| on Robin DOFs.
+            load = torch.zeros_like(lengths)
+            for side in robin_items:
+                g = problem.robin_g(midpoints, t, side)
+                load = load + torch.where(side_masks[side], lengths * g, 0.0)
+            return load
+
     if matvec is None:
         matvec = partial(sparse.ell_matvec, ops.system)
     if ka_matvec is None:
@@ -218,7 +338,6 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
             scale=1.0 / torch.sqrt(ops.system_diag),
         )
     sourced = not getattr(problem, "zero_source", False)
-    zero = torch.zeros((), dtype=u0.dtype, device=u0.device)
 
     def at_time(t):
         t_col = torch.full((midpoints.shape[0], 1), float(t),
@@ -240,10 +359,13 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
                 if order == 2:
                     s = 0.5 * (s + problem.source_term(at_time(t - dt)))
                 b = b + dt * ops.mass_diag * s
+        if robin_load is not None:
+            gl = robin_load(t) if order == 1 \
+                else 0.5 * (robin_load(t) + robin_load(t - dt))
+            b = b + dt * gl
         return torch.where(bmask, zero, b)
 
-    def lift_at(t):
-        return torch.where(bmask, problem.boundary_fn(at_time(t)), zero)
+    lift_at = lifting.make_lift(problem, midpoints, bmask, zero_mask=dead)
 
     u, u_prev = u0, u0
     snaps = [u0] if store_solutions else None
@@ -272,9 +394,6 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     return solutions, iters
 
 
-_NOT_PORTED_IMPLS = ("uniform", "pallas")
-
-
 class CRBESolver:
     """Backward-Euler / Crank-Nicolson + Crouzeix-Raviart FEM solver.
 
@@ -298,6 +417,7 @@ class CRBESolver:
         solver_maxiter: int = 200,
         stiffness_convention: str = "correct",
         matvec_impl: str = "auto",
+        fused_iters: int = 5,
         fused_operator: str = "auto",
         extrapolate_warm_start: bool = False,
         preconditioner: str = "jacobi",
@@ -335,19 +455,108 @@ class CRBESolver:
             raise ValueError(f"unknown source_quadrature {source_quadrature}")
         if snapshot_every is not None and snapshot_every < 1:
             raise ValueError("snapshot_every must be a positive int")
-        reject_unported(problem)
+        if getattr(problem, "time_varying", False):
+            raise ValueError(
+                "CRBESolver assembles the operator once; time-varying "
+                "coefficients (problem.time_varying) need reassembly per "
+                "time chunk (the JAX package's models/unsteady, not "
+                "ported yet)"
+            )
+        fused = matvec_impl in ("fused", "fused_hbm")
+        per_dof = ("auto", "ell", "stencil", "pallas", "fused", "fused_hbm")
+        self._variable_coefficients = bool(
+            getattr(problem, "variable_coefficients", False))
+        if self._variable_coefficients and (
+                matvec_impl == "uniform" or fused_operator == "uniform"
+                or assembly == "patch"):
+            raise ValueError(
+                "spatially varying coefficients (variable_coefficients="
+                "True) are not translation-invariant: matvec_impl="
+                "'uniform', fused_operator='uniform' and assembly='patch' "
+                "all assume the 15-scalar uniform operator — use 'ell', "
+                "'stencil', 'pallas', 'fused' (canvas operator), or "
+                "'fused_hbm' with solver_method='chebyshev'"
+            )
+        self._robin = getattr(problem, "robin_sides", None) or None
+        if self._robin:
+            if matvec_impl not in per_dof:
+                raise ValueError(
+                    "Robin boundaries (problem.robin_sides) run on the "
+                    "per-DOF coefficient paths only — use matvec_impl="
+                    "'ell', 'stencil', 'pallas', 'fused'/'fused_hbm' "
+                    "(canvas operator), or 'auto'"
+                )
+            if assembly == "patch":
+                raise ValueError(
+                    "Robin boundaries need full assembly (the alpha*|e| "
+                    "boundary terms are per-DOF) — assembly='patch' is "
+                    "translation-invariant"
+                )
+            if fused and fused_operator == "uniform":
+                raise ValueError(
+                    "Robin boundaries break translation invariance on wall "
+                    "rows — the fused paths need the canvas operator "
+                    "(fused_operator='canvas' or 'auto')"
+                )
+            if fused and robin_g_customized(problem):
+                if not robin_g_xy_provided(problem):
+                    raise ValueError(
+                        "this problem overrides robin_g without an "
+                        "elementwise robin_g_xy — the fused canvas kernel "
+                        "evaluates the flux load on wall lines from "
+                        "robin_g_xy; override it or use the scan paths "
+                        "(matvec_impl='stencil'/'ell')"
+                    )
+                if solver_method != "chebyshev":
+                    raise ValueError(
+                        "inhomogeneous Robin flux data (robin_g_xy) on the "
+                        "fused paths runs on the canvas stripe kernel only "
+                        "— solver_method='chebyshev'; or use the scan "
+                        "paths (matvec_impl='stencil'/'ell')"
+                    )
+                raise NotImplementedError(
+                    "inhomogeneous Robin flux data (robin_g_xy) on the "
+                    "fused paths needs kernel B4's in-kernel loads, which "
+                    "are not ported yet; use matvec_impl='stencil'"
+                )
+        self._obstacles = getattr(problem, "obstacles", None) or None
+        if self._obstacles:
+            if matvec_impl not in per_dof:
+                raise ValueError(
+                    "interior obstacles (problem.obstacles) run on the "
+                    "per-DOF assembled paths only — use matvec_impl="
+                    "'ell', 'stencil', 'pallas', 'fused'/'fused_hbm' "
+                    "(canvas operator), or 'auto'"
+                )
+            if fused and fused_operator == "uniform":
+                raise ValueError(
+                    "interior obstacles break translation invariance — the "
+                    "fused paths need the canvas operator "
+                    "(fused_operator='canvas' or 'auto')"
+                )
+            if assembly == "patch":
+                raise ValueError(
+                    "interior obstacles need full assembly (the masked "
+                    "triangles are per-DOF information) — assembly='patch' "
+                    "is translation-invariant"
+                )
         if (
             matvec_impl == "auto"
+            and not self._robin
+            and not self._obstacles
+            and not self._variable_coefficients
+            and assembly != "full"
+            and preconditioner != "spectral"
             and getattr(mesh_data, "structured_n", None) is not None
             and mesh_data.structured_n >= 3
             and mesh_data.number_of_segments > 6_000_000
         ):
             # The JAX solver routes 'auto' to the uniform operator here.
             matvec_impl = "uniform"
-        if matvec_impl in _NOT_PORTED_IMPLS:
+        if matvec_impl == "uniform":
             raise NotImplementedError(
-                f"matvec_impl={matvec_impl!r} is not ported yet; use "
-                f"'stencil', 'ell', 'fused' or 'fused_hbm'"
+                "matvec_impl='uniform' is not ported yet; use 'stencil', "
+                "'pallas', 'ell', 'fused' or 'fused_hbm'"
             )
         if preconditioner == "spectral":
             raise NotImplementedError(
@@ -357,22 +566,6 @@ class CRBESolver:
             raise NotImplementedError("assembly='patch' is not ported yet")
         if snapshot_every is not None:
             raise NotImplementedError("snapshot_every is not ported yet")
-        fused = matvec_impl in ("fused", "fused_hbm")
-        if fused and fused_operator == "canvas":
-            raise NotImplementedError(
-                "fused_operator='canvas' is not ported yet"
-            )
-        if fused and solver_method != "chebyshev":
-            raise NotImplementedError(
-                "the fused paths are ported for solver_method='chebyshev' "
-                "only (the BiCGStab whole-loop kernel needs grid-wide dot "
-                "products)"
-            )
-        if fused and not getattr(problem, "zero_source", False):
-            raise NotImplementedError(
-                "sourced problems on the fused paths are not ported yet; "
-                "use matvec_impl='stencil'"
-            )
         self.domain = domain
         self.problem = problem
         self.mesh_data = mesh_data
@@ -383,6 +576,7 @@ class CRBESolver:
         self.solver_maxiter = solver_maxiter
         self.stiffness_convention = stiffness_convention
         self.matvec_impl = matvec_impl
+        self.fused_iters = fused_iters
         self.fused_operator = fused_operator
         self.extrapolate_warm_start = extrapolate_warm_start
         self.preconditioner = preconditioner
@@ -400,13 +594,16 @@ class CRBESolver:
         self._ops = None
         self._pattern = None
         self._reset_operator_state()
+        if fused:
+            self._fused_plan()  # refuse an invalid or unported route now
 
     def _config_key(self):
         """Every solver attribute a built solve function depends on."""
         return (
             self.time_scheme_order, self.solver_tol, self.solver_maxiter,
-            self.matvec_impl, self.extrapolate_warm_start,
-            self.solver_method, self.chebyshev_iters,
+            self.matvec_impl, self.fused_iters, self.fused_operator,
+            self.extrapolate_warm_start, self.solver_method,
+            self.chebyshev_iters,
             self.stiffness_convention, self.source_quadrature,
         )
 
@@ -448,7 +645,7 @@ class CRBESolver:
     def _use_stencil(self) -> bool:
         if self.matvec_impl == "ell":
             return False
-        if self.matvec_impl in ("stencil", "fused", "fused_hbm"):
+        if self.matvec_impl in ("stencil", "pallas", "fused", "fused_hbm"):
             if self.mesh_data.structured_n is None:
                 raise ValueError("stencil matvec requires a structured mesh "
                                  "(create_mesh-produced)")
@@ -493,11 +690,24 @@ class CRBESolver:
         # Stencil path: the whole loop in family layout, permuted back.
         pattern = self._stencil_pattern()
         perm, inv = self._perm_tensors(pattern)
-        fam_view = stencil_mod.family_view(self.mesh_data, pattern.perm)
+        _, dead = obstacle_masks(self.mesh_data, self.problem)
+        fam_view = stencil_mod.family_view(self.mesh_data, pattern.perm,
+                                           dead)
+        matvec_fn = None
+        if self.matvec_impl == "pallas":
+            from airpollution_tpu_torch.ops import fused_stencil
+
+            if not fused_stencil.fits_vmem(pattern):
+                raise ValueError(
+                    "mesh too large for matvec_impl='pallas' (kernel B3 "
+                    "keeps the JAX package's VMEM budget); use "
+                    "matvec_impl='stencil'"
+                )
+            matvec_fn = fused_stencil.stencil_matvec_fused
 
         def solve_stencil(ops, u0):
             ops_fam, matvec, ka_matvec = stencil_mod.family_operators(
-                pattern, ops, self.time_scheme_order
+                pattern, ops, self.time_scheme_order, matvec_fn
             )
             sols_fam, iters = run_time_loop(
                 ops_fam, u0[perm], mesh_data=fam_view, matvec=matvec,
@@ -507,10 +717,69 @@ class CRBESolver:
 
         return solve_stencil
 
+    def _fused_plan(self):
+        """``(uniform, kernel)`` of the fused route, the JAX solver's rules:
+        the uniform operator (15 scalars) unless the problem or
+        ``fused_operator='canvas'`` needs per-DOF coefficients; then B1
+        (whole loop) while the state fits the routing budget, else B2 (one
+        step per launch); on the canvas operator Chebyshev always takes B4
+        (one step per launch) and BiCGStab B5 (whole loop) when it fits.
+        Raises ValueError for an invalid route and NotImplementedError for
+        one this package does not have yet."""
+        md = self.mesh_data
+        if md.structured_n is None:
+            raise ValueError("stencil matvec requires a structured mesh "
+                             "(create_mesh-produced)")
+        bicgstab = self.solver_method != "chebyshev"
+        uniform = (self.fused_operator != "canvas"
+                   and not self._variable_coefficients
+                   and not self._robin and not self._obstacles)
+        if uniform and md.structured_n < 3:
+            if self.fused_operator == "uniform":
+                raise ValueError("uniform fused operator requires "
+                                 "n_points_per_axis >= 3")
+            uniform = False  # degenerate mesh: the canvas operator
+        if not getattr(self.problem, "zero_source", False):
+            if not uniform and bicgstab:
+                raise ValueError(
+                    "the whole-loop canvas kernel is zero-source: a sourced "
+                    "canvas-operator solve needs solver_method='chebyshev', "
+                    "fused_operator='uniform' (or 'auto' on a "
+                    "non-degenerate structured mesh), or "
+                    "matvec_impl='stencil' for the scan path"
+                )
+            raise NotImplementedError(
+                "sourced problems on the fused paths need in-kernel loads, "
+                "which are not ported yet; use matvec_impl='stencil'"
+            )
+        use_hbm = (self.matvec_impl == "fused_hbm" or not _fused_fits(
+            md.structured_n, self.extrapolate_warm_start, uniform=uniform,
+            method=self.solver_method))
+        if not uniform and not bicgstab:
+            use_hbm = True  # canvas + Chebyshev is always the step kernel
+        if use_hbm and bicgstab:
+            reason = ("matvec_impl='fused_hbm' was requested"
+                      if self.matvec_impl == "fused_hbm"
+                      else "mesh too large for the whole-loop fused solver")
+            raise ValueError(
+                f"{reason}, but the per-step stripe kernels need "
+                "solver_method='chebyshev' (its reduction-free iterations "
+                "keep tiles independent) — or use matvec_impl='stencil'"
+            )
+        if uniform and bicgstab:
+            raise NotImplementedError(
+                "the uniform whole-loop kernel is ported for "
+                "solver_method='chebyshev' only (its BiCGStab variant is "
+                "still to port); use fused_operator='canvas' or "
+                "matvec_impl='stencil'"
+            )
+        if uniform:
+            return True, "B2" if use_hbm else "B1"
+        return False, "B4" if use_hbm else "B5"
+
     def _build_fused_fn(self, store_solutions: bool, collect_iters: bool):
-        """The fused paths: kernel B1 while the state fits the routing
-        limit (or kernel B2 with matvec_impl='fused_hbm'), final state
-        only."""
+        """The fused paths (final state only), routed by :meth:`_fused_plan`:
+        B1 / B2 on the uniform operator, B4 / B5 on the canvas operator."""
         from airpollution_tpu_torch.ops import fused_hbm, fused_solver
 
         if store_solutions or collect_iters:
@@ -519,50 +788,73 @@ class CRBESolver:
                 "solve(store_solutions=False) (collect_iters is not "
                 "available fused)"
             )
+        uniform, kernel = self._fused_plan()
+        self.fused_kernel = kernel
         md = self.mesh_data
-        if md.structured_n < 3:
-            raise NotImplementedError(
-                "the uniform fused operator needs n_points_per_axis >= 3; "
-                "the canvas operator is not ported yet"
-            )
         pattern = self._stencil_pattern()
-        spec = uniform_mod.build_uniform_spec(pattern)
         perm, inv = self._perm_tensors(pattern)
-        use_hbm = (self.matvec_impl == "fused_hbm"
-                   or not _fused_fits(md.structured_n,
-                                      self.extrapolate_warm_start))
-        self.fused_kernel = "B2" if use_hbm else "B1"
         n_steps = md.nt - 1
         use_ka = self.time_scheme_order == 2
-        lift_at = lifting.make_lift(self.problem, md.midpoints,
-                                    md.boundary_mask)
+        ext = self.extrapolate_warm_start
+        # Under Robin the mask is the reduced Dirichlet set; obstacle dead
+        # DOFs join it with a zero lift. A state that enters a kernel as 0
+        # on a dead DOF (an identity row with zero columns) stays exactly 0.
+        dmask = robin_terms(md, self.problem)[0]
+        _, dead = obstacle_masks(md, self.problem)
+        if dead is not None:
+            dmask = dmask | dead
+        lift_at = lifting.make_lift(self.problem, md.midpoints, dmask,
+                                    zero_mask=dead)
+        spec = uniform_mod.build_uniform_spec(pattern) if uniform else None
+        rect = (fused_hbm.robin_rect_bounds(pattern.c, self._robin)
+                if self._robin else None)
+
+        def post_check(u_fam, u0_fam):
+            # One launch: divergence is caught after the solve.
+            return torch.where(
+                linalg.diverged_state(u_fam, torch.linalg.norm(u0_fam)),
+                n_steps, -1,
+            ).to(torch.int32)
 
         def solve_fused(ops, u0):
-            consts = uniform_mod.extract_constants(spec, ops.system.vals)
-            mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
-            inv_diag_c = 1.0 / uniform_mod.family_constants(
-                spec, ops.system_diag
-            )
+            if dead is not None:
+                u0 = torch.where(dead, torch.zeros_like(u0), u0)
             # u0 goes in full (boundary values included): CN's first RHS
-            # reads boundary columns; the kernel masks the warm start.
+            # reads boundary columns; the kernels mask the warm start.
             u0_fam = u0[perm]
-            kw = dict(n_steps=n_steps, n_iters=self.chebyshev_iters,
-                      bounds=self._cheb_bounds, use_ka=use_ka,
-                      extrapolate=self.extrapolate_warm_start)
-            if use_hbm:
-                u_fam, bad = fused_hbm.fused_solve_uniform_hbm(
-                    spec, consts, mass_c, inv_diag_c, u0_fam,
-                    guard_every=fused_hbm.guard_stride(n_steps), **kw,
-                )
+            kw = dict(n_steps=n_steps, use_ka=use_ka, extrapolate=ext)
+            cheb = dict(n_iters=self.chebyshev_iters, bounds=self._cheb_bounds)
+            guard = fused_hbm.guard_stride(n_steps)
+            if uniform:
+                consts = uniform_mod.extract_constants(spec, ops.system.vals)
+                mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
+                inv_diag_c = 1.0 / uniform_mod.family_constants(
+                    spec, ops.system_diag)
+                args = (spec, consts, mass_c, inv_diag_c, u0_fam)
+                if kernel == "B2":
+                    u_fam, bad = fused_hbm.fused_solve_uniform_hbm(
+                        *args, guard_every=guard, **cheb, **kw)
+                else:
+                    u_fam = fused_solver.fused_solve_uniform(
+                        *args, **cheb, **kw)
+                    bad = post_check(u_fam, u0_fam)
             else:
-                # One launch: divergence is caught after the solve.
-                u_fam = fused_solver.fused_solve_uniform(
-                    spec, consts, mass_c, inv_diag_c, u0_fam, **kw,
-                )
-                bad = torch.where(
-                    linalg.diverged_state(u_fam, torch.linalg.norm(u0_fam)),
-                    n_steps, -1,
-                ).to(torch.int32)
+                coeffs = stencil_mod.extract_coefficients(pattern,
+                                                          ops.system.vals)
+                bmask_fam = dmask[perm]
+                mass_fam = torch.where(bmask_fam,
+                                       torch.zeros_like(ops.mass_diag[perm]),
+                                       ops.mass_diag[perm])
+                inv_diag_fam = 1.0 / ops.system_diag[perm]
+                args = (pattern, coeffs, mass_fam, inv_diag_fam, u0_fam)
+                if kernel == "B4":
+                    u_fam, bad = fused_hbm.fused_solve_canvas_hbm(
+                        *args, rect=rect, guard_every=guard, **cheb, **kw)
+                else:
+                    interior = 1.0 - bmask_fam.to(u0_fam.dtype)
+                    u_fam = fused_solver.fused_solve(
+                        *args, interior, n_iters=self.fused_iters, **kw)
+                    bad = post_check(u_fam, u0_fam)
             sols = lifting.lifted_final_state(lift_at, u_fam[inv], self.dt,
                                               n_steps)
             return sols, None, bad
@@ -580,6 +872,8 @@ class CRBESolver:
             return
         md = self.mesh_data
         if (self.matvec_impl in ("fused", "fused_hbm")
+                and not self._variable_coefficients
+                and not self._robin and not self._obstacles
                 and md.structured_n >= 3):
             # Family-layout uniform matvec: the same spectrum (similarity
             # by permutation) at a fraction of the ELL gather's cost.
@@ -639,9 +933,10 @@ class CRBESolver:
 
     def _reroute_divergent_chebyshev(self):
         """A divergence-prone Chebyshev configuration (factor >= the gate)
-        switches to BiCGStab on the scan paths, with a warning. The fused
-        paths have no BiCGStab kernel in this package, so there it raises
-        and names a working configuration."""
+        switches to BiCGStab with a warning where that configuration has a
+        BiCGStab route (the scan paths, and 'fused' on the canvas operator
+        through B5); elsewhere it raises and names a working
+        configuration."""
         factor = self._cheb_factor
         lo, hi = self._cheb_bounds
         detail = (
@@ -650,13 +945,21 @@ class CRBESolver:
             f"[{lo:.3f}, {hi:.3f}], skew {self._cheb_skew:.3f})"
         )
         if self.matvec_impl in ("fused", "fused_hbm"):
-            raise ValueError(
-                f"{detail} — the solve would diverge, and the fused kernels "
-                f"are Chebyshev-only. Working configurations: "
-                f"matvec_impl='stencil' with solver_method='bicgstab', or "
-                f"reduce dt / refine the mesh until dt*|v|/h < ~0.4. "
-                f"chebyshev_policy='warn' forces the solve anyway."
-            )
+            self.solver_method = "bicgstab"
+            try:
+                can_bicgstab = self._fused_plan()[1] == "B5"
+            except (ValueError, NotImplementedError):
+                can_bicgstab = False
+            if not can_bicgstab:
+                self.solver_method = "chebyshev"
+                raise ValueError(
+                    f"{detail} — the solve would diverge, and this "
+                    f"configuration's fused kernels are Chebyshev-only. "
+                    f"Working configurations: matvec_impl='stencil' with "
+                    f"solver_method='bicgstab', or reduce dt / refine the "
+                    f"mesh until dt*|v|/h < ~0.4. chebyshev_policy='warn' "
+                    f"forces the solve anyway."
+                )
         warnings.warn(
             f"auto-switching solver_method 'chebyshev' -> 'bicgstab': "
             f"{detail} — the Chebyshev solve may converge slowly or "
@@ -744,13 +1047,20 @@ class CRBESolver:
         return (float(l2 / (norm_ex + 1e-12)), float(l2), float(max_error))
 
 
-def _fused_fits(n: int, extrapolate: bool) -> bool:
-    """Routing between the whole-loop kernel (B1) and the per-step kernel
-    (B2), kept from the JAX package's ``_pallas_fused_fits`` for the
-    uniform Chebyshev solve so that one configuration picks the same
-    kernel in both packages: 3 state + 9 Chebyshev canvases (+3 with
-    extrapolation) of n^2 float32 under 14 MiB."""
-    n_canvases = 3 + 9 + (3 if extrapolate else 0)
+def _fused_fits(n: int, extrapolate: bool, uniform: bool = True,
+                method: str = "chebyshev") -> bool:
+    """The JAX package's ``_pallas_fused_fits`` routing budget, kept so that
+    one configuration picks the same kernel in both packages: the canvas
+    operator's 15 coefficient + 12 input + 3 output + 18 Krylov canvases,
+    or the uniform operator's 3 state + 9 Chebyshev (18 BiCGStab)
+    canvases, +3 with extrapolation, of n^2 float32 under 14 MiB."""
+    if not uniform:
+        n_canvases = 15 + 12 + 3 + 18
+    elif method == "chebyshev":
+        n_canvases = 3 + 9
+    else:
+        n_canvases = 3 + 18
+    n_canvases += 3 if extrapolate else 0
     return n_canvases * n * n * 4 < 14 * 1024 * 1024
 
 

@@ -1,20 +1,31 @@
-"""The whole CRBE time loop in one kernel launch (kernel B1), PyTorch
-counterpart of ``airpollution_tpu/ops/pallas_solver.py``'s
-``fused_solve_uniform`` with ``method="chebyshev"``.
+"""Whole-loop fused CRBE solves, one kernel launch per solve, PyTorch
+counterpart of ``airpollution_tpu/ops/pallas_solver.py``.
 
 Layout: the three edge families H (n x c), V (c x n), D (c x c) are
-embedded into one (3, n, n) zero-padded canvas tensor. The operator is
-translation-invariant (ops/uniform.py): 15 stencil scalars, 3 interior
-mass and 3 inverse-diagonal scalars, and per-family interior rectangles
-derived from indices. Each step forms the RHS (backward Euler
-``M mask(u)``; Crank-Nicolson ``2 M mask(u) - A u``), takes the warm start
-(``mask(2u - u_prev)`` when extrapolating), and runs k fixed Chebyshev
-iterations with no reductions.
+embedded into one (3, n, n) zero-padded canvas tensor. Each step forms
+the RHS (backward Euler ``M mask(u)``; Crank-Nicolson ``2 M mask(u) - A u``),
+takes the warm start (``mask(2u - u_prev)`` when extrapolating), and runs
+a fixed number of iterations.
 
-On a CUDA tensor ``fused_solve_uniform`` launches ``csrc/uniform_solver.cu``
-(a cooperative persistent kernel, one grid barrier per step); on a CPU
-tensor it runs :func:`plain_solve`, the same arithmetic on the full canvas
-with zero-padded shifts.
+- Kernel B1 (``fused_solve_uniform``): the translation-invariant operator
+  (ops/uniform.py: 15 stencil scalars, 3 interior mass and 3
+  inverse-diagonal scalars, per-family interior rectangles derived from
+  indices) with k Chebyshev iterations and no reductions.
+  ``csrc/uniform_solver.cu``, a cooperative persistent kernel with one
+  grid barrier per step.
+- Kernel B5 (``fused_solve``): the per-DOF canvas operator (15 coefficient
+  canvases of the masked system, masked-mass, inverse-diagonal and
+  interior-mask canvases) with k fixed BiCGStab iterations,
+  right-preconditioned by Jacobi, zero source. Crank-Nicolson costs no
+  extra coefficients: with ``P = diag(interior)``, ``B = I - P`` and the
+  masked system ``S = P (M + (dt/2) ka) + B``, the CN RHS is
+  ``b = 2 M_masked u + B u - S u``. ``csrc/canvas_solver.cu``, a
+  cooperative persistent kernel whose grid-wide dot products are summed
+  by every block in one fixed order.
+
+On a CUDA tensor each entry point launches its kernel; on a CPU tensor it
+runs the plain version (:func:`plain_solve`, :func:`plain_bicgstab_solve`),
+the same arithmetic on the full canvas with zero-padded shifts.
 """
 
 from __future__ import annotations
@@ -33,6 +44,13 @@ KERNEL = _build.Kernel(
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
 )
+CANVAS_KERNEL = _build.Kernel(
+    "canvas_solver", "canvas_solver.cu",
+    {torch.float32: "crbe_canvas_solve_f32",
+     torch.float64: "crbe_canvas_solve_f64"},
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+)
 
 #: Shared-memory budget a tile window may use: the 227 KB a block can
 #: address on Hopper, less room for the static scalar block.
@@ -46,6 +64,13 @@ MAX_ITERS = 64  # csrc/tile_step.cuh kMaxIters
 #: smaller ones pay more for the halo than they gain in occupancy.
 THREADS = 512
 TILE = 24
+#: B5's block size, measured on an H100 (scripts/torch_port_tile_sweep.py:
+#: 92 ms per 257^2 solve against 104 ms at 256), and the most blocks it
+#: runs (the size of its buffer of per-block partial sums;
+#: csrc/canvas_solver.cu kMaxGrid).
+CANVAS_THREADS = 512
+CANVAS_MAX_GRID = 2048
+_EPS = 1e-30  # BiCGStab breakdown guard, as the JAX kernel's
 
 
 def to_canvases(spec, x_fam):
@@ -66,11 +91,9 @@ def from_canvases(spec, u3):
                       u3[2, :c, :c].reshape(-1)])
 
 
-def step_scalars(consts, mass_consts, inv_diag_consts, bounds, n_iters,
-                 dtype):
-    """The kernels' scalar block: 15 stencil coefficients, 3 mass and 3
-    inverse-diagonal constants, 1/theta, then the Chebyshev recurrence
-    coefficients a_k = rho_{k+1} rho_k and b_k = 2 rho_{k+1} / delta.
+def cheb_scalars(bounds, n_iters, dtype, device):
+    """The Chebyshev recurrence as the kernels take it: 1/theta, then
+    a_k = rho_{k+1} rho_k and b_k = 2 rho_{k+1} / delta for k < n_iters.
 
     The recurrence depends only on the interval, so it is evaluated once
     here in double precision instead of per iteration on the device."""
@@ -87,10 +110,16 @@ def step_scalars(consts, mass_consts, inv_diag_consts, bounds, n_iters,
         a.append(rho_new * rho)
         b.append(2.0 * rho_new / delta)
         rho = rho_new
-    device = consts.device
-    tail = torch.tensor([1.0 / theta] + a + b, dtype=dtype, device=device)
+    return torch.tensor([1.0 / theta] + a + b, dtype=dtype, device=device)
+
+
+def step_scalars(consts, mass_consts, inv_diag_consts, bounds, n_iters,
+                 dtype):
+    """The uniform kernels' scalar block: 15 stencil coefficients, 3 mass
+    and 3 inverse-diagonal constants, then :func:`cheb_scalars`."""
     return torch.cat([consts.to(dtype), mass_consts.to(dtype),
-                      inv_diag_consts.to(dtype), tail])
+                      inv_diag_consts.to(dtype),
+                      cheb_scalars(bounds, n_iters, dtype, consts.device)])
 
 
 def halo_of(n_iters: int, use_ka: bool) -> int:
@@ -114,14 +143,17 @@ def choose_tile(halo: int, dtype, preferred: int) -> int:
     raise ValueError(f"halo {halo} too deep for the shared-memory budget")
 
 
-def rect_masks(n: int, dtype, device):
-    """(3, n, n) interior rectangles: H rows [1, c) x cols [0, c),
-    V rows [0, c) x cols [1, c), D rows [0, c) x cols [0, c)."""
+def rect_masks(n: int, dtype, device, rect=None):
+    """(3, n, n) interior rectangles: H rows [h_lo, h_hi) x cols [0, c),
+    V rows [0, c) x cols [v_lo, v_hi), D rows [0, c) x cols [0, c).
+    ``rect = (h_lo, h_hi, v_lo, v_hi)`` defaults to the all-Dirichlet
+    ``(1, c, 1, c)``; Robin walls widen it (fused_hbm.robin_rect_bounds)."""
     c = n - 1
+    h_lo, h_hi, v_lo, v_hi = rect if rect is not None else (1, c, 1, c)
     i = torch.arange(n, device=device)
     lt = i < c
-    rows = torch.stack([(i >= 1) & lt, lt, lt])[:, :, None]
-    cols = torch.stack([lt, (i >= 1) & lt, lt])[:, None, :]
+    rows = torch.stack([(i >= h_lo) & (i < h_hi), lt, lt])[:, :, None]
+    cols = torch.stack([lt, (i >= v_lo) & (i < v_hi), lt])[:, None, :]
     return (rows & cols).to(dtype)
 
 
@@ -138,8 +170,10 @@ def _shift(x, dr=0, dc=0):
     return x
 
 
-def canvas_matvec(s, x, masks):
-    """Rect-masked uniform stencil on (3, n, n) canvases."""
+def stencil_terms(s, x):
+    """The 15 stencil terms on (3, n, n) canvases, unmasked: ``s[t]`` are
+    scalars (the uniform operator) or (n, n) coefficient canvases (the
+    canvas operator)."""
     H, V, D = x[0], x[1], x[2]
     yH = (s[0] * H + s[1] * _shift(V, dc=1) + s[2] * D
           + s[3] * _shift(V, dr=-1) + s[4] * _shift(D, dr=-1))
@@ -147,7 +181,12 @@ def canvas_matvec(s, x, masks):
           + s[8] * _shift(H, dr=1) + s[9] * D)
     yD = (s[10] * D + s[11] * _shift(V, dc=1) + s[12] * H
           + s[13] * _shift(H, dr=1) + s[14] * V)
-    return masks * torch.stack([yH, yV, yD])
+    return torch.stack([yH, yV, yD])
+
+
+def canvas_matvec(s, x, masks):
+    """Rect-masked uniform stencil on (3, n, n) canvases."""
+    return masks * stencil_terms(s, x)
 
 
 def plain_step(scal, n_iters, u, up, use_ka, masks):
@@ -233,3 +272,137 @@ def fused_solve_uniform(spec, consts, mass_consts, inv_diag_consts, u0_fam,
     else:
         raise ValueError(f"unsupported device {u3.device}")
     return from_canvases(spec, out)
+
+
+def coeff_canvases(pattern, coeffs):
+    """The 15 coefficient grids (stencil.extract_coefficients order: 5 H-row,
+    5 V-row, 5 D-row terms) embedded at their row family's region of a
+    (15, n, n) zero canvas stack."""
+    n, c = pattern.n, pattern.c
+    out = torch.zeros((15, n, n), dtype=coeffs[0].dtype,
+                      device=coeffs[0].device)
+    for i, g in enumerate(coeffs):
+        if i < 5:
+            out[i, :, :c] = g
+        elif i < 10:
+            out[i, :c, :] = g
+        else:
+            out[i, :c, :c] = g
+    return out
+
+
+def bicgstab_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam,
+                      interior_fam, dtype):
+    """B5's (24, n, n) operator stack: the 15 coefficient canvases, then
+    the masked mass, inverse diagonal and interior mask canvases."""
+    return torch.cat([
+        coeff_canvases(pattern, coeffs).to(dtype),
+        to_canvases(pattern, mass_masked_fam.to(dtype)),
+        to_canvases(pattern, inv_diag_fam.to(dtype)),
+        to_canvases(pattern, interior_fam.to(dtype)),
+    ])
+
+
+def _guard(a):
+    return torch.where(a == 0, torch.full_like(a, _EPS), a)
+
+
+def _dot(a, b):
+    """Dot product of two canvas stacks, summed in double (as kernel B5
+    sums; see csrc/canvas_solver.cu)."""
+    return torch.sum(a * b, dtype=torch.float64)
+
+
+def plain_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate):
+    """B5's plain version: the whole loop on the full canvas. ``C`` is the
+    (24, n, n) operator stack of :func:`fused_solve` (15 coefficients, 3
+    masked mass, 3 inverse diagonal, 3 interior masks); each step resets
+    p, v to 0 and (rho, alpha, omega) to 1, as the JAX kernel does. The dot
+    products and the scalar recurrence are carried in double, the vectors
+    in u3's dtype."""
+    S, m, idg, mk = C[:15], C[15:18], C[18:21], C[21:24]
+    dtype = u3.dtype
+    one = torch.ones((), dtype=torch.float64, device=u3.device)
+    u, up = u3, (u3 if extrapolate else None)
+    for _ in range(n_steps):
+        if use_ka:
+            r = 2.0 * m * u + (1.0 - mk) * u - stencil_terms(S, u)
+        else:
+            r = m * u
+        if extrapolate:
+            u, up = (2.0 * u - up) * mk, u
+        else:
+            u = u * mk
+        r = r - stencil_terms(S, u)
+        rh = r
+        p = torch.zeros_like(u)
+        v = torch.zeros_like(u)
+        rho_old, alpha, omega = one, one, one
+        for _ in range(n_iters):
+            rho = _dot(rh, r)
+            beta = (rho / _guard(rho_old)) * (alpha / _guard(omega))
+            p = r + beta.to(dtype) * (p - omega.to(dtype) * v)
+            w = idg * p
+            v = stencil_terms(S, w)
+            alpha = rho / _guard(_dot(rh, v))
+            u = u + alpha.to(dtype) * w
+            r = r - alpha.to(dtype) * v
+            w = idg * r
+            t = stencil_terms(S, w)
+            omega = _dot(t, r) / _guard(_dot(t, t))
+            u = u + omega.to(dtype) * w
+            r = r - omega.to(dtype) * t
+            rho_old = rho
+    return u
+
+
+def kernel_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate,
+                          threads=CANVAS_THREADS):
+    """The whole loop in one launch of B5 (CUDA tensors only)."""
+    if not u3.is_cuda or not C.is_cuda:
+        raise ValueError("kernel_bicgstab_solve needs CUDA tensors")
+    if C.shape[0] != 24 or C.shape[1:] != u3.shape[1:] \
+            or C.dtype != u3.dtype:
+        raise ValueError("C must be the (24, n, n) operator stack of u3, "
+                         "of u3's dtype")
+    if n_steps == 0:
+        return u3
+    n = u3.shape[-1]
+    C = C.contiguous()
+    u = u3.contiguous().clone()
+    up = u.clone() if extrapolate else None
+    work = torch.empty((6,) + tuple(u.shape), dtype=u.dtype, device=u.device)
+    partials = torch.empty((4, CANVAS_MAX_GRID), dtype=torch.float64,
+                           device=u.device)
+    grid = ctypes.c_int(0)
+    P = _build.pointer
+    CANVAS_KERNEL.launch(u.dtype, P(C), P(u), P(up), P(work),
+                         P(partials), n, n_steps, n_iters, int(use_ka),
+                         threads, _build.current_stream(), ctypes.byref(grid))
+    return u
+
+
+def fused_solve(pattern, coeffs, mass_masked_fam, inv_diag_fam, u0_fam,
+                interior_fam, *, n_steps: int, n_iters: int = 5,
+                use_ka: bool = False, extrapolate: bool = False):
+    """The whole zero-source implicit loop with the canvas operator and
+    fixed-k BiCGStab (kernel B5).
+
+    All vectors are in family layout. ``coeffs``: the 15 coefficient grids
+    of the masked system (stencil.extract_coefficients);
+    ``mass_masked_fam`` is zero on Dirichlet rows; ``u0_fam`` arrives full
+    (boundary values included: its columns feed the first step's RHS);
+    ``interior_fam`` is 1 on unknowns and 0 on Dirichlet rows. Returns the
+    final homogeneous state in family layout (no boundary lift)."""
+    C = bicgstab_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam,
+                          interior_fam, u0_fam.dtype)
+    u3 = to_canvases(pattern, u0_fam)
+    kw = dict(n_steps=n_steps, n_iters=n_iters, use_ka=use_ka,
+              extrapolate=extrapolate)
+    if u3.is_cuda:
+        out = kernel_bicgstab_solve(C, u3, **kw)
+    elif u3.device.type == "cpu":
+        out = plain_bicgstab_solve(C, u3, **kw)
+    else:
+        raise ValueError(f"unsupported device {u3.device}")
+    return from_canvases(pattern, out)

@@ -10,14 +10,19 @@ from __future__ import annotations
 import torch
 
 
-def make_lift(problem, midpoints, boundary_mask):
-    """``lift_at(t)``: boundary values at time t on boundary DOFs, 0 inside."""
+def make_lift(problem, midpoints, boundary_mask, zero_mask=None):
+    """``lift_at(t)``: boundary values at time t on boundary DOFs, 0 inside.
+
+    ``zero_mask``: DOFs held at 0 whatever ``boundary_fn`` says there
+    (obstacle dead DOFs: identity rows pinned to 0 at interior
+    midpoints)."""
+    mask = boundary_mask if zero_mask is None else boundary_mask & ~zero_mask
 
     def lift_at(t):
         t_col = torch.full((midpoints.shape[0], 1), float(t),
                            dtype=midpoints.dtype, device=midpoints.device)
         vals = problem.boundary_fn(torch.cat([midpoints, t_col], dim=1))
-        return torch.where(boundary_mask, vals, torch.zeros_like(vals))
+        return torch.where(mask, vals, torch.zeros_like(vals))
 
     return lift_at
 

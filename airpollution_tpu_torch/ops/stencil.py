@@ -222,33 +222,50 @@ def get_pattern(mesh_data) -> StencilPattern:
 
 @dataclasses.dataclass(frozen=True)
 class FamilyView:
-    """The fields run_time_loop reads, permuted to family layout."""
+    """The fields run_time_loop reads, permuted to family layout.
+
+    ``points`` (unpermuted) supplies only the box extent, so that
+    models/crbe.robin_terms can derive the Robin side masks in family
+    order; ``obstacle_dead_mask`` is the obstacle dead-DOF mask in family
+    order (models/crbe.obstacle_masks honours it), or None."""
 
     midpoints: torch.Tensor
     boundary_mask: torch.Tensor
+    segment_lengths: torch.Tensor
+    points: torch.Tensor
     nt: int
+    obstacle_dead_mask: torch.Tensor | None = None
 
 
-def family_view(mesh_data, perm) -> FamilyView:
-    """MeshData stand-in with fields permuted by ``perm`` (family order)."""
+def family_view(mesh_data, perm, dead_mask=None) -> FamilyView:
+    """MeshData stand-in with fields permuted by ``perm`` (family order);
+    ``dead_mask`` (global order) is permuted the same way."""
     perm = torch.as_tensor(np.asarray(perm, dtype=np.int64),
                            device=mesh_data.device)
-    return FamilyView(midpoints=mesh_data.midpoints[perm],
-                      boundary_mask=mesh_data.boundary_mask[perm],
-                      nt=mesh_data.nt)
+    return FamilyView(
+        midpoints=mesh_data.midpoints[perm],
+        boundary_mask=mesh_data.boundary_mask[perm],
+        segment_lengths=mesh_data.segment_lengths[perm],
+        points=mesh_data.points, nt=mesh_data.nt,
+        obstacle_dead_mask=None if dead_mask is None else dead_mask[perm],
+    )
 
 
-def family_operators(pattern: StencilPattern, ops, order: int):
+def family_operators(pattern: StencilPattern, ops, order: int,
+                     matvec_fn=None):
     """Permuted diagonal operators plus stencil matvec closures (system,
-    and K+A for Crank-Nicolson) for a family-layout time loop."""
+    and K+A for Crank-Nicolson) for a family-layout time loop.
+    ``matvec_fn`` defaults to :func:`stencil_matvec` (pass kernel B3's
+    wrapper, ops/fused_stencil.stencil_matvec_fused, to use the kernel)."""
+    mv = matvec_fn or stencil_matvec
     perm = torch.as_tensor(pattern.perm.astype(np.int64),
                            device=ops.mass_diag.device)
     coeffs = extract_coefficients(pattern, ops.system.vals)
-    matvec = functools.partial(stencil_matvec, pattern, coeffs)
+    matvec = functools.partial(mv, pattern, coeffs)
     ka_matvec = None
     if order == 2:
         ka_coeffs = extract_coefficients(pattern, ops.ka.vals)
-        ka_matvec = functools.partial(stencil_matvec, pattern, ka_coeffs)
+        ka_matvec = functools.partial(mv, pattern, ka_coeffs)
     ops_fam = ops._replace(mass_diag=ops.mass_diag[perm],
                            system_diag=ops.system_diag[perm])
     return ops_fam, matvec, ka_matvec

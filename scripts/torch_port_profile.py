@@ -1,10 +1,14 @@
 """Where a main-path solve of the PyTorch port spends its time on the GPU.
 
 Profiles one warm ``CRBESolver.solve(store_solutions=False)`` of each
-main-path configuration with ``torch.profiler`` (CPU and CUDA activity):
-257^2, nt=1001, ``matvec_impl="fused"`` (kernel B1), Chebyshev-4
-extrapolated, BE; and 1025^2, nt=1001, ``matvec_impl="fused_hbm"`` (kernel
-B2), Chebyshev-8 extrapolated, BE; float32, 'reference' convention. From
+main-path configuration with ``torch.profiler`` (CPU and CUDA activity),
+float32, nt=1001, extrapolated warm start: the uniform operator at 257^2
+with ``matvec_impl="fused"`` (kernel B1, Chebyshev-4, BE) and at 1025^2
+with ``"fused_hbm"`` (kernel B2, Chebyshev-8, BE), both in the 'reference'
+convention; and the canvas cells of chip_smoke.py: C1, the rotating wind
+at 1025^2 on kernel B4 (Chebyshev-14, BE); C2, the same problem at 257^2
+on kernel B5 (BiCGStab-5, BE); C3, Robin walls and a block at 257^2 on
+B4 (Chebyshev-8, CN). From
 the Chrome trace it takes the device's busy time (the union of kernel and
 memory-operation intervals), the wall time of the solve, their ratio and
 the device time of the top kernels by name; beside them, the host time to
@@ -56,8 +60,7 @@ def profile(out, name, ms_mesh, problem, domain, **kw):
     md = apt.MeshData(apt.create_mesh(ms_mesh, 20.0), domain, nt=1001)
     torch.cuda.synchronize()
     mesh_s = time.perf_counter() - t0
-    s = apt.CRBESolver(domain, problem, md, stiffness_convention="reference",
-                       solver_method="chebyshev", extrapolate_warm_start=True,
+    s = apt.CRBESolver(domain, problem, md, extrapolate_warm_start=True,
                        **kw)
     t0 = time.perf_counter()
     s.solve(store_solutions=False)  # assembly, interval, pattern, kernel
@@ -90,11 +93,21 @@ def main():
     domain, problem = apt.Domain(), apt.Problem(sigma=1.0)
     from airpollution_tpu_torch import _build
 
-    _build.build(["uniform_solver.cu", "uniform_step.cu"])
+    _build.build([src.rsplit("/", 1)[1] for _, src, _ in cs.KERNELS.values()])
+    uniform = dict(stiffness_convention="reference", solver_method="chebyshev")
     profile(args.out, "fused_257_be", 257, problem, domain,
-            matvec_impl="fused", chebyshev_iters=4)
+            matvec_impl="fused", chebyshev_iters=4, **uniform)
     profile(args.out, "fused_hbm_1025_be", 1025, problem, domain,
-            matvec_impl="fused_hbm", chebyshev_iters=8)
+            matvec_impl="fused_hbm", chebyshev_iters=8, **uniform)
+    rotating = apt.RotatingPlumeProblem(omega=0.05, D=0.3)
+    profile(args.out, "canvas_c1_1025_be", 1025, rotating, domain,
+            matvec_impl="fused_hbm", solver_method="chebyshev",
+            chebyshev_iters=cs.C1_ITERS)
+    profile(args.out, "canvas_c2_257_be", 257, rotating, domain,
+            matvec_impl="fused", solver_method="bicgstab", fused_iters=5)
+    profile(args.out, "canvas_c3_257_cn", 257, cs.robin_obstacle_problem(),
+            domain, matvec_impl="fused_hbm", solver_method="chebyshev",
+            chebyshev_iters=8, time_scheme_order=2)
     print(cs.card_line(), flush=True)
     return 0
 

@@ -1,7 +1,9 @@
 """Guards on the port's boundaries: it imports no JAX, its entry points
 never fall back to the CPU on their own, a CPU tensor takes a kernel's
-plain version without needing the CUDA toolchain, and every option it
-does not have yet raises NotImplementedError."""
+plain version without needing the CUDA toolchain, every option it does
+not have yet raises NotImplementedError (and an invalid one ValueError,
+as in the JAX package), and each option a slice ported solves through the
+plain version of its kernel."""
 
 import os
 import subprocess
@@ -16,7 +18,7 @@ torch = pytest.importorskip("torch")
 import airpollution_tpu_torch as tapt
 from airpollution_tpu_torch import _build
 from airpollution_tpu_torch.models.crbe import CRBESolver
-from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+from airpollution_tpu_torch.ops import fused_hbm, fused_solver, fused_stencil
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
@@ -31,6 +33,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.models.crbe",
     "airpollution_tpu_torch.ops.fused_hbm",
     "airpollution_tpu_torch.ops.fused_solver",
+    "airpollution_tpu_torch.ops.fused_stencil",
     "airpollution_tpu_torch.ops.lifting",
     "airpollution_tpu_torch.ops.linalg",
     "airpollution_tpu_torch.ops.sparse",
@@ -75,8 +78,12 @@ def test_kernel_modules_import_without_nvcc():
     env = dict(os.environ, PATH="/nonexistent")
     out = _run("""
         from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+        from airpollution_tpu_torch.ops import fused_stencil
         assert fused_solver.KERNEL.launches == 0
-        assert fused_hbm.KERNEL._lib is None
+        kernels = (fused_solver.KERNEL, fused_solver.CANVAS_KERNEL,
+                   fused_hbm.KERNEL, fused_hbm.CANVAS_KERNEL,
+                   fused_stencil.KERNEL)
+        assert all(k._lib is None for k in kernels)
     """, env=env)
     assert out.returncode == 0, out.stderr
 
@@ -138,28 +145,94 @@ class _Sourced(tapt.Problem):
     zero_source = False
 
 
+class _RobinFlux(_Robin):
+    def robin_g_xy(self, x, y, t, side):
+        return 0.0 * x + 1.0
+
+
+class _TimeVarying(tapt.Problem):
+    time_varying = True
+
+
 FUSED_CHEB = dict(matvec_impl="fused", solver_method="chebyshev")
 
 
-@pytest.mark.parametrize("kw", [
-    dict(matvec_impl="fused", solver_method="bicgstab"),
-    dict(matvec_impl="fused_hbm", solver_method="bicgstab"),
-    dict(problem=_Sourced(), **FUSED_CHEB),
-    dict(snapshot_every=2),
-    dict(assembly="patch", **FUSED_CHEB),
-    dict(fused_operator="canvas", **FUSED_CHEB),
-    dict(problem=_Robin()),
-    dict(problem=_Obstacle()),
-    dict(problem=_Variable()),
-    dict(preconditioner="spectral", matvec_impl="stencil"),
-    dict(matvec_impl="uniform"),
-    dict(matvec_impl="pallas"),
+@pytest.mark.parametrize("kw,exc", [
+    (dict(matvec_impl="fused", solver_method="bicgstab"),
+     NotImplementedError),
+    (dict(matvec_impl="fused_hbm", solver_method="bicgstab"), ValueError),
+    (dict(problem=_Sourced(), **FUSED_CHEB), NotImplementedError),
+    (dict(problem=_Sourced(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), NotImplementedError),
+    (dict(problem=_Sourced(), matvec_impl="fused", fused_operator="canvas",
+          solver_method="bicgstab"), ValueError),
+    (dict(problem=_RobinFlux(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), NotImplementedError),
+    (dict(problem=_Variable(), fused_operator="uniform", **FUSED_CHEB),
+     ValueError),
+    (dict(problem=_TimeVarying()), ValueError),
+    (dict(snapshot_every=2), NotImplementedError),
+    (dict(assembly="patch", **FUSED_CHEB), NotImplementedError),
+    (dict(preconditioner="spectral", matvec_impl="stencil"),
+     NotImplementedError),
+    (dict(matvec_impl="uniform"), NotImplementedError),
 ], ids=["fused-bicgstab", "fused_hbm-bicgstab", "fused-sourced",
-        "snapshot_every", "patch", "canvas", "robin", "obstacles",
-        "variable-coefficients", "spectral", "uniform", "pallas"])
-def test_out_of_scope_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+        "fused_hbm-sourced", "canvas-bicgstab-sourced", "robin_g_xy-fused",
+        "variable-uniform-operator", "time-varying", "snapshot_every",
+        "patch", "spectral", "uniform"])
+def test_out_of_scope_options_raise(kw, exc):
+    with pytest.raises(exc):
         _unported(**kw)
+
+
+def _spy(monkeypatch, module, name):
+    """Count the calls of ``module.name`` (a kernel's plain version)."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("kw,kernel", [
+    (dict(fused_operator="canvas", **FUSED_CHEB), "B4"),
+    (dict(problem=_Robin(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), "B4"),
+    (dict(problem=_Obstacle(), matvec_impl="fused",
+          solver_method="bicgstab"), "B5"),
+    (dict(problem=_Variable(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), "B4"),
+    (dict(matvec_impl="pallas"), "B3"),
+    (dict(problem=_Robin(), assemble_only=True), None),
+], ids=["canvas", "robin", "obstacles", "variable-coefficients", "pallas",
+        "assemble-robin"])
+def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
+    from airpollution_tpu_torch.models import crbe
+
+    plain = {
+        "B3": _spy(monkeypatch, fused_stencil.stencil, "stencil_matvec"),
+        "B4": _spy(monkeypatch, fused_hbm, "plain_canvas_step"),
+        "B5": _spy(monkeypatch, fused_solver, "plain_bicgstab_solve"),
+    }
+    if kw.pop("assemble_only", False):
+        md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
+                           dtype=torch.float64, device="cpu")
+        ops = crbe.assemble(md, kw["problem"], 0.1, 1)
+        assert bool(torch.isfinite(ops.system.vals).all())
+        return
+    s = _unported(**kw)
+    out = s.solve(store_solutions=False)
+    assert out.shape == (1, s.mesh_data.number_of_segments)
+    assert bool(torch.isfinite(out).all())
+    assert getattr(s, "fused_kernel", "B3") == kernel
+    assert plain[kernel], f"the plain version of {kernel} was not used"
+    assert all(k.launches == 0 for k in (
+        fused_stencil.KERNEL, fused_hbm.CANVAS_KERNEL,
+        fused_solver.CANVAS_KERNEL))
 
 
 def test_other_entry_points_raise_on_unported_input():
@@ -168,7 +241,7 @@ def test_other_entry_points_raise_on_unported_input():
     md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
                        device="cpu")
     with pytest.raises(NotImplementedError):
-        crbe.assemble(md, _Robin(), 0.1, 1)
+        crbe.assemble(md, _TimeVarying(), 0.1, 1)
     with pytest.raises(NotImplementedError):
         fused_solver.fused_solve_uniform(
             None, None, None, None, torch.zeros(3), n_steps=1, n_iters=1,
