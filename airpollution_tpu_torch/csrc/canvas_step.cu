@@ -1,24 +1,24 @@
 // One fused CRBE time step with the per-DOF canvas operator and Chebyshev
 // iterations, one block per 2-D output tile; the caller loops over steps.
 //
-// Replaces airpollution_tpu/ops/pallas_hbm.py::_canvas_step_kernel (zero
-// source, raw_b=False), which streams row stripes of the state and of a
+// Replaces airpollution_tpu/ops/pallas_hbm.py::_canvas_step_kernel
+// (raw_b=False), which streams row stripes of the state and of a
 // (21, n, n) coefficient stack through VMEM with a double-buffered DMA.
 // The step is that of uniform_step.cu (tile_step.cuh), with the operator
-// read per DOF instead of from 22 scalars:
-//
-//   C[0..14]   the 15 stencil coefficients of the MASKED system
-//              (identity rows on Dirichlet and dead DOFs, zero outside each
-//              family's rows), so a matvec needs no rectangle mask;
-//   C[15..17]  the masked mass M (zero on Dirichlet rows);
-//   C[18..20]  the inverse system diagonal.
+// read per DOF (canvas_tile.cuh) instead of from 22 scalars:
 //
 //   b  = M u                                  (backward Euler)
 //   b  = 2 M u + (1 - mask) u - S u           (Crank-Nicolson, on the
 //                                              unmasked state)
+//   b += load                                 (optional emission load)
 //   x  = mask(2 u - u_prev) or mask(u)        (warm start)
 //   r  = b - S x;  d = (id r) / theta
 //   k times: x += d; r -= S d; d = a_k d + b_k (id r)
+//
+// The TPU kernel evaluates a Python source hook inside the kernel; a hook
+// cannot be compiled into this kernel, so the caller builds the load in
+// torch (ops/fused_hbm.EmissionLoads) and passes it as one (3, n, n)
+// plane, read once per cell. A null load is the source-free step.
 //
 // `mask` is the family interior rectangle, widened by Robin walls
 // (rect = h_lo, h_hi, v_lo, v_hi; ops/fused_hbm.robin_rect_bounds).
@@ -37,69 +37,29 @@
 //
 // What bounds it on an H100: device memory must see the coefficient stack
 // once and the state once each way per step: (21 + 4 x 3) x n^2 x
-// sizeof(T), 138.7 MB at 1025^2 in f32, 41 us at 3.35 TB/s. The per-cell
-// coefficient reads of every phase (x ~1.3 halo redundancy) make L1 / L2
-// traffic, not device memory, the likely limit of this simple design.
+// sizeof(T), 138.7 MB at 1025^2 in f32, 41 us at 3.35 TB/s (3 more planes
+// with a load). The per-cell coefficient reads of every phase (x ~1.3 halo
+// redundancy) make L1 / L2 traffic, not device memory, the likely limit of
+// this simple design.
 
 #include <cuda_runtime.h>
 
-#include "tile_step.cuh"
+#include "canvas_tile.cuh"
 
 namespace crbe {
 
-// Chebyshev scalar block: 1/theta, a_0..a_{k-1}, b_0..b_{k-1}.
-constexpr int kChebScal = 1 + 2 * kMaxIters;
-
-struct Rect {
-  int h_lo, h_hi, v_lo, v_hi;
-};
-
-// Family interior masks at canvas cell (gr, gc), widened by Robin walls:
-// H rows [h_lo, h_hi) x cols [0, c); V rows [0, c) x cols [v_lo, v_hi);
-// D [0, c)^2.
-template <typename T>
-__device__ __forceinline__ void rect_masks(int gr, int gc, int c,
-                                           const Rect& rc, T m[3]) {
-  const bool r_in = gr >= 0 && gr < c;
-  const bool c_in = gc >= 0 && gc < c;
-  m[0] = (gr >= rc.h_lo && gr < rc.h_hi && c_in) ? T(1) : T(0);
-  m[1] = (r_in && gc >= rc.v_lo && gc < rc.v_hi) ? T(1) : T(0);
-  m[2] = (r_in && c_in) ? T(1) : T(0);
-}
-
-// y = S x at window index q, canvas offset `off` (the 15 coefficients read
-// from device memory; 0 for a cell outside the canvas).
-template <typename T>
-__device__ __forceinline__ void apply_canvas(const T* __restrict__ C,
-                                             size_t nn, size_t off,
-                                             bool inside, const T* P, int q,
-                                             int W, int PS, T y[3]) {
-  if (!inside) {
-    y[0] = y[1] = y[2] = T(0);
-    return;
-  }
-  const T* H = P;
-  const T* V = P + PS;
-  const T* D = P + 2 * PS;
-  const T h0 = H[q], hl = H[q - 1], hd = H[q + W];
-  const T v0 = V[q], vr = V[q + 1], vu = V[q - W];
-  const T d0 = D[q], dl = D[q - 1], du = D[q - W];
-  const T* c = C + off;
-  y[0] = __ldg(c) * h0 + __ldg(c + nn) * vr + __ldg(c + 2 * nn) * d0 +
-         __ldg(c + 3 * nn) * vu + __ldg(c + 4 * nn) * du;
-  y[1] = __ldg(c + 5 * nn) * v0 + __ldg(c + 6 * nn) * dl +
-         __ldg(c + 7 * nn) * hl + __ldg(c + 8 * nn) * hd +
-         __ldg(c + 9 * nn) * d0;
-  y[2] = __ldg(c + 10 * nn) * d0 + __ldg(c + 11 * nn) * vr +
-         __ldg(c + 12 * nn) * h0 + __ldg(c + 13 * nn) * hd +
-         __ldg(c + 14 * nn) * v0;
-}
-
-template <int NT, typename T>
+// The phases are written out here rather than shared with B6 through
+// canvas_tile.cuh's canvas_solve, and the load is a template parameter: a
+// version that called canvas_solve and tested for the load at run time was
+// ~5% slower on an H100 at 1025^2 (0.843 against 0.797 ms at k=14);
+// written so, B4 without a load runs as it did before loads existed and a
+// load adds ~4% (scripts/torch_port_b4_ab.py compares two trees' B4).
+template <int NT, typename T, bool kLoad>
 __global__ void __launch_bounds__(NT)
     canvas_step_kernel(Geometry g, Rect rc, const T* __restrict__ C,
                        const T* scal, const T* u_in, const T* up_in,
-                       T* u_out, T* up_out, const int* halt) {
+                       T* u_out, T* up_out, const int* halt,
+                       const T* load) {
   if (halt != nullptr && *halt >= 0) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T s[kChebScal];
@@ -140,8 +100,8 @@ __global__ void __launch_bounds__(NT)
   });
   __syncthreads();
 
-  // 2. Right-hand side and warm start (x0 goes to Dn). Crank-Nicolson
-  //    reads S u, so its square shrinks by one.
+  // 2. Right-hand side (+ the load) and warm start (x0 goes to Dn).
+  //    Crank-Nicolson reads S u, so its square shrinks by one.
   int lo = g.use_ka ? 1 : 0;
   for_square<NT>(W, lo, [&](int wr, int wc) {
     size_t off;
@@ -160,6 +120,9 @@ __global__ void __launch_bounds__(NT)
         r = T(2) * mass * u + (T(1) - m[f]) * u - y[f];
       } else {
         r = mass * u;
+      }
+      if constexpr (kLoad) {
+        if (inside) r += load[f * nn + off];
       }
       R[f * PS + q] = r;
       T guess = u;
@@ -235,31 +198,43 @@ __global__ void __launch_bounds__(NT)
   });
 }
 
+template <int NT, typename T, bool kLoad>
+int launch_canvas_step_as(const T* C, const T* scal, const T* u_in,
+                          const T* up_in, T* u_out, T* up_out,
+                          const int* halt, const T* load, Geometry g,
+                          Rect rc, void* stream) {
+  const size_t smem = smem_bytes(g.tile, g.halo, sizeof(T));
+  static size_t smem_set = 0;
+  cudaError_t err =
+      ensure_smem(canvas_step_kernel<NT, T, kLoad>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  canvas_step_kernel<NT, T, kLoad>
+      <<<g.tiles_per_row * g.tiles_per_row, NT, smem,
+         static_cast<cudaStream_t>(stream)>>>(g, rc, C, scal, u_in, up_in,
+                                              u_out, up_out, halt, load);
+  return cudaGetLastError();
+}
+
 template <int NT, typename T>
 int launch_canvas_step_nt(const T* C, const T* scal, const T* u_in,
                           const T* up_in, T* u_out, T* up_out,
-                          const int* halt, Geometry g, Rect rc,
-                          void* stream) {
-  const size_t smem = smem_bytes(g.tile, g.halo, sizeof(T));
-  // The attribute is per kernel; raise it only when a launch needs more.
-  static size_t smem_set = 0;
-  if (smem > smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        canvas_step_kernel<NT, T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    smem_set = smem;
+                          const int* halt, const T* load, Geometry g,
+                          Rect rc, void* stream) {
+  if (load != nullptr) {
+    return launch_canvas_step_as<NT, T, true>(C, scal, u_in, up_in, u_out,
+                                              up_out, halt, load, g, rc,
+                                              stream);
   }
-  canvas_step_kernel<NT, T><<<g.tiles_per_row * g.tiles_per_row, NT, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      g, rc, C, scal, u_in, up_in, u_out, up_out, halt);
-  return cudaGetLastError();
+  return launch_canvas_step_as<NT, T, false>(C, scal, u_in, up_in, u_out,
+                                             up_out, halt, load, g, rc,
+                                             stream);
 }
 
 template <typename T>
 int launch_canvas_step(const T* C, const T* scal, const T* u_in,
                        const T* up_in, T* u_out, T* up_out, const int* halt,
-                       int n, int tile, int halo, int n_iters, int use_ka,
+                       const T* load, int n, int tile, int halo,
+                       int n_iters, int use_ka,
                        int h_lo, int h_hi, int v_lo, int v_hi, int threads,
                        void* stream) {
   if (n_iters < 1 || n_iters > kMaxIters) return cudaErrorInvalidValue;
@@ -274,11 +249,11 @@ int launch_canvas_step(const T* C, const T* scal, const T* u_in,
   Rect rc{h_lo, h_hi, v_lo, v_hi};
   if (threads == 256) {
     return launch_canvas_step_nt<256>(C, scal, u_in, up_in, u_out, up_out,
-                                      halt, g, rc, stream);
+                                      halt, load, g, rc, stream);
   }
   if (threads == 512) {
     return launch_canvas_step_nt<512>(C, scal, u_in, up_in, u_out, up_out,
-                                      halt, g, rc, stream);
+                                      halt, load, g, rc, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -289,23 +264,24 @@ extern "C" {
 
 int crbe_canvas_step_f32(const float* C, const float* scal, const float* u_in,
                          const float* up_in, float* u_out, float* up_out,
-                         const int* halt, int n, int tile, int halo,
-                         int n_iters, int use_ka, int h_lo, int h_hi,
-                         int v_lo, int v_hi, int threads, void* stream) {
+                         const int* halt, const float* load, int n, int tile,
+                         int halo, int n_iters, int use_ka, int h_lo,
+                         int h_hi, int v_lo, int v_hi, int threads,
+                         void* stream) {
   return crbe::launch_canvas_step<float>(C, scal, u_in, up_in, u_out, up_out,
-                                         halt, n, tile, halo, n_iters, use_ka,
-                                         h_lo, h_hi, v_lo, v_hi, threads,
-                                         stream);
+                                         halt, load, n, tile, halo, n_iters,
+                                         use_ka, h_lo, h_hi, v_lo, v_hi,
+                                         threads, stream);
 }
 
 int crbe_canvas_step_f64(const double* C, const double* scal,
                          const double* u_in, const double* up_in,
                          double* u_out, double* up_out, const int* halt,
-                         int n, int tile, int halo, int n_iters, int use_ka,
-                         int h_lo, int h_hi, int v_lo, int v_hi, int threads,
-                         void* stream) {
+                         const double* load, int n, int tile, int halo,
+                         int n_iters, int use_ka, int h_lo, int h_hi,
+                         int v_lo, int v_hi, int threads, void* stream) {
   return crbe::launch_canvas_step<double>(C, scal, u_in, up_in, u_out,
-                                          up_out, halt, n, tile, halo,
+                                          up_out, halt, load, n, tile, halo,
                                           n_iters, use_ka, h_lo, h_hi, v_lo,
                                           v_hi, threads, stream);
 }

@@ -6,8 +6,10 @@ and the initial state. ``operators_from_numpy`` builds this package's
 ``GlobalOperators`` from plain arrays, for example those of another
 implementation's assembly, so both can run on one operator; hand the
 interval to ``CRBESolver(cheb_bounds=...)`` and the operator to
-``CRBESolver.set_operators``. ``canvas_operator_from_numpy`` does the same
-for the per-DOF canvas operator that the fused canvas kernels take.
+``CRBESolver.set_operators``. ``stacked_operators_from_numpy`` stacks
+per-species operators for ``MultiSpeciesSolver.set_operators``, and
+``canvas_operator_from_numpy`` carries the per-DOF canvas operator that
+the fused canvas kernels take.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.models.crbe import GlobalOperators
+from airpollution_tpu_torch.models.multispecies import stack_operators
 from airpollution_tpu_torch.ops.sparse import EllMatrix
 
 
@@ -47,6 +50,17 @@ def operators_from_numpy(*, mass_diag, stiffness, advection, ka, system,
         system=ell(system),
         system_diag=real(system_diag),
     )
+
+
+def stacked_operators_from_numpy(species_ops, *, dtype=None, device=None):
+    """Per-species operators stacked along a leading species axis, the
+    layout of a multi-species solve whose species do not share (v, D):
+    ``species_ops`` is one dict of :func:`operators_from_numpy` keyword
+    arrays per species."""
+    return stack_operators([
+        operators_from_numpy(**ops, dtype=dtype, device=device)
+        for ops in species_ops
+    ])
 
 
 def canvas_operator_from_numpy(*, coeffs, mass_fam, inv_diag_fam,

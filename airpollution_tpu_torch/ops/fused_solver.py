@@ -128,17 +128,18 @@ def halo_of(n_iters: int, use_ka: bool) -> int:
     return n_iters + (1 if use_ka else 0)
 
 
-def tile_fits(tile: int, halo: int, dtype) -> bool:
-    """Whether four 3-family planes of a tile's window fit shared memory."""
+def tile_fits(tile: int, halo: int, dtype, planes: int = 12) -> bool:
+    """Whether ``planes`` window planes of a tile (by default four
+    3-family planes: x, r, d, d_next) fit shared memory."""
     elem = torch.tensor([], dtype=dtype).element_size()
-    return 12 * (tile + 2 * halo) ** 2 * elem <= SMEM_BUDGET
+    return planes * (tile + 2 * halo) ** 2 * elem <= SMEM_BUDGET
 
 
-def choose_tile(halo: int, dtype, preferred: int) -> int:
-    """Largest output tile up to ``preferred`` whose four 3-family window
+def choose_tile(halo: int, dtype, preferred: int, planes: int = 12) -> int:
+    """Largest output tile up to ``preferred`` whose ``planes`` window
     planes fit the shared-memory budget."""
     for t in TILE_CANDIDATES:
-        if t <= preferred and tile_fits(t, halo, dtype):
+        if t <= preferred and tile_fits(t, halo, dtype, planes):
             return t
     raise ValueError(f"halo {halo} too deep for the shared-memory budget")
 

@@ -29,8 +29,17 @@ class EllMatrix(NamedTuple):
 
 
 def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x: one gather, multiply and row sum."""
-    return torch.sum(A.vals * x[A.cols], dim=1)
+    """y = A @ x: one gather, multiply and row sum. ``x`` is (n,) or
+    (..., n) (one operator applied to every row, e.g. every species)."""
+    return torch.sum(A.vals * x[..., A.cols], dim=-1)
+
+
+def ell_matvec_stacked(A: EllMatrix, X: torch.Tensor) -> torch.Tensor:
+    """Y[k] = A_k @ X[k] for a stack of operators with (K, n, width)
+    values and columns, and a (K, n) X."""
+    K, n, width = A.cols.shape
+    g = torch.gather(X, 1, A.cols.reshape(K, n * width)).reshape(K, n, width)
+    return torch.sum(A.vals * g, dim=-1)
 
 
 def ell_from_entries(entry_vals, entry_to_slot, cols) -> EllMatrix:

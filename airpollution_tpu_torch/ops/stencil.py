@@ -163,11 +163,14 @@ def extract_coefficients(pattern: StencilPattern, ell_vals) -> tuple:
 
 
 def split_families(n: int, x_fam):
-    """Family-layout vector -> (H (n, c), V (c, n), D (c, c)) views."""
+    """Family-layout vectors (..., N) -> (H (..., n, c), V (..., c, n),
+    D (..., c, c)) views; leading dims (e.g. species) are kept."""
     c = n - 1
     nH = n * c
-    return (x_fam[:nH].reshape(n, c), x_fam[nH:2 * nH].reshape(c, n),
-            x_fam[2 * nH:].reshape(c, c))
+    lead = tuple(x_fam.shape[:-1])
+    return (x_fam[..., :nH].reshape(lead + (n, c)),
+            x_fam[..., nH:2 * nH].reshape(lead + (c, n)),
+            x_fam[..., 2 * nH:].reshape(lead + (c, c)))
 
 
 def _pad(x, top=0, bottom=0, left=0, right=0):
@@ -177,35 +180,39 @@ def _pad(x, top=0, bottom=0, left=0, right=0):
 
 def stencil_matvec_terms(n: int, coeffs, xH, xV, xD):
     """The 15 shift-multiply-add terms; ``coeffs`` entries may be grids
-    or scalars. Returns (yH, yV, yD)."""
+    or scalars, the x grids may carry leading dims. Returns (yH, yV,
+    yD)."""
     c = n - 1
     (cHH, cHVu, cHDu, cHVd, cHDd,
      cVV, cVDl, cVHl, cVHr, cVDr,
      cDD, cDVr, cDHd, cDHu, cDVl) = coeffs
     yH = (cHH * xH
-          + cHVu * _pad(xV[:, 1:], bottom=1)
+          + cHVu * _pad(xV[..., 1:], bottom=1)
           + cHDu * _pad(xD, bottom=1)
-          + cHVd * _pad(xV[:, :c], top=1)
+          + cHVd * _pad(xV[..., :c], top=1)
           + cHDd * _pad(xD, top=1))
     yV = (cVV * xV
           + cVDl * _pad(xD, left=1)
-          + cVHl * _pad(xH[:c, :], left=1)
-          + cVHr * _pad(xH[1:, :], right=1)
+          + cVHl * _pad(xH[..., :c, :], left=1)
+          + cVHr * _pad(xH[..., 1:, :], right=1)
           + cVDr * _pad(xD, right=1))
     yD = (cDD * xD
-          + cDVr * xV[:, 1:]
-          + cDHd * xH[:c, :]
-          + cDHu * xH[1:, :]
-          + cDVl * xV[:, :c])
+          + cDVr * xV[..., 1:]
+          + cDHd * xH[..., :c, :]
+          + cDHu * xH[..., 1:, :]
+          + cDVl * xV[..., :c])
     return yH, yV, yD
 
 
 def stencil_matvec(pattern: StencilPattern, coeffs: tuple, x_fam):
-    """y = A @ x in family layout: 15 shift-multiply-adds, no gathers."""
+    """y = A @ x in family layout: 15 shift-multiply-adds, no gathers.
+    ``x_fam`` is (N,) or (..., N), e.g. one row per species."""
     yH, yV, yD = stencil_matvec_terms(
         pattern.n, coeffs, *split_families(pattern.n, x_fam)
     )
-    return torch.cat([yH.reshape(-1), yV.reshape(-1), yD.reshape(-1)])
+    lead = tuple(x_fam.shape[:-1])
+    return torch.cat([yH.reshape(lead + (-1,)), yV.reshape(lead + (-1,)),
+                      yD.reshape(lead + (-1,))], dim=-1)
 
 
 def get_pattern(mesh_data) -> StencilPattern:

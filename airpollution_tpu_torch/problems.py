@@ -6,8 +6,10 @@ the class flags the solver routes on and the per-DOF hooks (variable
 winds and diffusion, Robin walls, obstacles), the Gaussian-plume
 ``Problem`` (its closed form is IC, boundary data and oracle at once), the
 square-pulse release, the rotating plume (the oracle of the variable-wind
-solve) and the box ``Domain``. Methods take tensors of any device and
-dtype and return tensors on the same device and dtype.
+solve), the Gaussian emitter, the ``MultiSpeciesProblem`` container of
+K species coupled by linear chemistry, and the box ``Domain``. Methods
+take tensors of any device and dtype and return tensors on the same
+device and dtype.
 
 The plume (utils/common.py:47-50 of the reference):
 ``exp(-((x - vx t)^2 + (y - vy t)^2) / (4 D t + sigma^2)) / (pi (4 D t + sigma^2))``
@@ -20,6 +22,7 @@ import abc
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 # Outward unit normals of the box sides, keyed by the side names a
@@ -96,6 +99,15 @@ class AdDifProblem(abc.ABC):
     @abc.abstractmethod
     def source_term(self, xyt):
         """Source s(x, y, t) at space-time points ``xyt`` (N, 3)."""
+
+    def source_xy(self, x, y, t):
+        """Elementwise source on separate coordinate tensors (broadcast),
+        the form the fused paths' emission loads are built from
+        (ops/fused_hbm.EmissionLoads). The default wraps ``source_term``;
+        a subclass with a closed form may override it."""
+        x, y = torch.broadcast_tensors(x, y)
+        xyt = torch.stack([x, y, torch.full_like(x, float(t))], dim=-1)
+        return self.source_term(xyt)
 
     def robin_g(self, xy, t, side):
         """Robin inhomogeneity g(x, y, t) on the named side. Delegates to
@@ -206,6 +218,229 @@ class SquarePulseProblem(AdDifProblem):
 
     def source_term(self, xyt):
         return torch.zeros_like(xyt[..., 0])
+
+
+class GaussianSourceProblem(AdDifProblem):
+    """Continuous Gaussian emitter: zero initial concentration, zero
+    Dirichlet boundary and the steady source
+
+        s(x, y) = q exp(-((x - xs)^2 + (y - ys)^2) / (2 sigma_s^2))
+                  / (2 pi sigma_s^2),
+
+    a total emission rate ``q`` spread over a footprint of width
+    ``sigma_s`` centred at ``(xs, ys)``. It has no closed-form solution."""
+
+    zero_source = False
+    steady_source = True  # t-independent: the fused paths build its load once
+
+    def __init__(self, v=(1.0, 0.5), D=0.1, q=1.0, xs=0.0, ys=0.0,
+                 sigma_s=1.0, reaction=0.0):
+        super().__init__(v, D, reaction)
+        self.q = float(q)
+        self.xs = float(xs)
+        self.ys = float(ys)
+        self.sigma_s = float(sigma_s)
+
+    def initial_condition_fn(self, xy):
+        _check_xy(xy)
+        return torch.zeros(xy.shape[:-1], dtype=xy.dtype, device=xy.device)
+
+    def boundary_fn(self, xyt):
+        return torch.zeros_like(xyt[..., 0])
+
+    def source_term(self, xyt):
+        _check_xyt(xyt)
+        return self.source_xy(xyt[..., 0], xyt[..., 1], None)
+
+    def source_xy(self, x, y, t):
+        r2 = (x - self.xs) ** 2 + (y - self.ys) ** 2
+        s2 = self.sigma_s ** 2
+        return self.q * torch.exp(-r2 / (2.0 * s2)) / (2.0 * math.pi * s2)
+
+
+class MultiSpeciesProblem:
+    """K species over one transport field, coupled by linear chemistry:
+
+        dt c_k + v_k . grad c_k - D_k lap c_k + sum_j R[k, j] c_j = s_k.
+
+    A container, not an :class:`AdDifProblem`: each wrapped single-species
+    problem supplies its initial, boundary and source data and its (v, D);
+    all chemistry lives in the (K, K) matrix ``R``, so each species'
+    ``reaction`` must be 0. Robin sides (their partition, not their
+    alphas) and obstacles must be common to all species. Solved by
+    ``models.multispecies.MultiSpeciesSolver``.
+
+    When every species shares (v, D), transport commutes with the
+    chemistry and ``c(t) = expm(-R t) [phi_1(t), ..., phi_K(t)]`` with
+    ``phi_j`` the uncoupled solution of species j: the oracle of
+    :meth:`analytical_solution`, where each species has a closed form.
+    """
+
+    def __init__(self, species, R):
+        self.species = tuple(species)
+        if len(self.species) < 1:
+            raise ValueError("need at least one species problem")
+        for k, p in enumerate(self.species):
+            r = getattr(p, "reaction", 0.0)
+            if not (isinstance(r, (int, float)) and r == 0.0):
+                raise ValueError(
+                    f"species {k} has reaction={r!r}; per-species decay "
+                    "belongs on the diagonal of R (set reaction=0)"
+                )
+            if getattr(p, "time_varying", False) or getattr(
+                    p, "variable_coefficients", False):
+                raise ValueError(
+                    "multi-species solves support constant-coefficient "
+                    f"species problems only (species {k} is variable/"
+                    "time-varying)"
+                )
+        K = len(self.species)
+        self.R = torch.as_tensor(R, dtype=torch.float64).cpu()
+        if tuple(self.R.shape) != (K, K):
+            raise ValueError(
+                f"R must be ({K}, {K}) for {K} species, got "
+                f"{tuple(self.R.shape)}"
+            )
+        sides0 = frozenset(getattr(self.species[0], "robin_sides", None)
+                           or ())
+        for k, p in enumerate(self.species[1:], start=1):
+            sides = frozenset(getattr(p, "robin_sides", None) or ())
+            if sides != sides0:
+                raise ValueError(
+                    f"species {k} names Robin sides {sorted(sides)} but "
+                    f"species 0 names {sorted(sides0)} — all species "
+                    "must share the Dirichlet/Robin partition "
+                    "(deposition velocities may differ)"
+                )
+        for k, p in enumerate(self.species):
+            if getattr(p, "robin_sides", None) and robin_g_customized(p):
+                raise ValueError(
+                    f"species {k} overrides robin_g/robin_g_xy — "
+                    "multi-species Robin walls support the homogeneous "
+                    "flux law only (deposition/no-flux; g = 0)"
+                )
+        obs0 = getattr(self.species[0], "obstacles", None) or None
+        for k, p in enumerate(self.species[1:], start=1):
+            if (getattr(p, "obstacles", None) or None) != obs0:
+                raise ValueError(
+                    f"species {k} declares different obstacles than "
+                    "species 0 — obstacle geometry must be common to "
+                    "every species"
+                )
+
+    @property
+    def obstacles(self):
+        """The common obstacle geometry, so that solver gates and
+        ``obstacle_masks`` read the container like a single problem."""
+        return getattr(self.species[0], "obstacles", None)
+
+    def obstacle_fn(self, xy):
+        return self.species[0].obstacle_fn(xy)
+
+    @property
+    def n_species(self):
+        return len(self.species)
+
+    @property
+    def zero_source(self):
+        return all(getattr(p, "zero_source", False) for p in self.species)
+
+    @property
+    def shared_transport(self):
+        """True when all species share (v, D) and the Robin spec: one
+        assembled operator then serves every species."""
+        p0 = self.species[0]
+        rb0 = getattr(p0, "robin_sides", None)
+        return all(
+            np.allclose(np.asarray(p.v), np.asarray(p0.v))
+            and np.allclose(np.asarray(p.D), np.asarray(p0.D))
+            and getattr(p, "robin_sides", None) == rb0
+            for p in self.species[1:]
+        )
+
+    @property
+    def has_analytical(self):
+        """True when the expm-mixture oracle applies."""
+        return self.shared_transport and all(
+            hasattr(p, "analytical_solution") for p in self.species
+        )
+
+    # --- stacked per-species evaluations (K along dim 0) ---
+
+    def initial_conditions(self, xy):
+        """(K, N) initial concentrations at (N, 2) points."""
+        return torch.stack([p.initial_condition_fn(xy)
+                            for p in self.species])
+
+    @staticmethod
+    def _xyt(xy, t):
+        t_col = torch.full(xy.shape[:-1] + (1,), float(t), dtype=xy.dtype,
+                           device=xy.device)
+        return torch.cat([xy, t_col], dim=-1)
+
+    def boundary_values(self, xy, t, R=None):
+        """(K, N) Dirichlet values at scalar time ``t``: the oracle where
+        it applies (the chemistry mixture of the uncoupled boundary
+        values), else the species' own ``boundary_fn`` values."""
+        if self.has_analytical:
+            return self.analytical_solution(xy, t, R=R)
+        xyt = self._xyt(xy, t)
+        return torch.stack([p.boundary_fn(xyt) for p in self.species])
+
+    def sources(self, xy, t):
+        """(K, N) source terms at scalar time ``t``."""
+        xyt = self._xyt(xy, t)
+        return torch.stack([p.source_term(xyt) for p in self.species])
+
+    def analytical_solution(self, xy, t, R=None):
+        """(K, N) exact coupled solution at scalar time ``t``:
+        ``expm(-R t)`` (:func:`expm64`, then cast) applied across the
+        uncoupled solutions as sums of K scaled rows."""
+        if not self.has_analytical:
+            raise ValueError(
+                "the expm-mixture oracle needs shared (v, D) and "
+                "analytical per-species problems"
+            )
+        R = self.R if R is None else torch.as_tensor(R, dtype=torch.float64)
+        phi = torch.stack([p.analytical_solution(self._xyt(xy, t))
+                           for p in self.species])
+        E = expm64(-float(t) * R).to(phi.dtype)
+        return mix_species(E.to(phi.device), phi)
+
+
+def expm64(A) -> torch.Tensor:
+    """Matrix exponential of a small matrix, float64 on the host, by
+    scaling and squaring with a degree-18 Taylor polynomial (argument norm
+    <= 1/2, truncation below 1e-22). ``torch.linalg.matrix_exp`` is not
+    used: for small-norm arguments such as ``-dt/2 R`` it loses ~1e-11
+    (1.6e-11 at ``-0.0625 [[0.3, -0.1], [-0.2, 0.4]]`` against scipy's
+    and the JAX package's ``expm``, torch 2.13 on the CPU), an error every
+    chemistry half-step would repeat."""
+    A = torch.as_tensor(A, dtype=torch.float64).cpu()
+    norm = float(torch.linalg.matrix_norm(A, ord=1)) if A.numel() else 0.0
+    squarings = max(0, math.ceil(math.log2(norm / 0.5))) if norm > 0 else 0
+    X = A / 2.0 ** squarings
+    term = torch.eye(A.shape[0], dtype=torch.float64)
+    out = term.clone()
+    for k in range(1, 19):
+        term = term @ X / k
+        out = out + term
+    for _ in range(squarings):
+        out = out @ out
+    return out
+
+
+def mix_species(E, X):
+    """``sum_j E[k, j] X[j]`` for every k: a (K, K) chemistry matrix
+    applied across the species axis of ``X`` as sums of scaled planes
+    (elementwise, so no reduced-precision matrix product can reach it)."""
+    out = []
+    for k in range(E.shape[0]):
+        acc = E[k, 0] * X[0]
+        for j in range(1, E.shape[0]):
+            acc = acc + E[k, j] * X[j]
+        out.append(acc)
+    return torch.stack(out)
 
 
 class RotatingPlumeProblem(AdDifProblem):

@@ -22,13 +22,22 @@ Phases, each printing one JSON line:
    1025^2 on B4 (Chebyshev-14, BE and CN); C2, the same problem at 257^2 on
    B5 (BiCGStab-5); C3, Robin walls and an obstacle at 257^2 on B4 (CN,
    Chebyshev-8) and on the scan path through B3;
-6. the kernels line (launches on each path, errors, times, bounds).
+6. kernel B6 (multispecies step with in-kernel chemistry) and B4 with an
+   emission load against their plain versions, f64 and f32;
+7. the multispecies chemistry-transport path (MultiSpeciesSolver, Strang,
+   fused_hbm): M1, the largest row of scripts/multispecies_fused_demo.py
+   (1025^2, nt=4001, K=3, CN, Chebyshev-8) on B6, with its k-vs-2k and
+   fuse_chemistry=False (B4) checks and chain masses against the f64
+   oracle; M2 (257^2, nt=1001, Chebyshev-6) against the stencil scan and
+   with strided snapshots;
+8. the kernels line (launches on each path, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -52,6 +61,9 @@ KERNELS = {
            "airpollution_tpu/ops/pallas_hbm.py:518"),
     "B5": ("canvas_solver", "airpollution_tpu_torch/csrc/canvas_solver.cu",
            "airpollution_tpu/ops/pallas_solver.py:94"),
+    "B6": ("multispecies_step",
+           "airpollution_tpu_torch/csrc/multispecies_step.cu",
+           "airpollution_tpu/ops/pallas_hbm.py:844"),
 }
 
 # C1's Chebyshev iterations. The configuration of
@@ -60,6 +72,18 @@ KERNELS = {
 # diffusion number D dt / h^2 is ~2); k=14 is the smallest count that
 # converges in BE (8 suffices) and CN alike (PERF.md, section 6).
 C1_ITERS = 14
+
+# The multispecies cells: the decay chain of
+# scripts/multispecies_fused_demo.py (make_problem), and the chain masses
+# of its f64 oracle (results_snapshot/multispecies_fused.json,
+# mass_oracle_*: the JAX package's stencil scan with tight BiCGStab in f64
+# on the CPU, not a TPU figure).
+DEMO_ITERS = {1025: 8, 257: 6}
+ORACLE_MASSES = {
+    1025: (4.908422111253186, 7.476449759345221, 7.615124509185543),
+    257: (4.908417411286732, 7.476452686725357, 7.615125384751755),
+}
+MASS_TOL = 5e-3
 
 # Kernel-vs-plain bounds on max|kernel - plain|, relative to max|plain|.
 # The kernels contract multiply-adds into FMAs and B5 sums its dot
@@ -80,6 +104,7 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+@functools.lru_cache(maxsize=1)
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -213,7 +238,8 @@ def kernel_objects():
 
     return {"B1": fused_solver.KERNEL, "B2": fused_hbm.KERNEL,
             "B3": fused_stencil.KERNEL, "B4": fused_hbm.CANVAS_KERNEL,
-            "B5": fused_solver.CANVAS_KERNEL}
+            "B5": fused_solver.CANVAS_KERNEL,
+            "B6": fused_hbm.MULTISPECIES_KERNEL}
 
 
 def reset_counts():
@@ -314,8 +340,9 @@ def phase_b2(meshes, problem):
     return worst
 
 
-def timed_solves(solver, reps):
-    solver.solve(store_solutions=False)  # warm-up
+def timed_solves(solver, reps, warm_up=True):
+    if warm_up:
+        solver.solve(store_solutions=False)
     times = []
     for _ in range(reps):
         solver.solve(store_solutions=False)
@@ -894,6 +921,446 @@ def canvas_kernel_times(meshes, problems, cache):
     return out
 
 
+# --- multispecies: kernel B6, B4 with a load, M1 and M2 --------------------
+
+
+def chain_R(K):
+    """The decay chain A1 -> ... -> AK of scripts/multispecies_fused_demo.py
+    (make_problem): rates 0.4, 0.2, then 0.2 * 0.85^i."""
+    import numpy as np
+
+    rates = [0.4, 0.2][:K - 1] + [0.2 * 0.85 ** i
+                                  for i in range(1, K - 2 + 1)][:max(0, K - 3)]
+    R = np.zeros((K, K))
+    for i, r in enumerate(rates):
+        R[i, i] += r
+        R[i + 1, i] -= r
+    return R
+
+
+def demo_species(K):
+    """The demo's species: a Gaussian emitter of A, then K - 1 species with
+    zero initial and boundary values; all with v = (1, 0.2), D = 0.3."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+
+    class Clean(apt.Problem):
+        def initial_condition_fn(self, xy):
+            return torch.zeros(xy.shape[:-1], dtype=xy.dtype,
+                               device=xy.device)
+
+        def boundary_fn(self, xyt):
+            return torch.zeros_like(xyt[..., 0])
+
+    src = apt.GaussianSourceProblem(q=2.0, xs=-6.0, ys=0.0, sigma_s=1.5,
+                                    v=(1.0, 0.2), D=0.3)
+    return [src] + [Clean(v=(1.0, 0.2), D=0.3, sigma=1.0)
+                    for _ in range(K - 1)]
+
+
+def demo_problem(K=3):
+    import airpollution_tpu_torch as apt
+
+    return apt.MultiSpeciesProblem(demo_species(K), chain_R(K))
+
+
+def walled_source():
+    """A Gaussian emitter with C3's walls and block: its load is masked by
+    the Robin-widened rectangle and must vanish on the dead DOFs."""
+    import airpollution_tpu_torch as apt
+
+    class WalledSource(apt.GaussianSourceProblem):
+        robin_sides = {"bottom": 0.05, "top": 0.0}
+        obstacles = ((-4.0, 4.0, -4.0, 4.0),)
+
+    return WalledSource(q=2.0, xs=-6.0, ys=0.0, sigma_s=1.5)
+
+
+def species_states(inp, K, seed):
+    """K distinct (3, n, n) states on the operator's support: the problem's
+    initial state scaled per species plus seeded noise, zero on dead
+    DOFs."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_solver
+
+    rng = np.random.default_rng(seed)
+    u0 = inp["u0"]
+    out = []
+    for j in range(K):
+        noise = torch.tensor(rng.standard_normal(u0.shape[0]) * 1e-2,
+                             dtype=u0.dtype, device=u0.device)
+        u = u0 * (1.0 + 0.3 * j) + noise
+        if inp["dead"] is not None:
+            u = torch.where(inp["dead"], torch.zeros_like(u), u)
+        out.append(fused_solver.to_canvases(inp["pattern"], u))
+    return torch.stack(out)
+
+
+def step_loads(inp, md, source, K, use_ka, C, masks, lumped, dtype):
+    """The emission load of ``source`` on species 0 (B6's ``loads`` and
+    ``load_index``), as the fused solve builds it."""
+    from airpollution_tpu_torch.mesh.data import structured_grid
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    live = None
+    if inp["dead"] is not None:
+        live = 1.0 - fused_solver.to_canvases(inp["pattern"],
+                                              inp["dead"].to(dtype))
+    loads = fused_hbm.EmissionLoads(
+        (source.source_xy,) + (None,) * (K - 1), (True,) + (False,) * (K - 1),
+        grid=structured_grid(md), dt=md.domain.T / (md.nt - 1), t0=0.0,
+        use_ka=use_ka, lumped=lumped, mass3=C[15:18], masks=masks, live=live)
+    return loads.advance(), loads.index
+
+
+def b6_case(inp, md, K, k, order, dtype, source, lumped, seed=0):
+    """Inputs of one B6 step: (C, cheb, E, scal, U, masks, loads, index,
+    tile)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm
+    from airpollution_tpu_torch.problems import expm64
+
+    use_ka = order == 2
+    C, cheb, _, masks = canvas_step_inputs(inp, k, dtype)
+    dt = md.domain.T / (md.nt - 1)
+    E64 = expm64(-(0.5 * dt) * torch.as_tensor(chain_R(K)))
+    U = species_states(inp, K, seed)
+    loads, index = (None, [-1] * K)
+    if source is not None:
+        loads, index = step_loads(inp, md, source, K, use_ka, C, masks,
+                                  lumped, dtype)
+    scal = fused_hbm.multispecies_scalars(inp["bounds"], k, E64, dtype,
+                                          U.device)
+    tile = fused_hbm.multispecies_tile(K, k, use_ka, dtype)
+    return dict(C=C, cheb=cheb, E=E64.to(dtype=dtype, device=U.device),
+                scal=scal, U=U, masks=masks, loads=loads, index=index,
+                tile=tile, use_ka=use_ka)
+
+
+def run_b6(case, k, rect):
+    """(kernel, plain) outputs of one B6 step."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm
+
+    got = torch.empty_like(case["U"])
+    halt = torch.tensor(-1, dtype=torch.int32, device=got.device)
+    fused_hbm.multispecies_kernel_step(
+        case["C"], case["scal"], k, case["U"], got, case["use_ka"], rect,
+        halt, case["tile"], case["loads"], case["index"])
+    ref = fused_hbm.plain_multispecies_step(
+        case["C"], case["cheb"], case["E"], k, case["U"], case["use_ka"],
+        case["masks"], case["loads"], case["index"])
+    torch.cuda.synchronize()
+    return got, ref
+
+
+def worst_cell(diff, tile):
+    """Species, family, row, column and tile of the largest entry of a
+    (K, 3, n, n) diff."""
+    import torch
+
+    s, f, r, c = (int(i) for i in torch.unravel_index(diff.argmax(),
+                                                      diff.shape))
+    return {"species": s, "family": "HVD"[f], "row": r, "col": c,
+            "tile": [r // tile, c // tile]}
+
+
+def phase_b6(meshes, problems, cache):
+    """Kernel B6 against plain_multispecies_step: one step at 129^2 and
+    1025^2, K = 3 and 5, BE and CN, with and without the demo's Gaussian
+    load, on the demo's transport (k=8); and a 2-species step on C3's Robin
+    rectangle and block with the walled emitter's load (reference
+    quadrature), whose dead DOFs must stay exactly 0."""
+    import torch
+
+    worst = {}
+    rows = []
+    src = demo_species(1)[0]
+    walled = walled_source()
+    k = DEMO_ITERS[1025]
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (129, 1025):
+            md = meshes[(ms, name)]
+            cases = [("demo", K, order, source, True)
+                     for K in (3, 5) for order in (1, 2)
+                     for source in (None, src)]
+            cases += [("C3", 2, order, walled, False) for order in (1, 2)]
+            for pname, K, order, source, lumped in cases:
+                inp = canvas_inputs(md, problems[pname], order, dtype, cache)
+                case = b6_case(inp, md, K, k, order, dtype, source, lumped)
+                got, ref = run_b6(case, k, inp["rect"])
+                abs_e, rel, diff = rel_err(got, ref)
+                row = {"ms": ms, "problem": pname, "dtype": name, "K": K,
+                       "order": order, "load": source is not None,
+                       "tile": case["tile"], "rel_err": rel,
+                       "worst_at": worst_cell(diff, case["tile"])}
+                if inp["dead"] is not None:
+                    from airpollution_tpu_torch.ops import fused_solver
+
+                    dead3 = fused_solver.to_canvases(
+                        inp["pattern"], inp["dead"].to(dtype)).bool()
+                    row["dead_max_abs"] = float(got[:, dead3].abs().max())
+                    check(row["dead_max_abs"] == 0.0,
+                          f"B6 {ms}^2 {pname}: dead DOFs reach "
+                          f"{row['dead_max_abs']}")
+                rows.append(row)
+                check(rel <= TOL[name],
+                      f"B6 {ms}^2 {pname} {name} K={K} order={order}: rel "
+                      f"err {rel:.3e} > {TOL[name]:.0e} at {row['worst_at']}")
+                if ms == 1025 and name == "float32":
+                    worst["B6"] = max(worst.get("B6", 0.0), abs_e)
+    emit({"phase": "b6_vs_plain", "card": card_line(), "cases": rows})
+    return worst
+
+
+def phase_b4_load(meshes, problems, cache):
+    """Kernel B4 with an emission load against plain_canvas_step: one step
+    at 129^2 and 1025^2, BE and CN, the demo's emitter on its transport
+    (lumped) and the walled emitter on C3's (reference quadrature)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    worst = {}
+    rows = []
+    k = DEMO_ITERS[1025]
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (129, 1025):
+            md = meshes[(ms, name)]
+            for pname, source, lumped in (("demo", demo_species(1)[0], True),
+                                          ("C3", walled_source(), False)):
+                for order in (1, 2):
+                    use_ka = order == 2
+                    inp = canvas_inputs(md, problems[pname], order, dtype,
+                                        cache)
+                    C, cheb, u, masks = canvas_step_inputs(inp, k, dtype)
+                    (load,), _ = step_loads(inp, md, source, 1, use_ka, C,
+                                            masks, lumped, dtype)
+                    tile = fused_solver.choose_tile(
+                        fused_solver.halo_of(k, use_ka), dtype,
+                        fused_hbm.CANVAS_TILE)
+                    got = torch.empty_like(u)
+                    halt = torch.tensor(-1, dtype=torch.int32,
+                                        device=u.device)
+                    fused_hbm.canvas_kernel_step(
+                        C, cheb, k, u, None, got, None, use_ka, inp["rect"],
+                        halt, tile, load=load)
+                    ref, _ = fused_hbm.plain_canvas_step(
+                        C, cheb, k, u, None, use_ka, masks, load)
+                    torch.cuda.synchronize()
+                    abs_e, rel, diff = rel_err(got, ref)
+                    rows.append({"ms": ms, "problem": pname, "dtype": name,
+                                 "order": order, "tile": tile,
+                                 "rel_err": rel, "worst_at": worst_at(diff)})
+                    check(rel <= TOL[name],
+                          f"B4+load {ms}^2 {pname} {name} order={order}: "
+                          f"rel err {rel:.3e} > {TOL[name]:.0e}")
+                    if ms == 1025 and name == "float32":
+                        worst["B4"] = max(worst.get("B4", 0.0), abs_e)
+    emit({"phase": "b4_load_vs_plain", "card": card_line(), "cases": rows})
+    return worst
+
+
+def chain_masses(solver):
+    """(K,) masses of the final state: U @ mass_diag, summed in double."""
+    U = solver.solutions[-1].double()
+    return [float(m) for m in (U * solver._ops.mass_diag.double()).sum(-1)]
+
+
+def rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def multispecies_solver(md, domain, problem, k, impl="fused_hbm", **kw):
+    from airpollution_tpu_torch.models.multispecies import MultiSpeciesSolver
+
+    return MultiSpeciesSolver(domain, problem, md, time_scheme_order=2,
+                              matvec_impl=impl, splitting="strang",
+                              solver_method="chebyshev", chebyshev_iters=k,
+                              **kw)
+
+
+def phase_m1(md, domain):
+    """M1, the demo's largest row: 1025^2, nt=4001, K=3, CN, Chebyshev-8,
+    Strang on B6. Warm steps/s, 4,000 B6 launches per solve, chain masses
+    against the f64 oracle, k-vs-2k, and the fuse_chemistry=False path (K
+    B4 launches per step) against it. Returns the B6 launches of the path's
+    run (counts zeroed just before it)."""
+    import torch
+
+    problem = demo_problem(3)
+    k = DEMO_ITERS[1025]
+    n_steps = md.nt - 1
+    out = {"phase": "m1_multispecies_1025", "card": card_line(), "ms": 1025,
+           "nt": md.nt, "dofs": md.number_of_segments, "K": 3, "k": k}
+    s = multispecies_solver(md, domain, problem, k)
+    t0 = time.perf_counter()
+    reset_counts()
+    s.solve(store_solutions=False)
+    first = launches_of("B6")
+    out["first_solve_s"] = time.perf_counter() - t0
+    check(first == n_steps and launches_of("B4") == 0,
+          f"M1: {first} B6 launches in one solve, not {n_steps}")
+    times = timed_solves(s, 2, warm_up=False)
+    launches = launches_of("B6")
+    out.update({"b6_launches_per_solve": first, "b6_launches": launches,
+                "steps_per_s_best": n_steps / min(times),
+                "steps_per_s_median": n_steps / statistics.median(times),
+                "cheb_bounds": list(s._fused_bounds_cache[1])})
+    U = s.solutions[-1].clone()
+    check(bool(torch.isfinite(U).all()), "M1: non-finite state")
+    masses = chain_masses(s)
+    oracle = ORACLE_MASSES[1025]
+    rels = [abs(m - o) / abs(o) for m, o in zip(masses, oracle)]
+    out.update({"masses": masses, "oracle_masses": list(oracle),
+                "mass_rel_vs_oracle": max(rels)})
+    check(max(rels) < MASS_TOL,
+          f"M1 masses {masses} not within {MASS_TOL} of {oracle}")
+    bounds = s._fused_bounds_cache[1]
+    s2 = multispecies_solver(md, domain, problem, 2 * k, cheb_bounds=bounds)
+    s2.set_operators(s._ops)
+    s2.solve(store_solutions=False)
+    out["k_vs_2k_rel_maxdiff"] = rel_max(U, s2.solutions[-1])
+    check(out["k_vs_2k_rel_maxdiff"] < 5e-3,
+          f"M1 k-vs-2k {out['k_vs_2k_rel_maxdiff']:.3e} >= 5e-3")
+    unf = multispecies_solver(md, domain, problem, k, cheb_bounds=bounds,
+                              fuse_chemistry=False)
+    unf.set_operators(s._ops)
+    reset_counts()
+    unf.solve(store_solutions=False)
+    out["b4_launches_per_solve_unfused"] = launches_of("B4")
+    check(launches_of("B4") == 3 * n_steps and launches_of("B6") == 0,
+          f"M1 unfused: {launches_of('B4')} B4 launches, not {3 * n_steps}")
+    times_u = timed_solves(unf, 2, warm_up=False)
+    out["unfused_steps_per_s_best"] = n_steps / min(times_u)
+    out["unfused_steps_per_s_median"] = n_steps / statistics.median(times_u)
+    out["fuse_rel_maxdiff"] = rel_max(U, unf.solutions[-1])
+    check(out["fuse_rel_maxdiff"] < 1e-4,
+          f"M1 fuse A/B {out['fuse_rel_maxdiff']:.3e} >= 1e-4")
+    emit(out)
+    return launches
+
+
+def phase_m2(md, domain):
+    """M2: 257^2, nt=1001, K=3, CN, Chebyshev-6. B6 against the port's
+    stencil scan (Strang, the same interval), chain masses against the
+    oracle's 257^2 values, and a snapshot_every=100 solve whose last row
+    equals the final-state solve bit for bit."""
+    import torch
+
+    problem = demo_problem(3)
+    k = DEMO_ITERS[257]
+    n_steps = md.nt - 1
+    out = {"phase": "m2_multispecies_257", "card": card_line(), "ms": 257,
+           "nt": md.nt, "dofs": md.number_of_segments, "K": 3, "k": k}
+    reset_counts()
+    s = multispecies_solver(md, domain, problem, k)
+    s.solve(store_solutions=False)
+    out["b6_launches_per_solve"] = launches_of("B6")
+    check(launches_of("B6") == n_steps, "M2: B6 launches per solve")
+    times = timed_solves(s, 3)
+    out["steps_per_s_best"] = n_steps / min(times)
+    out["steps_per_s_median"] = n_steps / statistics.median(times)
+    U = s.solutions[-1].clone()
+    bounds = s._fused_bounds_cache[1]
+    scan = multispecies_solver(md, domain, problem, k, impl="stencil",
+                               cheb_bounds=bounds)
+    scan.set_operators(s._ops)
+    reset_counts()
+    t0 = time.perf_counter()
+    scan.solve(store_solutions=False)
+    out["scan_solve_s"] = time.perf_counter() - t0
+    check(launches_of("B6") == 0 and launches_of("B4") == 0,
+          "M2: the scan path launched a fused kernel")
+    out["fused_vs_scan_rel_maxdiff"] = rel_max(U, scan.solutions[-1])
+    check(out["fused_vs_scan_rel_maxdiff"] <= 1e-4,
+          f"M2 fused vs scan {out['fused_vs_scan_rel_maxdiff']:.3e} > 1e-4")
+    masses = chain_masses(s)
+    oracle = ORACLE_MASSES[257]
+    out["masses"] = masses
+    out["mass_rel_vs_oracle"] = max(abs(m - o) / abs(o)
+                                    for m, o in zip(masses, oracle))
+    check(out["mass_rel_vs_oracle"] < MASS_TOL,
+          f"M2 masses {masses} not within {MASS_TOL} of {oracle}")
+    snap = multispecies_solver(md, domain, problem, k, cheb_bounds=bounds,
+                               snapshot_every=100)
+    snap.set_operators(s._ops)
+    rows = snap.solve(store_solutions=True)
+    out["snapshot_rows"] = rows.shape[0]
+    out["snapshot_last_equals_final"] = bool(torch.equal(rows[-1], U))
+    check(rows.shape[0] == n_steps // 100 + 1
+          and out["snapshot_last_equals_final"],
+          "M2: the last strided row differs from the final state")
+    emit(out)
+
+
+def multispecies_kernel_times(meshes, problems, cache):
+    """B6's time per launch at M1's shape (1025^2, K=3, k=8, CN, one load,
+    f32) and its plain version's, its bound, B6's time at M2's shape
+    (257^2, k=6), and B4's time with and without a load at M1's shape (the
+    fuse_chemistry=False step's launches)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    md = meshes[(1025, "float32")]
+    k, K = DEMO_ITERS[1025], 3
+    inp = canvas_inputs(md, problems["demo"], 2, torch.float32, cache)
+    case = b6_case(inp, md, K, k, 2, torch.float32, demo_species(1)[0], True)
+    got, ref = run_b6(case, k, inp["rect"])
+    abs_e, rel, _ = rel_err(got, ref)
+    check(rel <= TOL["float32"], f"B6 1025^2 step: rel err {rel:.3e}")
+    out_buf = torch.empty_like(case["U"])
+    halt = torch.tensor(-1, dtype=torch.int32, device=out_buf.device)
+    ms = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
+        case["C"], case["scal"], k, case["U"], out_buf, True, inp["rect"],
+        halt, case["tile"], case["loads"], case["index"]), 30)
+    plain = cuda_ms(lambda: fused_hbm.plain_multispecies_step(
+        case["C"], case["cheb"], case["E"], k, case["U"], True,
+        case["masks"], case["loads"], case["index"]), 3)
+    n2 = md.structured_n ** 2
+    dofs = md.number_of_segments
+    n_bytes = (21 + 6 * K + 3) * n2 * 4
+    flops = (K * dofs * canvas_step_flops_per_dof(k, True, False)
+             + 2 * dofs * K * (2 * K - 1) + dofs)
+    b_ms, by = bound(n_bytes, flops)
+    # B4 with a load: one species' step of the same shape.
+    u = case["U"][0]
+    load = case["loads"][0]
+    tile = fused_solver.choose_tile(fused_solver.halo_of(k, True),
+                                    torch.float32, fused_hbm.CANVAS_TILE)
+    b4_out = torch.empty_like(u)
+    b4_ms = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
+        case["C"], case["cheb"], k, u, None, b4_out, None, True, inp["rect"],
+        halt, tile, load=load), 30)
+    b4_nl = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
+        case["C"], case["cheb"], k, u, None, b4_out, None, True, inp["rect"],
+        halt, tile), 30)
+    # B6 at M2's shape (257^2, k=6), for M2's share of a step.
+    md2 = meshes[(257, "float32")]
+    k2 = DEMO_ITERS[257]
+    inp2 = canvas_inputs(md2, problems["demo"], 2, torch.float32, cache)
+    case2 = b6_case(inp2, md2, K, k2, 2, torch.float32, demo_species(1)[0],
+                    True)
+    out2 = torch.empty_like(case2["U"])
+    ms_257 = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
+        case2["C"], case2["scal"], k2, case2["U"], out2, True, inp2["rect"],
+        halt, case2["tile"], case2["loads"], case2["index"]), 200)
+    emit({"phase": "multispecies_kernel_times", "card": card_line(),
+          "b6_ms": ms, "b6_plain_ms": plain, "b6_bound_ms": b_ms,
+          "b6_tile": case["tile"], "b6_ms_257_k6": ms_257,
+          "b4_with_load_ms": b4_ms, "b4_without_load_ms": b4_nl, "b4_k": k,
+          "b4_order": 2})
+    return {"B6": (ms, plain, b_ms, by, abs_e, None)}
+
+
 def main() -> int:
     import torch
 
@@ -910,7 +1377,8 @@ def main() -> int:
     domain = apt.Domain()
     problem = apt.Problem(sigma=1.0)
     problems = {"C1": apt.RotatingPlumeProblem(omega=0.05, D=0.3),
-                "C3": robin_obstacle_problem()}
+                "C3": robin_obstacle_problem(),
+                "demo": apt.Problem(v=(1.0, 0.2), D=0.3, sigma=1.0)}
     # float64 meshes where the float64 kernel checks need their own
     # assembly; the 1025^2 float64 checks reuse the float32 assembly's
     # inputs (the comparison needs identical inputs, not exact ones).
@@ -931,8 +1399,12 @@ def main() -> int:
     worst.update(phase_b3(meshes, problems, cache))
     worst.update(phase_b4(meshes, problems, cache))
     worst.update(phase_b5(meshes, problems, cache))
+    worst.update(phase_b6(meshes, problems, cache))
+    worst["B4"] = max(worst["B4"],
+                      phase_b4_load(meshes, problems, cache)["B4"])
     times = kernel_times(meshes, problem)
     times.update(canvas_kernel_times(meshes, problems, cache))
+    times.update(multispecies_kernel_times(meshes, problems, cache))
 
     launches = {
         "B1": phase_main_257(meshes[(257, "float32")], problem, domain),
@@ -944,6 +1416,10 @@ def main() -> int:
     }
     launches["B3"], _ = phase_robin_obstacle(
         meshes[(257, "float32")], md_257_65, problems["C3"], domain)
+    cache.clear()
+    md_m1 = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=4001)
+    launches["B6"] = phase_m1(md_m1, domain)
+    phase_m2(meshes[(257, "float32")], domain)
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library = times[kid]

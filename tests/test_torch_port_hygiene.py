@@ -31,6 +31,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.mesh.structured",
     "airpollution_tpu_torch.mesh.topology",
     "airpollution_tpu_torch.models.crbe",
+    "airpollution_tpu_torch.models.multispecies",
     "airpollution_tpu_torch.ops.fused_hbm",
     "airpollution_tpu_torch.ops.fused_solver",
     "airpollution_tpu_torch.ops.fused_stencil",
@@ -82,7 +83,7 @@ def test_kernel_modules_import_without_nvcc():
         assert fused_solver.KERNEL.launches == 0
         kernels = (fused_solver.KERNEL, fused_solver.CANVAS_KERNEL,
                    fused_hbm.KERNEL, fused_hbm.CANVAS_KERNEL,
-                   fused_stencil.KERNEL)
+                   fused_hbm.MULTISPECIES_KERNEL, fused_stencil.KERNEL)
         assert all(k._lib is None for k in kernels)
     """, env=env)
     assert out.returncode == 0, out.stderr
@@ -98,6 +99,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         CRBESolver(tapt.Domain(), tapt.Problem(), md)
     with pytest.raises(ValueError, match="differs"):
         CRBESolver(tapt.Domain(), tapt.Problem(), md, device="meta")
+    chem = tapt.MultiSpeciesProblem((tapt.Problem(), tapt.Problem()),
+                                    [[0.1, 0.0], [-0.1, 0.0]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapt.MultiSpeciesSolver(tapt.Domain(), chem, md)
+    with pytest.raises(ValueError, match="differs"):
+        tapt.MultiSpeciesSolver(tapt.Domain(), chem, md, device="meta")
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -246,3 +253,66 @@ def test_other_entry_points_raise_on_unported_input():
         fused_solver.fused_solve_uniform(
             None, None, None, None, torch.zeros(3), n_steps=1, n_iters=1,
             method="bicgstab")
+
+
+def _chemistry(sourced=True):
+    first = (tapt.GaussianSourceProblem(q=2.0, xs=-2.0) if sourced
+             else tapt.Problem())
+    return tapt.MultiSpeciesProblem((first, tapt.Problem(sigma=2.0)),
+                                    [[0.3, -0.1], [-0.2, 0.4]])
+
+
+def _multispecies(problem=None, nt=9, **kw):
+    md = tapt.MeshData(tapt.create_mesh(9, 20.0), tapt.Domain(T=1.0), nt=nt,
+                       dtype=torch.float64, device="cpu")
+    return tapt.MultiSpeciesSolver(tapt.Domain(T=1.0),
+                                   problem or _chemistry(), md,
+                                   device="cpu", **kw)
+
+
+@pytest.mark.parametrize("fuse,plain", [
+    (True, "plain_multispecies_step"), (False, "plain_canvas_step")])
+def test_multispecies_cpu_tensors_take_the_plain_kernels(monkeypatch, fuse,
+                                                         plain):
+    """The fused Strang route on CPU tensors: B6's plain version (B4's
+    with fuse_chemistry=False) once per step, no build, no launch."""
+    def no_build(*_a, **_k):
+        raise AssertionError("a CPU solve must not build CUDA kernels")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    calls = _spy(monkeypatch, fused_hbm, plain)
+    s = _multispecies(time_scheme_order=2, matvec_impl="fused_hbm",
+                      splitting="strang", solver_method="chebyshev",
+                      chebyshev_iters=6, fuse_chemistry=fuse)
+    out = s.solve(store_solutions=False)
+    assert out.shape == (1, 2, s.mesh_data.number_of_segments)
+    assert bool(torch.isfinite(out).all())
+    assert len(calls) == (8 if fuse else 16)
+    assert fused_hbm.MULTISPECIES_KERNEL.launches == 0
+    assert fused_hbm.CANVAS_KERNEL.launches == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_hbm.multispecies_kernel_step(
+            torch.zeros((21, 9, 9)), torch.zeros(1), 1,
+            torch.zeros((2, 3, 9, 9)), torch.zeros((2, 3, 9, 9)), False,
+            (1, 8, 1, 8), None, 8)
+
+
+def test_multispecies_unported_options_raise():
+    from airpollution_tpu_torch.models import multispecies
+
+    with pytest.raises(NotImplementedError):
+        _multispecies(matvec_impl="uniform")
+    # The commute route rides the port's CRBESolver, whose snapshot_every
+    # is still to port.
+    s = _multispecies(_chemistry(sourced=False), snapshot_every=4)
+    assert s.splitting == "commute"
+    with pytest.raises(NotImplementedError):
+        s.solve()
+    s = _multispecies(splitting="strang", solver_method="chebyshev")
+    ops = s.build_global_matrices()
+    C0 = s.set_initial_condition()
+    base = dict(mesh_data=s.mesh_data, problem=s.problem, dt=s.dt, order=1,
+                tol=1e-8, maxiter=10)
+    for extra in (dict(differentiable=True), dict(R=s.problem.R)):
+        with pytest.raises(NotImplementedError):
+            multispecies.run_multispecies_loop(ops, C0, **base, **extra)
