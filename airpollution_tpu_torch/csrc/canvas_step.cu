@@ -17,7 +17,7 @@
 //
 // The TPU kernel evaluates a Python source hook inside the kernel; a hook
 // cannot be compiled into this kernel, so the caller builds the load in
-// torch (ops/fused_hbm.EmissionLoads) and passes it as one (3, n, n)
+// torch (ops/loads.EmissionLoads) and passes it as one (3, n, n)
 // plane, read once per cell. A null load is the source-free step.
 //
 // `mask` is the family interior rectangle, widened by Robin walls

@@ -30,7 +30,7 @@
 // T=32 in f32 (T=16 in f64: 166 KB); ops/fused_hbm picks T per (K, k,
 // dtype). Dead DOFs stay exactly 0: the mix of zeros is zero, and a dead
 // row of the masked operator is an identity row with zero mass and zero
-// columns; the loads are zero there (ops/fused_hbm.EmissionLoads).
+// columns; the loads are zero there (ops/loads.EmissionLoads).
 //
 // Emission loads: the TPU kernel evaluates each species' Python source
 // hook inside the kernel. A hook cannot be compiled into this kernel, so

@@ -14,6 +14,7 @@
 //
 //   b  = M mask(u)                      (backward Euler)
 //   b  = 2 M mask(u) - A u              (Crank-Nicolson, A the masked system)
+//   b += load                           (optional source load, one plane)
 //   x  = mask(2 u - u_prev) or mask(u)  (warm start)
 //   r  = b - A x;  d = (id / theta) r
 //   k times: x += d; r -= A d; d = a_k d + (b_k id) r   (Chebyshev, Saad 12.1)
@@ -67,6 +68,7 @@ struct StepIO {
   const T* up_in;  // nullptr without the extrapolated warm start
   T* u_out;
   T* up_out;
+  const T* load;   // (3, n, n) load of this step; read only when kLoad
 };
 
 // The 22 operator scalars in registers.
@@ -157,8 +159,10 @@ __device__ __forceinline__ void rect_masks(int gr, int gc, int c, T m[3]) {
 
 // One time step of output tile `tile_id`. State loads use __ldcg (L2 only):
 // the whole-loop kernel rewrites the state between grid barriers, and L1 is
-// not coherent across SMs.
-template <int NT, typename T>
+// not coherent across SMs. The load (a source load built by the caller,
+// ops/loads.EmissionLoads) is a template parameter, so that the load-free
+// step compiles exactly as it did before loads existed.
+template <int NT, typename T, bool kLoad = false>
 __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
                           int tile_id, T* smem) {
   const int n = g.n;
@@ -205,6 +209,9 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
       const T u = X[f * PS + q];
       T r = k.mass[f] * (m[f] * u);
       if (g.use_ka) r = T(2) * r - m[f] * y[f];
+      if constexpr (kLoad) {
+        if (inside) r += __ldg(io.load + f * nn + off);
+      }
       R[f * PS + q] = r;
       T guess = u;
       if (io.up_in != nullptr) {

@@ -17,12 +17,15 @@ Solve paths (``matvec_impl``):
   (ops/fused_stencil.py). This is the correctness oracle.
 - ``"fused"`` / ``"fused_hbm"`` (CRBESolver._fused_plan): on the
   translation-invariant uniform operator, the whole loop in one launch of
-  kernel B1 (ops/fused_solver.py) while the state fits the routing limit,
-  else one launch of kernel B2 per step (ops/fused_hbm.py); on the
-  per-DOF canvas operator (variable coefficients, Robin walls, obstacles,
-  or ``fused_operator="canvas"``), Chebyshev takes one launch of kernel B4
-  per step (ops/fused_hbm.py) and BiCGStab the whole loop in kernel B5
-  (ops/fused_solver.py).
+  kernel B1 (ops/fused_solver.py; Chebyshev or BiCGStab) while the state
+  fits the routing limit, else one launch of kernel B2 per step
+  (ops/fused_hbm.py); on the per-DOF canvas operator (variable
+  coefficients, Robin walls, obstacles, or ``fused_operator="canvas"``),
+  Chebyshev takes one launch of kernel B4 per step (ops/fused_hbm.py) and
+  BiCGStab the whole loop in kernel B5 (ops/fused_solver.py). Sources and
+  inhomogeneous Robin flux data reach B1, B2 and B4 as load planes
+  (ops/loads.py); B5 is zero-source. ``snapshot_every`` runs one kernel
+  sweep per snapshot chunk.
 
 Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
 solver that this package does not have yet raise ``NotImplementedError``
@@ -40,7 +43,10 @@ import numpy as np
 import torch
 
 from airpollution_tpu_torch.device import resolve_device
-from airpollution_tpu_torch.mesh.data import boundary_side_masks
+from airpollution_tpu_torch.mesh.data import (
+    boundary_side_masks,
+    structured_grid,
+)
 from airpollution_tpu_torch.ops import lifting, linalg, sparse
 from airpollution_tpu_torch.ops import stencil as stencil_mod
 from airpollution_tpu_torch.ops import uniform as uniform_mod
@@ -478,6 +484,7 @@ class CRBESolver:
                 "'fused_hbm' with solver_method='chebyshev'"
             )
         self._robin = getattr(problem, "robin_sides", None) or None
+        self._robin_g_fused = False
         if self._robin:
             if matvec_impl not in per_dof:
                 raise ValueError(
@@ -510,15 +517,12 @@ class CRBESolver:
                 if solver_method != "chebyshev":
                     raise ValueError(
                         "inhomogeneous Robin flux data (robin_g_xy) on the "
-                        "fused paths runs on the canvas stripe kernel only "
-                        "— solver_method='chebyshev'; or use the scan "
+                        "fused paths runs on the canvas step kernel only "
+                        "— solver_method='chebyshev' (the whole-loop canvas "
+                        "BiCGStab kernel takes no loads); or use the scan "
                         "paths (matvec_impl='stencil'/'ell')"
                     )
-                raise NotImplementedError(
-                    "inhomogeneous Robin flux data (robin_g_xy) on the "
-                    "fused paths needs kernel B4's in-kernel loads, which "
-                    "are not ported yet; use matvec_impl='stencil'"
-                )
+                self._robin_g_fused = True
         self._obstacles = getattr(problem, "obstacles", None) or None
         if self._obstacles:
             if matvec_impl not in per_dof:
@@ -564,8 +568,6 @@ class CRBESolver:
             )
         if assembly == "patch":
             raise NotImplementedError("assembly='patch' is not ported yet")
-        if snapshot_every is not None:
-            raise NotImplementedError("snapshot_every is not ported yet")
         self.domain = domain
         self.problem = problem
         self.mesh_data = mesh_data
@@ -602,9 +604,10 @@ class CRBESolver:
         return (
             self.time_scheme_order, self.solver_tol, self.solver_maxiter,
             self.matvec_impl, self.fused_iters, self.fused_operator,
-            self.extrapolate_warm_start, self.solver_method,
-            self.chebyshev_iters,
-            self.stiffness_convention, self.source_quadrature,
+            self.extrapolate_warm_start, self.preconditioner,
+            self.solver_method, self.chebyshev_iters, self.assembly,
+            self.snapshot_every, self.stiffness_convention,
+            self.source_quadrature,
         )
 
     def _reset_operator_state(self):
@@ -679,11 +682,22 @@ class CRBESolver:
         if self.matvec_impl in ("fused", "fused_hbm"):
             return self._build_fused_fn(store_solutions, collect_iters)
 
+        k_snap = self.snapshot_every
+        stride = store_solutions and k_snap is not None and k_snap > 1
+        if stride and (self.mesh_data.nt - 1) % k_snap:
+            raise ValueError("snapshot_every must divide nt-1")
+
+        def stride_rows(sols):
+            """snapshot_every on the scan paths: every k-th stored row, the
+            fused paths' row <-> time contract (peak memory is still the
+            full trajectory)."""
+            return sols[::k_snap] if stride else sols
+
         if not self._use_stencil():
             def solve_ell(ops, u0):
                 sols, iters = run_time_loop(ops, u0, mesh_data=self.mesh_data,
                                             **base)
-                return sols, iters, None
+                return stride_rows(sols), iters, None
 
             return solve_ell
 
@@ -713,24 +727,26 @@ class CRBESolver:
                 ops_fam, u0[perm], mesh_data=fam_view, matvec=matvec,
                 ka_matvec=ka_matvec, **base,
             )
-            return sols_fam[:, inv], iters, None
+            return stride_rows(sols_fam)[:, inv], iters, None
 
         return solve_stencil
 
-    def _fused_plan(self):
-        """``(uniform, kernel)`` of the fused route, the JAX solver's rules:
-        the uniform operator (15 scalars) unless the problem or
-        ``fused_operator='canvas'`` needs per-DOF coefficients; then B1
-        (whole loop) while the state fits the routing budget, else B2 (one
-        step per launch); on the canvas operator Chebyshev always takes B4
-        (one step per launch) and BiCGStab B5 (whole loop) when it fits.
-        Raises ValueError for an invalid route and NotImplementedError for
-        one this package does not have yet."""
+    def _fused_plan(self, method=None):
+        """``(uniform, kernel)`` of the fused route for ``method`` (default
+        the solver's), the JAX solver's rules: the uniform operator (15
+        scalars) unless the problem or ``fused_operator='canvas'`` needs
+        per-DOF coefficients; then B1 (whole loop, Chebyshev or
+        "B1-BiCGStab") while the state fits the routing budget, else B2 (one
+        step per launch, Chebyshev only); on the canvas operator Chebyshev
+        always takes B4 (one step per launch) and BiCGStab B5 (whole loop,
+        zero source) when it fits. Raises ValueError for an invalid
+        route."""
         md = self.mesh_data
         if md.structured_n is None:
             raise ValueError("stencil matvec requires a structured mesh "
                              "(create_mesh-produced)")
-        bicgstab = self.solver_method != "chebyshev"
+        method = method or self.solver_method
+        bicgstab = method != "chebyshev"
         uniform = (self.fused_operator != "canvas"
                    and not self._variable_coefficients
                    and not self._robin and not self._obstacles)
@@ -739,22 +755,20 @@ class CRBESolver:
                 raise ValueError("uniform fused operator requires "
                                  "n_points_per_axis >= 3")
             uniform = False  # degenerate mesh: the canvas operator
-        if not getattr(self.problem, "zero_source", False):
-            if not uniform and bicgstab:
-                raise ValueError(
-                    "the whole-loop canvas kernel is zero-source: a sourced "
-                    "canvas-operator solve needs solver_method='chebyshev', "
-                    "fused_operator='uniform' (or 'auto' on a "
-                    "non-degenerate structured mesh), or "
-                    "matvec_impl='stencil' for the scan path"
-                )
-            raise NotImplementedError(
-                "sourced problems on the fused paths need in-kernel loads, "
-                "which are not ported yet; use matvec_impl='stencil'"
+        sourced = not getattr(self.problem, "zero_source", False)
+        if sourced and not uniform and bicgstab:
+            raise ValueError(
+                "the whole-loop canvas kernel is zero-source: a sourced "
+                "canvas-operator solve needs solver_method='chebyshev' (the "
+                "canvas step kernel takes the load), fused_operator="
+                "'uniform' (or 'auto' on a non-degenerate structured mesh), "
+                "or matvec_impl='stencil' for the scan path"
             )
+        steady = sourced and bool(getattr(self.problem, "steady_source",
+                                          False))
         use_hbm = (self.matvec_impl == "fused_hbm" or not _fused_fits(
             md.structured_n, self.extrapolate_warm_start, uniform=uniform,
-            method=self.solver_method))
+            method=method, source_steady=steady))
         if not uniform and not bicgstab:
             use_hbm = True  # canvas + Chebyshev is always the step kernel
         if use_hbm and bicgstab:
@@ -766,55 +780,119 @@ class CRBESolver:
                 "solver_method='chebyshev' (its reduction-free iterations "
                 "keep tiles independent) — or use matvec_impl='stencil'"
             )
-        if uniform and bicgstab:
-            raise NotImplementedError(
-                "the uniform whole-loop kernel is ported for "
-                "solver_method='chebyshev' only (its BiCGStab variant is "
-                "still to port); use fused_operator='canvas' or "
-                "matvec_impl='stencil'"
-            )
         if uniform:
-            return True, "B2" if use_hbm else "B1"
+            if use_hbm:
+                return True, "B2"
+            return True, "B1-BiCGStab" if bicgstab else "B1"
         return False, "B4" if use_hbm else "B5"
 
     def _build_fused_fn(self, store_solutions: bool, collect_iters: bool):
-        """The fused paths (final state only), routed by :meth:`_fused_plan`:
-        B1 / B2 on the uniform operator, B4 / B5 on the canvas operator."""
+        """The fused paths, routed by :meth:`_fused_plan`: B1 / B2 on the
+        uniform operator, B4 / B5 on the canvas operator. The final state,
+        or with ``snapshot_every`` the strided trajectory: one kernel sweep
+        per chunk of ``snapshot_every`` steps, each starting its
+        extrapolated warm start afresh (u_prev = the chunk's first state)
+        and its loads at the chunk's start time, as the JAX solver does;
+        the divergence guard then works per chunk, and once it trips the
+        later chunks are skipped."""
         from airpollution_tpu_torch.ops import fused_hbm, fused_solver
 
-        if store_solutions or collect_iters:
+        md = self.mesh_data
+        n_steps = md.nt - 1
+        k_snap = self.snapshot_every
+        strided = store_solutions and k_snap is not None
+        if (store_solutions and not strided) or collect_iters:
             raise ValueError(
-                "fused solver returns the final state only: call "
-                "solve(store_solutions=False) (collect_iters is not "
-                "available fused)"
+                "fused solver returns the final state only — pass "
+                "snapshot_every=k to CRBESolver for strided snapshots with "
+                "store_solutions=True (collect_iters is not available fused)"
             )
+        if strided and n_steps % k_snap:
+            raise ValueError(
+                "snapshot_every must divide nt-1 for the fused paths")
         uniform, kernel = self._fused_plan()
         self.fused_kernel = kernel
-        md = self.mesh_data
         pattern = self._stencil_pattern()
         perm, inv = self._perm_tensors(pattern)
-        n_steps = md.nt - 1
         use_ka = self.time_scheme_order == 2
         ext = self.extrapolate_warm_start
+        dt = self.dt
+        problem = self.problem
         # Under Robin the mask is the reduced Dirichlet set; obstacle dead
         # DOFs join it with a zero lift. A state that enters a kernel as 0
         # on a dead DOF (an identity row with zero columns) stays exactly 0.
-        dmask = robin_terms(md, self.problem)[0]
-        _, dead = obstacle_masks(md, self.problem)
+        dmask = robin_terms(md, problem)[0]
+        _, dead = obstacle_masks(md, problem)
         if dead is not None:
             dmask = dmask | dead
-        lift_at = lifting.make_lift(self.problem, md.midpoints, dmask,
+        lift_at = lifting.make_lift(problem, md.midpoints, dmask,
                                     zero_mask=dead)
         spec = uniform_mod.build_uniform_spec(pattern) if uniform else None
         rect = (fused_hbm.robin_rect_bounds(pattern.c, self._robin)
                 if self._robin else None)
+        # Loads: the problem's hooks, evaluated in torch on the structured
+        # grid's coordinates (ops/loads.py).
+        src = {}
+        if not getattr(problem, "zero_source", False):
+            src = dict(source_fn=problem.source_xy,
+                       source_steady=bool(getattr(problem, "steady_source",
+                                                  False)),
+                       source_lumped=self.source_quadrature == "mass_lumped")
+        if self._robin_g_fused:
+            src.update(robin_g_fn=problem.robin_g_xy,
+                       robin_sides=tuple(sorted(self._robin)))
+        if src:
+            src.update(grid=structured_grid(md), dt=dt)
+        bicgstab = kernel in ("B1-BiCGStab", "B5")
+        cheb = {} if bicgstab else dict(bounds=self._cheb_bounds)
+        n_iters = self.fused_iters if bicgstab else self.chebyshev_iters
 
-        def post_check(u_fam, u0_fam):
-            # One launch: divergence is caught after the solve.
-            return torch.where(
-                linalg.diverged_state(u_fam, torch.linalg.norm(u0_fam)),
-                n_steps, -1,
-            ).to(torch.int32)
+        def prepare(ops):
+            """``run(u_fam, steps, t0, guard) -> (u_fam, bad or None)`` on
+            this operator."""
+            kw = dict(n_iters=n_iters, use_ka=use_ka, extrapolate=ext, **cheb)
+            if uniform:
+                consts = uniform_mod.extract_constants(spec, ops.system.vals)
+                mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
+                inv_diag_c = 1.0 / uniform_mod.family_constants(
+                    spec, ops.system_diag)
+                args = (spec, consts, mass_c, inv_diag_c)
+                if kernel == "B2":
+                    def run(u, steps, t0, guard):
+                        return _with_flag(fused_hbm.fused_solve_uniform_hbm(
+                            *args, u, n_steps=steps, guard_every=guard,
+                            t0=t0, **kw, **src), guard)
+                else:
+                    method = "bicgstab" if bicgstab else "chebyshev"
+
+                    def run(u, steps, t0, guard):
+                        return fused_solver.fused_solve_uniform(
+                            *args, u, n_steps=steps, method=method, t0=t0,
+                            **kw, **src), None
+                return run
+            coeffs = stencil_mod.extract_coefficients(pattern,
+                                                      ops.system.vals)
+            bmask_fam = dmask[perm]
+            mass_fam = torch.where(bmask_fam,
+                                   torch.zeros_like(ops.mass_diag[perm]),
+                                   ops.mass_diag[perm])
+            inv_diag_fam = 1.0 / ops.system_diag[perm]
+            args = (pattern, coeffs, mass_fam, inv_diag_fam)
+            if kernel == "B4":
+                dead_fam = None if dead is None else dead[perm]
+
+                def run(u, steps, t0, guard):
+                    return _with_flag(fused_hbm.fused_solve_canvas_hbm(
+                        *args, u, n_steps=steps, rect=rect,
+                        guard_every=guard, t0=t0, dead_fam=dead_fam, **kw,
+                        **src), guard)
+                return run
+            interior = 1.0 - bmask_fam.to(mass_fam.dtype)
+
+            def run(u, steps, t0, guard):
+                return fused_solver.fused_solve(
+                    *args, u, interior, n_steps=steps, **kw), None
+            return run
 
         def solve_fused(ops, u0):
             if dead is not None:
@@ -822,41 +900,31 @@ class CRBESolver:
             # u0 goes in full (boundary values included): CN's first RHS
             # reads boundary columns; the kernels mask the warm start.
             u0_fam = u0[perm]
-            kw = dict(n_steps=n_steps, use_ka=use_ka, extrapolate=ext)
-            cheb = dict(n_iters=self.chebyshev_iters, bounds=self._cheb_bounds)
-            guard = fused_hbm.guard_stride(n_steps)
-            if uniform:
-                consts = uniform_mod.extract_constants(spec, ops.system.vals)
-                mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
-                inv_diag_c = 1.0 / uniform_mod.family_constants(
-                    spec, ops.system_diag)
-                args = (spec, consts, mass_c, inv_diag_c, u0_fam)
-                if kernel == "B2":
-                    u_fam, bad = fused_hbm.fused_solve_uniform_hbm(
-                        *args, guard_every=guard, **cheb, **kw)
-                else:
-                    u_fam = fused_solver.fused_solve_uniform(
-                        *args, **cheb, **kw)
-                    bad = post_check(u_fam, u0_fam)
+            run = prepare(ops)
+            ref_norm = torch.linalg.norm(u0_fam)
+            if strided:
+                u, rows = u0_fam, []
+                bad = torch.tensor(-1, dtype=torch.int32, device=u.device)
+                for i in range(n_steps // k_snap):
+                    # One host read per chunk: a diverged run stops here.
+                    if int(bad) < 0:
+                        u, _ = run(u, k_snap, dt * k_snap * i, None)
+                        tripped = linalg.diverged_state(u, ref_norm)
+                        bad = torch.where(tripped, (i + 1) * k_snap, bad)
+                    rows.append(u)
+                sols = lifting.strided_trajectory(
+                    lift_at, u0, torch.stack(rows)[:, inv], dt, k_snap,
+                    n_steps)
+                return sols, None, bad
+            if kernel in ("B2", "B4"):
+                u, bad = run(u0_fam, n_steps, 0.0,
+                             fused_hbm.guard_stride(n_steps))
             else:
-                coeffs = stencil_mod.extract_coefficients(pattern,
-                                                          ops.system.vals)
-                bmask_fam = dmask[perm]
-                mass_fam = torch.where(bmask_fam,
-                                       torch.zeros_like(ops.mass_diag[perm]),
-                                       ops.mass_diag[perm])
-                inv_diag_fam = 1.0 / ops.system_diag[perm]
-                args = (pattern, coeffs, mass_fam, inv_diag_fam, u0_fam)
-                if kernel == "B4":
-                    u_fam, bad = fused_hbm.fused_solve_canvas_hbm(
-                        *args, rect=rect, guard_every=guard, **cheb, **kw)
-                else:
-                    interior = 1.0 - bmask_fam.to(u0_fam.dtype)
-                    u_fam = fused_solver.fused_solve(
-                        *args, interior, n_iters=self.fused_iters, **kw)
-                    bad = post_check(u_fam, u0_fam)
-            sols = lifting.lifted_final_state(lift_at, u_fam[inv], self.dt,
-                                              n_steps)
+                # One launch: divergence is caught after the solve.
+                u, _ = run(u0_fam, n_steps, 0.0, None)
+                bad = torch.where(linalg.diverged_state(u, ref_norm),
+                                  n_steps, -1).to(torch.int32)
+            sols = lifting.lifted_final_state(lift_at, u[inv], dt, n_steps)
             return sols, None, bad
 
         return solve_fused
@@ -934,9 +1002,12 @@ class CRBESolver:
     def _reroute_divergent_chebyshev(self):
         """A divergence-prone Chebyshev configuration (factor >= the gate)
         switches to BiCGStab with a warning where that configuration has a
-        BiCGStab route (the scan paths, and 'fused' on the canvas operator
-        through B5); elsewhere it raises and names a working
-        configuration."""
+        BiCGStab route: the scan paths, and 'fused' through B1's BiCGStab
+        variant (uniform operator) or B5 (canvas operator). The per-step
+        kernels (fused_hbm), inhomogeneous Robin flux data, a sourced
+        canvas solve and a mesh past the whole-loop budget have none; there
+        it raises and names a working configuration, as the JAX solver
+        does."""
         factor = self._cheb_factor
         lo, hi = self._cheb_bounds
         detail = (
@@ -944,22 +1015,26 @@ class CRBESolver:
             f"{linalg.CHEBYSHEV_FACTOR_GATE} for this operator (interval "
             f"[{lo:.3f}, {hi:.3f}], skew {self._cheb_skew:.3f})"
         )
-        if self.matvec_impl in ("fused", "fused_hbm"):
-            self.solver_method = "bicgstab"
-            try:
-                can_bicgstab = self._fused_plan()[1] == "B5"
-            except (ValueError, NotImplementedError):
-                can_bicgstab = False
-            if not can_bicgstab:
-                self.solver_method = "chebyshev"
-                raise ValueError(
-                    f"{detail} — the solve would diverge, and this "
-                    f"configuration's fused kernels are Chebyshev-only. "
-                    f"Working configurations: matvec_impl='stencil' with "
-                    f"solver_method='bicgstab', or reduce dt / refine the "
-                    f"mesh until dt*|v|/h < ~0.4. chebyshev_policy='warn' "
-                    f"forces the solve anyway."
-                )
+        why_not = None
+        if self.matvec_impl == "fused_hbm":
+            why_not = "the per-step stripe kernels are Chebyshev-only"
+        elif self.matvec_impl == "fused":
+            if self._robin_g_fused:
+                why_not = ("inhomogeneous Robin flux data runs on the "
+                           "Chebyshev-only canvas step kernel")
+            else:
+                try:
+                    self._fused_plan(method="bicgstab")
+                except ValueError as e:
+                    why_not = f"no whole-loop BiCGStab kernel takes it ({e})"
+        if why_not is not None:
+            raise ValueError(
+                f"{detail} — the solve would diverge, and {why_not}. "
+                f"Working configurations: matvec_impl='stencil' with "
+                f"solver_method='bicgstab', or reduce dt / refine the "
+                f"mesh until dt*|v|/h < ~0.4. chebyshev_policy='warn' "
+                f"forces the solve anyway."
+            )
         warnings.warn(
             f"auto-switching solver_method 'chebyshev' -> 'bicgstab': "
             f"{detail} — the Chebyshev solve may converge slowly or "
@@ -1047,13 +1122,21 @@ class CRBESolver:
         return (float(l2 / (norm_ex + 1e-12)), float(l2), float(max_error))
 
 
+def _with_flag(out, guard):
+    """A per-step solve's ``(state, bad)``: it returns the flag only when
+    it was given a guard stride."""
+    return out if guard is not None else (out, None)
+
+
 def _fused_fits(n: int, extrapolate: bool, uniform: bool = True,
-                method: str = "chebyshev") -> bool:
+                method: str = "chebyshev",
+                source_steady: bool = False) -> bool:
     """The JAX package's ``_pallas_fused_fits`` routing budget, kept so that
     one configuration picks the same kernel in both packages: the canvas
     operator's 15 coefficient + 12 input + 3 output + 18 Krylov canvases,
     or the uniform operator's 3 state + 9 Chebyshev (18 BiCGStab)
-    canvases, +3 with extrapolation, of n^2 float32 under 14 MiB."""
+    canvases, +3 with extrapolation, +3 for a steady source's hoisted
+    load, of n^2 float32 under 14 MiB."""
     if not uniform:
         n_canvases = 15 + 12 + 3 + 18
     elif method == "chebyshev":
@@ -1061,6 +1144,7 @@ def _fused_fits(n: int, extrapolate: bool, uniform: bool = True,
     else:
         n_canvases = 3 + 18
     n_canvases += 3 if extrapolate else 0
+    n_canvases += 3 if source_steady else 0
     return n_canvases * n * n * 4 < 14 * 1024 * 1024
 
 

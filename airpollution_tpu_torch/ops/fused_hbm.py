@@ -5,24 +5,27 @@ counterpart of ``airpollution_tpu/ops/pallas_hbm.py``'s
 and ``_guarded_scan``.
 
 - Kernel B2 (``fused_solve_uniform_hbm``): the uniform operator, for
-  meshes past the whole-loop kernel's routing limit.
+  meshes past the whole-loop kernel's routing limit, with an optional
+  source load (its own entry point, so the load-free step is unchanged).
   ``csrc/uniform_step.cu``.
 - Kernel B4 (``fused_solve_canvas_hbm``): the per-DOF canvas operator (a
   (21, n, n) stack: 15 coefficient canvases of the masked system, 3
   masked-mass and 3 inverse-diagonal canvases), for variable
   coefficients, Robin walls and obstacles at any mesh size, with an
-  optional emission load. ``csrc/canvas_step.cu``.
+  optional load plane: a source load, an inhomogeneous Robin flux load on
+  the wall lines, or their sum. ``csrc/canvas_step.cu``.
 - Kernel B6 (``fused_multispecies_canvas_hbm``): one Strang step of K
   species sharing the canvas operator, the (K, K) chemistry half-steps
   applied inside the kernel. ``csrc/multispecies_step.cu``.
 
-Emission loads. The TPU kernels evaluate a problem's Python source hook
+Loads (ops/loads.py). The TPU kernels evaluate a problem's Python hooks
 inside the kernel, on coordinates rebuilt from iotas. A Python hook cannot
 be compiled into an ``nvcc`` kernel, so here each load is built in torch
-from the problem's own ``source_xy`` on the same coordinates
-(:func:`family_coordinates`) and handed to the kernel as one extra
-(3, n, n) plane per sourced species (:class:`EmissionLoads`). A steady
-source's load is built once per solve, any other's before every launch.
+from the problem's own ``source_xy`` / ``robin_g_xy`` on the same
+coordinates and handed to the kernel as one extra (3, n, n) plane per
+sourced species. A steady source's load is built once per solve, any
+other's before every launch; a Robin flux load rewrites only the wall
+lines, before every launch.
 
 Each step is one launch: one block per 2-D output tile runs the whole
 step (RHS, warm start, k Chebyshev iterations) on a window with a halo in
@@ -45,6 +48,7 @@ import torch
 
 from airpollution_tpu_torch import _build
 from airpollution_tpu_torch.ops import fused_solver, linalg
+from airpollution_tpu_torch.ops.loads import EmissionLoads, RobinFluxLoads
 from airpollution_tpu_torch.problems import mix_species
 
 KERNEL = _build.Kernel(
@@ -52,6 +56,12 @@ KERNEL = _build.Kernel(
     {torch.float32: "crbe_uniform_step_f32",
      torch.float64: "crbe_uniform_step_f64"},
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+)
+LOAD_KERNEL = _build.Kernel(
+    "uniform_step_load", "uniform_step.cu",
+    {torch.float32: "crbe_uniform_step_load_f32",
+     torch.float64: "crbe_uniform_step_load_f64"},
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 CANVAS_KERNEL = _build.Kernel(
     "canvas_step", "canvas_step.cu",
@@ -78,10 +88,6 @@ CANVAS_THREADS = 512
 MULTISPECIES_TILE = 32
 MULTISPECIES_THREADS = 512
 MAX_SPECIES = 8  # csrc/multispecies_step.cu kMaxSpecies
-#: (x, y) offsets of each family's DOF from its cell's lower-left vertex,
-#: in mesh steps: H edges at (i + 1/2, j), V at (i, j + 1/2), D at the
-#: cell centre.
-FAMILY_OFFSETS = ((0.5, 0.0), (0.0, 0.5), (0.5, 0.5))
 
 
 def guard_stride(n_steps: int, target: int = 64) -> int:
@@ -108,14 +114,24 @@ def robin_rect_bounds(c, robin_sides):
 
 
 def kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt, tile,
-                threads=fused_solver.THREADS):
-    """One launch of B2: (u, up) -> (u_out, up_out); CUDA tensors only."""
+                threads=fused_solver.THREADS, load=None):
+    """One launch of B2: (u, up) -> (u_out, up_out); CUDA tensors only.
+    ``load``: an optional (3, n, n) plane added to the right-hand side
+    (B2's load entry point, counted in :data:`LOAD_KERNEL`)."""
     n = u.shape[-1]
+    if not (u.is_cuda and u_out.is_cuda and scal.is_cuda):
+        raise ValueError("kernel_step needs CUDA tensors")
+    if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
+        raise ValueError("load must be a (3, n, n) plane of u's dtype")
     halo = fused_solver.halo_of(n_iters, use_ka)
     P = _build.pointer
-    KERNEL.launch(u.dtype, P(scal), P(u), P(up), P(u_out), P(up_out),
-                  P(halt), n, tile, halo, n_iters, int(use_ka), threads,
-                  _build.current_stream())
+    head = (P(scal), P(u), P(up), P(u_out), P(up_out), P(halt))
+    tail = (n, tile, halo, n_iters, int(use_ka), threads,
+            _build.current_stream())
+    if load is None:
+        KERNEL.launch(u.dtype, *head, *tail)
+    else:
+        LOAD_KERNEL.launch(u.dtype, *head, P(load), *tail)
 
 
 def plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks, load=None):
@@ -207,18 +223,24 @@ def _pingpong(launch, u, extrapolate):
 def fused_solve_uniform_hbm(spec, consts, mass_consts, inv_diag_consts,
                             u0_fam, *, n_steps: int, n_iters: int, bounds,
                             use_ka: bool = False, extrapolate: bool = False,
-                            guard_every: int | None = None):
+                            guard_every: int | None = None, source_fn=None,
+                            source_steady: bool = False,
+                            source_lumped: bool = True, grid=None, t0=0.0,
+                            dt=None):
     """Whole time loop, one B2 launch per step (Chebyshev only).
 
-    Same contract as fused_solver.fused_solve_uniform. With
-    ``guard_every`` it returns ``(state, bad)``: ``bad`` is a 0-d int32
-    tensor on the state's device holding the 1-based step that ends the
-    first diverged guard chunk (non-finite or exploded state, see
-    linalg.diverged_state), or -1 for a clean run.
+    Same contract as fused_solver.fused_solve_uniform, sources included
+    (one load plane, built once for a steady source and before every
+    launch otherwise). With ``guard_every`` it returns ``(state, bad)``:
+    ``bad`` is a 0-d int32 tensor on the state's device holding the
+    1-based step that ends the first diverged guard chunk (non-finite or
+    exploded state, see linalg.diverged_state), or -1 for a clean run.
     """
     dtype, device = u0_fam.dtype, u0_fam.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    if source_fn is not None and (grid is None or dt is None):
+        raise ValueError("source_fn requires grid=(xmin, ymin, h) and dt")
     if n_steps == 0:
         bad = torch.tensor(-1, dtype=torch.int32, device=device)
         return (u0_fam, bad) if guard_every is not None else u0_fam
@@ -226,22 +248,30 @@ def fused_solve_uniform_hbm(spec, consts, mass_consts, inv_diag_consts,
         consts, mass_consts, inv_diag_consts, bounds, n_iters, dtype
     )
     u = fused_solver.to_canvases(spec, u0_fam)
+    masks = fused_solver.rect_masks(u.shape[-1], dtype, device)
+    loads = fused_solver.uniform_loads(
+        source_fn, source_steady, mass_consts, masks, grid=grid, dt=dt,
+        t0=t0, use_ka=use_ka, lumped=source_lumped,
+    ) if source_fn is not None else None
+
+    def load_of_step():
+        return None if loads is None else loads.advance()[0]
 
     if u.is_cuda:
         tile = fused_solver.choose_tile(
             fused_solver.halo_of(n_iters, use_ka), dtype, TILE)
         step = _pingpong(
             lambda u, up, u_out, up_out, bad: kernel_step(
-                scal, n_iters, u, up, u_out, up_out, use_ka, bad, tile),
+                scal, n_iters, u, up, u_out, up_out, use_ka, bad, tile,
+                load=load_of_step()),
             u, extrapolate)
     else:
-        masks = fused_solver.rect_masks(u.shape[-1], dtype, device)
-
         def step(u, up, bad):
+            load = load_of_step()
             if int(bad) >= 0:  # a free read on the CPU
                 return u, up
             return fused_solver.plain_step(scal, n_iters, u, up, use_ka,
-                                           masks)
+                                           masks, load)
 
     u, bad = _step_loop(step, u, u.clone() if extrapolate else None,
                         n_steps, guard_every)
@@ -258,85 +288,6 @@ def canvas_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam, dtype):
     ])
 
 
-def family_coordinates(n: int, grid, dtype, device):
-    """(X, Y): the (3, n, n) canvases of each family's DOF coordinates,
-    ``x = xmin + (col + ox) h`` and ``y = ymin + (row + oy) h`` with the
-    offsets of :data:`FAMILY_OFFSETS`, the coordinates the TPU kernels
-    rebuild from iotas; ``grid = (xmin, ymin, h)``
-    (mesh.data.structured_grid). Cells outside a family's grid get
-    coordinates too; every load is masked to zero there."""
-    xmin, ymin, h = (float(g) for g in grid)
-    idx = torch.arange(n, dtype=dtype, device=device)
-    X = torch.stack([(xmin + (idx + ox) * h).expand(n, n)
-                     for ox, _ in FAMILY_OFFSETS])
-    Y = torch.stack([(ymin + (idx + oy) * h)[:, None].expand(n, n)
-                     for _, oy in FAMILY_OFFSETS])
-    return X, Y
-
-
-class EmissionLoads:
-    """The per-species emission loads of a fused solve, as the kernels
-    take them: one (3, n, n) plane per sourced species in ``planes`` (an
-    (n_src, 3, n, n) tensor, None when no species is sourced), and
-    ``index[k]``, the plane of species k or -1.
-
-    A species' load for the step that ends at time t is, on each family
-    canvas, ``(dt M) s`` (mass-lumped: ``mass3`` is the masked mass, zero
-    on Dirichlet rows and dead DOFs) or ``mask (dt s)`` (the reference
-    quadrature: the family rectangle ``masks``), with ``s = source_fn(X, Y,
-    t)``, and zero on dead DOFs (``live`` 0 there) under either rule.
-    Backward Euler samples t; Crank-Nicolson takes the trapezoid of t and
-    t - dt. A steady species' plane is built once (its trapezoid 0.5 (a +
-    a) is a exactly); :meth:`advance` rebuilds the others for the next
-    step, in place, before that step's launches.
-    """
-
-    def __init__(self, source_fns, steady, *, grid, dt, t0, use_ka,
-                 lumped, mass3, masks, live=None):
-        self.index = []
-        self._fns = []
-        n = masks.shape[-1]
-        self._X, self._Y = family_coordinates(n, grid, masks.dtype,
-                                              masks.device)
-        self._dt, self._t0, self._use_ka = float(dt), float(t0), use_ka
-        self._lumped, self._mass3, self._masks = lumped, mass3, masks
-        self._live = live
-        self._step = 0
-        for fn, st in zip(source_fns, steady):
-            if fn is None:
-                self.index.append(-1)
-            else:
-                self.index.append(len(self._fns))
-                self._fns.append((fn, bool(st)))
-        self.planes = None
-        if self._fns:
-            self.planes = torch.stack([self._load(fn, self._t0 + self._dt)
-                                       for fn, _ in self._fns])
-
-    def _at(self, fn, t):
-        s = fn(self._X, self._Y, t)
-        if self._lumped:
-            load = (self._dt * self._mass3) * s
-        else:
-            load = self._masks * (self._dt * s)
-        return load if self._live is None else load * self._live
-
-    def _load(self, fn, t):
-        if not self._use_ka:
-            return self._at(fn, t)
-        return 0.5 * (self._at(fn, t) + self._at(fn, t - self._dt))
-
-    def advance(self):
-        """Planes for the next step (steps count from 1)."""
-        self._step += 1
-        if self._step > 1:
-            t = self._t0 + self._dt * self._step
-            for j, (fn, steady) in enumerate(self._fns):
-                if not steady:
-                    self.planes[j].copy_(self._load(fn, t))
-        return self.planes
-
-
 def _canvas_live(pattern, dead_fam, dtype):
     """(3, n, n) canvases, 0 on dead DOFs and 1 elsewhere, or None."""
     if dead_fam is None:
@@ -350,7 +301,8 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
                            rect=None, guard_every: int | None = None,
                            source_fn=None, source_steady: bool = False,
                            source_lumped: bool = True, grid=None, t0=0.0,
-                           dt=None, dead_fam=None):
+                           dt=None, dead_fam=None, robin_g_fn=None,
+                           robin_sides=()):
     """Whole time loop with the canvas operator, one B4 launch per step
     (Chebyshev only).
 
@@ -362,17 +314,22 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
     for Robin walls (:func:`robin_rect_bounds`; the masks and coefficients
     must then come from the reduced Dirichlet set). ``source_fn``: an
     elementwise ``(x, y, t) -> s`` emission hook (a problem's
-    ``source_xy``), loaded as :class:`EmissionLoads` describes; it needs
-    ``grid`` and ``dt``, and ``dead_fam`` (family layout) zeroes its load
-    on obstacle dead DOFs. Returns the final homogeneous state in family
-    layout, and with ``guard_every`` the divergence flag as
-    fused_solve_uniform_hbm does.
+    ``source_xy``), loaded as ops/loads.EmissionLoads describes;
+    ``robin_g_fn`` + ``robin_sides``: the problem's ``robin_g_xy`` and
+    the Robin sides whose flux load ops/loads.RobinFluxLoads adds on the
+    wall lines. Either needs ``grid`` and ``dt`` (the first step ends at
+    ``t0 + dt``), and ``dead_fam`` (family layout) zeroes both loads on
+    obstacle dead DOFs. Both go to the kernel as one plane. Returns the
+    final homogeneous state in family layout, and with ``guard_every`` the
+    divergence flag as fused_solve_uniform_hbm does.
     """
     dtype, device = u0_fam.dtype, u0_fam.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
-    if source_fn is not None and (grid is None or dt is None):
-        raise ValueError("source_fn requires grid=(xmin, ymin, h) and dt")
+    needs_t = source_fn is not None or robin_g_fn is not None
+    if needs_t and (grid is None or dt is None):
+        raise ValueError(
+            "source_fn/robin_g_fn require grid=(xmin, ymin, h) and dt")
     if n_steps == 0:
         bad = torch.tensor(-1, dtype=torch.int32, device=device)
         return (u0_fam, bad) if guard_every is not None else u0_fam
@@ -383,14 +340,18 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
     cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, device)
     u = fused_solver.to_canvases(pattern, u0_fam)
     masks = fused_solver.rect_masks(n, dtype, device, rect)
-    loads = EmissionLoads(
-        (source_fn,), (source_steady,), grid=grid, dt=dt, t0=t0,
-        use_ka=use_ka, lumped=source_lumped, mass3=C[15:18], masks=masks,
-        live=_canvas_live(pattern, dead_fam, dtype),
-    ) if source_fn is not None else None
-
-    def load_of_step():
-        return None if loads is None else loads.advance()[0]
+    live = _canvas_live(pattern, dead_fam, dtype)
+    load_of_step = _load_planes(
+        EmissionLoads(
+            (source_fn,), (source_steady,), grid=grid, dt=dt, t0=t0,
+            use_ka=use_ka, lumped=source_lumped, mass3=C[15:18],
+            masks=masks, live=live,
+        ) if source_fn is not None else None,
+        RobinFluxLoads(
+            robin_g_fn, tuple(robin_sides), grid=grid, dt=dt, use_ka=use_ka,
+            masks=masks, live=live,
+        ) if robin_g_fn is not None else None,
+        t0, dt, u)
 
     if u.is_cuda:
         tile = fused_solver.choose_tile(
@@ -412,6 +373,34 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
                         n_steps, guard_every)
     out = fused_solver.from_canvases(pattern, u)
     return (out, bad) if guard_every is not None else out
+
+
+def _load_planes(sources, walls, t0, dt, u):
+    """``load_of_step()``: B4's load plane for the next step, or None. A
+    Robin flux load is written on the wall lines of the source plane when
+    that is rebuilt every step, else of a plane of its own over the steady
+    source plane (or zero)."""
+    if walls is None:
+        return (lambda: None) if sources is None else \
+            (lambda: sources.advance()[0])
+    steady = sources is None or sources.steady
+    own = None
+    if steady:
+        own = (torch.zeros_like(u) if sources is None
+               else sources.planes[0].clone())
+    step = [0]
+
+    def load_of_step():
+        step[0] += 1
+        t = float(t0) + float(dt) * step[0]
+        if not steady:
+            plane = sources.advance()[0]
+            walls.add(plane, plane, t)
+            return plane
+        walls.add(own, None if sources is None else sources.planes[0], t)
+        return own
+
+    return load_of_step
 
 
 def multispecies_tile(n_species: int, n_iters: int, use_ka: bool, dtype,

@@ -4,15 +4,25 @@ counterpart of ``airpollution_tpu/ops/pallas_solver.py``.
 Layout: the three edge families H (n x c), V (c x n), D (c x c) are
 embedded into one (3, n, n) zero-padded canvas tensor. Each step forms
 the RHS (backward Euler ``M mask(u)``; Crank-Nicolson ``2 M mask(u) - A u``),
-takes the warm start (``mask(2u - u_prev)`` when extrapolating), and runs
-a fixed number of iterations.
+adds an optional load, takes the warm start (``mask(2u - u_prev)`` when
+extrapolating), and runs a fixed number of iterations.
 
 - Kernel B1 (``fused_solve_uniform``): the translation-invariant operator
   (ops/uniform.py: 15 stencil scalars, 3 interior mass and 3
   inverse-diagonal scalars, per-family interior rectangles derived from
-  indices) with k Chebyshev iterations and no reductions.
-  ``csrc/uniform_solver.cu``, a cooperative persistent kernel with one
-  grid barrier per step.
+  indices), in two variants:
+
+  - k Chebyshev iterations, no reductions: ``csrc/uniform_solver.cu``, a
+    cooperative persistent kernel with one grid barrier per step; with a
+    load, its second entry point reads one (3, n, n) plane per step;
+  - k BiCGStab iterations right-preconditioned by Jacobi:
+    ``csrc/uniform_bicgstab.cu``, B5's loop (``csrc/bicgstab_loop.cuh``)
+    on the 15 scalars.
+
+  A source load (ops/loads.EmissionLoads) is one plane for a steady source
+  and, for any other, a stack of one plane per step, built for a window of
+  steps at a time; the state and u_prev carry across the launches of the
+  windows, so the result is that of one launch.
 - Kernel B5 (``fused_solve``): the per-DOF canvas operator (15 coefficient
   canvases of the masked system, masked-mass, inverse-diagonal and
   interior-mask canvases) with k fixed BiCGStab iterations,
@@ -24,8 +34,9 @@ a fixed number of iterations.
   by every block in one fixed order.
 
 On a CUDA tensor each entry point launches its kernel; on a CPU tensor it
-runs the plain version (:func:`plain_solve`, :func:`plain_bicgstab_solve`),
-the same arithmetic on the full canvas with zero-padded shifts.
+runs the plain version (:func:`plain_solve`,
+:func:`plain_uniform_bicgstab_solve`, :func:`plain_bicgstab_solve`), the
+same arithmetic on the full canvas with zero-padded shifts.
 """
 
 from __future__ import annotations
@@ -36,12 +47,27 @@ import torch
 import torch.nn.functional as F
 
 from airpollution_tpu_torch import _build
+from airpollution_tpu_torch.ops.loads import EmissionLoads
 
 KERNEL = _build.Kernel(
     "uniform_solver", "uniform_solver.cu",
     {torch.float32: "crbe_uniform_solve_f32",
      torch.float64: "crbe_uniform_solve_f64"},
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+)
+LOAD_KERNEL = _build.Kernel(
+    "uniform_solver_load", "uniform_solver.cu",
+    {torch.float32: "crbe_uniform_solve_load_f32",
+     torch.float64: "crbe_uniform_solve_load_f64"},
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
+)
+BICGSTAB_KERNEL = _build.Kernel(
+    "uniform_bicgstab", "uniform_bicgstab.cu",
+    {torch.float32: "crbe_uniform_bicgstab_f32",
+     torch.float64: "crbe_uniform_bicgstab_f64"},
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
 )
 CANVAS_KERNEL = _build.Kernel(
@@ -67,9 +93,13 @@ TILE = 24
 #: B5's block size, measured on an H100 (scripts/torch_port_tile_sweep.py:
 #: 92 ms per 257^2 solve against 104 ms at 256), and the most blocks it
 #: runs (the size of its buffer of per-block partial sums;
-#: csrc/canvas_solver.cu kMaxGrid).
+#: csrc/bicgstab_loop.cuh kMaxGrid). B1's BiCGStab variant uses the same.
 CANVAS_THREADS = 512
 CANVAS_MAX_GRID = 2048
+#: Memory for the per-step loads of a time-dependent source on B1: one
+#: window of steps is launched at a time (64 steps at 257^2 in float32
+#: are 51 MB).
+LOAD_WINDOW_BYTES = 64 * 1024 * 1024
 _EPS = 1e-30  # BiCGStab breakdown guard, as the JAX kernel's
 
 
@@ -113,12 +143,20 @@ def cheb_scalars(bounds, n_iters, dtype, device):
     return torch.tensor([1.0 / theta] + a + b, dtype=dtype, device=device)
 
 
+def uniform_scalars(consts, mass_consts, inv_diag_consts, dtype):
+    """The uniform operator's 21 scalars: 15 stencil coefficients, 3 mass
+    and 3 inverse-diagonal constants (B1's BiCGStab variant takes these
+    alone)."""
+    return torch.cat([consts.to(dtype), mass_consts.to(dtype),
+                      inv_diag_consts.to(dtype)])
+
+
 def step_scalars(consts, mass_consts, inv_diag_consts, bounds, n_iters,
                  dtype):
-    """The uniform kernels' scalar block: 15 stencil coefficients, 3 mass
-    and 3 inverse-diagonal constants, then :func:`cheb_scalars`."""
-    return torch.cat([consts.to(dtype), mass_consts.to(dtype),
-                      inv_diag_consts.to(dtype),
+    """The Chebyshev kernels' scalar block: :func:`uniform_scalars`, then
+    :func:`cheb_scalars`."""
+    return torch.cat([uniform_scalars(consts, mass_consts, inv_diag_consts,
+                                      dtype),
                       cheb_scalars(bounds, n_iters, dtype, consts.device)])
 
 
@@ -190,14 +228,50 @@ def canvas_matvec(s, x, masks):
     return masks * stencil_terms(s, x)
 
 
-def plain_step(scal, n_iters, u, up, use_ka, masks):
-    """One full-canvas time step: the arithmetic of ``tile_step``.
-    Returns ``(u_new, up_new)`` (``up_new`` is None without ``up``)."""
+def load_window(n: int, dtype, n_steps: int) -> int:
+    """Steps per launch of B1 with a per-step load stack: as many as
+    :data:`LOAD_WINDOW_BYTES` hold, at least 1, at most ``n_steps``."""
+    plane = 3 * n * n * torch.tensor([], dtype=dtype).element_size()
+    return max(1, min(n_steps, LOAD_WINDOW_BYTES // plane))
+
+
+def uniform_loads(source_fn, source_steady, mass_consts, masks, **kw):
+    """The EmissionLoads of a source on the uniform operator: the masked
+    lumped mass is the family's interior mass constant on its rectangle.
+    ``kw``: EmissionLoads' grid, dt, t0, use_ka and lumped."""
+    mass3 = mass_consts.to(masks.dtype).reshape(3, 1, 1) * masks
+    return EmissionLoads((source_fn,), (source_steady,), mass3=mass3,
+                         masks=masks, **kw)
+
+
+def _load_at(load, i):
+    """Step i's plane of a load: None, one (3, n, n) plane for every step,
+    or an (n_steps, 3, n, n) stack."""
+    if load is None or load.dim() == 3:
+        return load
+    return load[i]
+
+
+def _check_load(load, u3, n_steps):
+    if load is None:
+        return
+    if load.dtype != u3.dtype or load.shape[-3:] != u3.shape or not (
+            load.dim() == 3 or (load.dim() == 4 and load.shape[0] >= n_steps)):
+        raise ValueError("load must be a (3, n, n) plane or an (n_steps, 3, "
+                         "n, n) stack of the state's dtype")
+
+
+def plain_step(scal, n_iters, u, up, use_ka, masks, load=None):
+    """One full-canvas time step: the arithmetic of ``tile_step``, with an
+    optional (3, n, n) load added to the right-hand side. Returns
+    ``(u_new, up_new)`` (``up_new`` is None without ``up``)."""
     mass = scal[15:18].reshape(3, 1, 1)
     inv_diag = scal[18:21].reshape(3, 1, 1)
     r = mass * (masks * u)
     if use_ka:
         r = 2.0 * r - canvas_matvec(scal, u, masks)
+    if load is not None:
+        r = r + load
     if up is None:
         x, up_new = masks * u, None
     else:
@@ -211,68 +285,241 @@ def plain_step(scal, n_iters, u, up, use_ka, masks):
     return x, up_new
 
 
-def plain_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate):
-    """The whole loop on the full canvas (B1's plain version)."""
+def _start_prev(u3, up, extrapolate):
+    """The u_prev a solve starts from: ``up`` when given (carried from an
+    earlier launch), else the state itself."""
+    if not extrapolate:
+        return None
+    return u3 if up is None else up
+
+
+def plain_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate, up=None,
+                load=None):
+    """The whole Chebyshev loop on the full canvas (B1's plain version).
+    ``up``: the u_prev to start from (default u3); ``load``: None, one
+    (3, n, n) plane added every step, or an (n_steps, 3, n, n) stack.
+    Returns ``(u, up)`` (``up`` None without extrapolation)."""
+    _check_load(load, u3, n_steps)
     masks = rect_masks(u3.shape[-1], u3.dtype, u3.device)
-    u, up = u3, (u3 if extrapolate else None)
-    for _ in range(n_steps):
-        u, up = plain_step(scal, n_iters, u, up, use_ka, masks)
-    return u
+    u, up = u3, _start_prev(u3, up, extrapolate)
+    for i in range(n_steps):
+        u, up = plain_step(scal, n_iters, u, up, use_ka, masks,
+                           _load_at(load, i))
+    return u, up
 
 
-def kernel_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate,
-                 tile=None, threads=THREADS):
-    """The whole loop in one launch of B1 (CUDA tensors only)."""
+def kernel_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate, up=None,
+                 load=None, tile=None, threads=THREADS):
+    """The whole Chebyshev loop in one launch of B1 (CUDA tensors only);
+    arguments and result as :func:`plain_solve`. With a load the launch
+    goes to B1's load entry point, counted in :data:`LOAD_KERNEL`."""
     if not u3.is_cuda or not scal.is_cuda:
         raise ValueError("kernel_solve needs CUDA tensors")
+    _check_load(load, u3, n_steps)
+    up = _start_prev(u3, up, extrapolate)
     if n_steps == 0:
-        return u3
+        return u3, up
     n = u3.shape[-1]
     halo = halo_of(n_iters, use_ka)
     tile = tile or choose_tile(halo, u3.dtype, TILE)
     ua = u3.contiguous().clone()
     ub = torch.empty_like(ua)
-    upa = ua.clone() if extrapolate else None
+    upa = up.contiguous().clone() if extrapolate else None
     upb = torch.empty_like(ua) if extrapolate else None
     grid = ctypes.c_int(0)
     P = _build.pointer
-    KERNEL.launch(u3.dtype, P(scal.contiguous()), P(ua), P(ub), P(upa),
-                  P(upb), n, tile, halo, n_iters, int(use_ka), n_steps,
-                  threads, _build.current_stream(), ctypes.byref(grid))
-    return ua if n_steps % 2 == 0 else ub
+    head = (P(scal.contiguous()), P(ua), P(ub), P(upa), P(upb))
+    if load is None:
+        KERNEL.launch(u3.dtype, *head, n, tile, halo, n_iters, int(use_ka),
+                      n_steps, threads, _build.current_stream(),
+                      ctypes.byref(grid))
+    else:
+        stride = 0 if load.dim() == 3 else load[0].numel()
+        LOAD_KERNEL.launch(u3.dtype, *head, P(load.contiguous()), n, tile,
+                           halo, n_iters, int(use_ka), n_steps, stride,
+                           threads, _build.current_stream(),
+                           ctypes.byref(grid))
+    if n_steps % 2 == 0:
+        return ua, upa
+    return ub, upb
+
+
+def _guard(a):
+    return torch.where(a == 0, torch.full_like(a, _EPS), a)
+
+
+def _dot(a, b):
+    """Dot product of two canvas stacks, summed in double (as kernels B5
+    and B1's BiCGStab variant sum; see csrc/bicgstab_loop.cuh)."""
+    return torch.sum(a * b, dtype=torch.float64)
+
+
+def _bicgstab_iterations(apply, idg, r, u, n_iters):
+    """k fixed BiCGStab iterations from the initial residual ``r`` and
+    iterate ``u``, right-preconditioned by ``idg``, with p, v reset to 0
+    and (rho, alpha, omega) to 1, as the JAX kernels do. The dot products
+    and the scalar recurrence are carried in double, the vectors in u's
+    dtype. Returns the iterate."""
+    dtype = u.dtype
+    one = torch.ones((), dtype=torch.float64, device=u.device)
+    rh = r
+    p = torch.zeros_like(u)
+    v = torch.zeros_like(u)
+    rho_old, alpha, omega = one, one, one
+    for _ in range(n_iters):
+        rho = _dot(rh, r)
+        beta = (rho / _guard(rho_old)) * (alpha / _guard(omega))
+        p = r + beta.to(dtype) * (p - omega.to(dtype) * v)
+        w = idg * p
+        v = apply(w)
+        alpha = rho / _guard(_dot(rh, v))
+        u = u + alpha.to(dtype) * w
+        r = r - alpha.to(dtype) * v
+        w = idg * r
+        t = apply(w)
+        omega = _dot(t, r) / _guard(_dot(t, t))
+        u = u + omega.to(dtype) * w
+        r = r - omega.to(dtype) * t
+        rho_old = rho
+    return u
+
+
+def plain_uniform_bicgstab_solve(scal, u3, *, n_steps, n_iters, use_ka,
+                                 extrapolate, up=None, load=None):
+    """B1's BiCGStab variant, plain: the whole loop on the full canvas with
+    the uniform operator's 21 scalars (:func:`uniform_scalars`). Each
+    step's RHS is that of the Chebyshev variant (:func:`plain_step`), then
+    k BiCGStab iterations from the (masked) warm start. ``up`` and
+    ``load`` and the result as :func:`plain_solve`."""
+    _check_load(load, u3, n_steps)
+    masks = rect_masks(u3.shape[-1], u3.dtype, u3.device)
+    mass = scal[15:18].reshape(3, 1, 1)
+    inv_diag = scal[18:21].reshape(3, 1, 1)
+
+    def apply(x):
+        return canvas_matvec(scal, x, masks)
+
+    u, up = u3, _start_prev(u3, up, extrapolate)
+    for i in range(n_steps):
+        r = mass * (masks * u)
+        if use_ka:
+            r = 2.0 * r - apply(u)
+        ld = _load_at(load, i)
+        if ld is not None:
+            r = r + ld
+        if up is None:
+            x = masks * u
+        else:
+            x, up = masks * (2.0 * u - up), u
+        r = r - apply(x)
+        u = _bicgstab_iterations(apply, inv_diag, r, x, n_iters)
+    return u, up
+
+
+def _bicgstab_buffers(u3):
+    """Work canvases (r, rhat, p, v, t, w) and the per-block partial sums
+    of the cooperative BiCGStab kernels."""
+    work = torch.empty((6,) + tuple(u3.shape), dtype=u3.dtype,
+                       device=u3.device)
+    partials = torch.empty((4, CANVAS_MAX_GRID), dtype=torch.float64,
+                           device=u3.device)
+    return work, partials
+
+
+def kernel_uniform_bicgstab_solve(scal, u3, *, n_steps, n_iters, use_ka,
+                                  extrapolate, up=None, load=None,
+                                  threads=CANVAS_THREADS):
+    """The whole BiCGStab loop in one launch of B1's BiCGStab variant (CUDA
+    tensors only); arguments and result as
+    :func:`plain_uniform_bicgstab_solve`."""
+    if not u3.is_cuda or not scal.is_cuda:
+        raise ValueError("kernel_uniform_bicgstab_solve needs CUDA tensors")
+    if scal.numel() < 21 or scal.dtype != u3.dtype:
+        raise ValueError("scal must hold the 21 uniform scalars of u3's "
+                         "dtype")
+    _check_load(load, u3, n_steps)
+    up = _start_prev(u3, up, extrapolate)
+    if n_steps == 0:
+        return u3, up
+    u = u3.contiguous().clone()
+    up = up.contiguous().clone() if extrapolate else None
+    work, partials = _bicgstab_buffers(u)
+    stride = 0 if load is None or load.dim() == 3 else load[0].numel()
+    grid = ctypes.c_int(0)
+    P = _build.pointer
+    BICGSTAB_KERNEL.launch(
+        u.dtype, P(scal.contiguous()), P(u), P(up), P(work), P(partials),
+        P(None if load is None else load.contiguous()), u.shape[-1], n_steps,
+        n_iters, int(use_ka), stride, threads, _build.current_stream(),
+        ctypes.byref(grid))
+    return u, up
 
 
 def fused_solve_uniform(spec, consts, mass_consts, inv_diag_consts, u0_fam,
                         *, n_steps: int, n_iters: int, use_ka: bool = False,
                         extrapolate: bool = False,
-                        method: str = "chebyshev", bounds=None):
-    """Whole-loop fused solve with the translation-invariant operator.
+                        method: str = "chebyshev", bounds=None,
+                        source_fn=None, source_steady: bool = False,
+                        source_lumped: bool = True, grid=None, t0=0.0,
+                        dt=None):
+    """Whole-loop fused solve with the translation-invariant operator
+    (kernel B1).
 
     ``consts``: the 15 stencil scalars of the masked system
     (uniform.extract_constants); ``mass_consts`` / ``inv_diag_consts`` the
-    per-family interior mass and 1/diagonal scalars; ``bounds`` the
-    Chebyshev interval (lo, hi). ``u0_fam`` arrives full (boundary values
-    included). Returns the final homogeneous state in family layout.
+    per-family interior mass and 1/diagonal scalars; ``method``
+    ``"chebyshev"`` (``bounds``, the interval (lo, hi), required) or
+    ``"bicgstab"`` (``bounds`` None). ``u0_fam`` arrives full (boundary
+    values included). Returns the final homogeneous state in family
+    layout.
+
+    ``source_fn``: an elementwise ``(x, y, t) -> s`` source hook (a
+    problem's ``source_xy``), loaded as ops/loads.EmissionLoads describes
+    (lumped ``dt m_f s`` or, with ``source_lumped=False``, ``dt s``,
+    rect-masked); it needs ``grid = (xmin, ymin, h)`` and ``dt``; the
+    solve's first step ends at ``t0 + dt``. A ``source_steady`` load is
+    one plane for the whole launch; any other is built per step, a window
+    of :func:`load_window` steps per launch.
     """
-    if method != "chebyshev":
-        raise NotImplementedError(
-            "the fused whole-loop kernel is ported for method='chebyshev' "
-            "only (the BiCGStab variant needs grid-wide dot products)"
-        )
-    if bounds is None:
-        raise ValueError("bounds must be given for chebyshev")
-    scal = step_scalars(consts, mass_consts, inv_diag_consts, bounds,
-                        n_iters, u0_fam.dtype)
+    if method not in ("bicgstab", "chebyshev"):
+        raise ValueError(f"unknown method {method!r}")
+    if (method == "chebyshev") != (bounds is not None):
+        raise ValueError("bounds must be given exactly for chebyshev")
+    if source_fn is not None and (grid is None or dt is None):
+        raise ValueError("source_fn requires grid=(xmin, ymin, h) and dt")
+    dtype = u0_fam.dtype
+    if method == "chebyshev":
+        scal = step_scalars(consts, mass_consts, inv_diag_consts, bounds,
+                            n_iters, dtype)
+    else:
+        scal = uniform_scalars(consts, mass_consts, inv_diag_consts, dtype)
     u3 = to_canvases(spec, u0_fam)
-    kw = dict(n_steps=n_steps, n_iters=n_iters, use_ka=use_ka,
-              extrapolate=extrapolate)
     if u3.is_cuda:
-        out = kernel_solve(scal, u3, **kw)
+        run = kernel_solve if method == "chebyshev" \
+            else kernel_uniform_bicgstab_solve
     elif u3.device.type == "cpu":
-        out = plain_solve(scal, u3, **kw)
+        run = plain_solve if method == "chebyshev" \
+            else plain_uniform_bicgstab_solve
     else:
         raise ValueError(f"unsupported device {u3.device}")
-    return from_canvases(spec, out)
+    kw = dict(n_iters=n_iters, use_ka=use_ka, extrapolate=extrapolate)
+    if source_fn is None:
+        out, _ = run(scal, u3, n_steps=n_steps, **kw)
+        return from_canvases(spec, out)
+    loads = uniform_loads(source_fn, source_steady, mass_consts,
+                          rect_masks(spec.n, dtype, u3.device), grid=grid,
+                          dt=dt, t0=t0, use_ka=use_ka, lumped=source_lumped)
+    if source_steady:
+        out, _ = run(scal, u3, n_steps=n_steps, load=loads.planes[0], **kw)
+        return from_canvases(spec, out)
+    window = load_window(spec.n, dtype, n_steps)
+    u, up, done = u3, None, 0
+    while done < n_steps:
+        count = min(window, n_steps - done)
+        u, up = run(scal, u, n_steps=count, up=up,
+                    load=loads.window(count)[:, 0], **kw)
+        done += count
+    return from_canvases(spec, u)
 
 
 def coeff_canvases(pattern, coeffs):
@@ -304,56 +551,28 @@ def bicgstab_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam,
     ])
 
 
-def _guard(a):
-    return torch.where(a == 0, torch.full_like(a, _EPS), a)
-
-
-def _dot(a, b):
-    """Dot product of two canvas stacks, summed in double (as kernel B5
-    sums; see csrc/canvas_solver.cu)."""
-    return torch.sum(a * b, dtype=torch.float64)
-
-
 def plain_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate):
     """B5's plain version: the whole loop on the full canvas. ``C`` is the
     (24, n, n) operator stack of :func:`fused_solve` (15 coefficients, 3
-    masked mass, 3 inverse diagonal, 3 interior masks); each step resets
-    p, v to 0 and (rho, alpha, omega) to 1, as the JAX kernel does. The dot
-    products and the scalar recurrence are carried in double, the vectors
-    in u3's dtype."""
+    masked mass, 3 inverse diagonal, 3 interior masks); the iterations are
+    :func:`_bicgstab_iterations`'."""
     S, m, idg, mk = C[:15], C[15:18], C[18:21], C[21:24]
-    dtype = u3.dtype
-    one = torch.ones((), dtype=torch.float64, device=u3.device)
+
+    def apply(x):
+        return stencil_terms(S, x)
+
     u, up = u3, (u3 if extrapolate else None)
     for _ in range(n_steps):
         if use_ka:
-            r = 2.0 * m * u + (1.0 - mk) * u - stencil_terms(S, u)
+            r = 2.0 * m * u + (1.0 - mk) * u - apply(u)
         else:
             r = m * u
         if extrapolate:
             u, up = (2.0 * u - up) * mk, u
         else:
             u = u * mk
-        r = r - stencil_terms(S, u)
-        rh = r
-        p = torch.zeros_like(u)
-        v = torch.zeros_like(u)
-        rho_old, alpha, omega = one, one, one
-        for _ in range(n_iters):
-            rho = _dot(rh, r)
-            beta = (rho / _guard(rho_old)) * (alpha / _guard(omega))
-            p = r + beta.to(dtype) * (p - omega.to(dtype) * v)
-            w = idg * p
-            v = stencil_terms(S, w)
-            alpha = rho / _guard(_dot(rh, v))
-            u = u + alpha.to(dtype) * w
-            r = r - alpha.to(dtype) * v
-            w = idg * r
-            t = stencil_terms(S, w)
-            omega = _dot(t, r) / _guard(_dot(t, t))
-            u = u + omega.to(dtype) * w
-            r = r - omega.to(dtype) * t
-            rho_old = rho
+        r = r - apply(u)
+        u = _bicgstab_iterations(apply, idg, r, u, n_iters)
     return u
 
 
@@ -372,9 +591,7 @@ def kernel_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate,
     C = C.contiguous()
     u = u3.contiguous().clone()
     up = u.clone() if extrapolate else None
-    work = torch.empty((6,) + tuple(u.shape), dtype=u.dtype, device=u.device)
-    partials = torch.empty((4, CANVAS_MAX_GRID), dtype=torch.float64,
-                           device=u.device)
+    work, partials = _bicgstab_buffers(u)
     grid = ctypes.c_int(0)
     P = _build.pointer
     CANVAS_KERNEL.launch(u.dtype, P(C), P(u), P(up), P(work),

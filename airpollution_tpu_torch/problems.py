@@ -103,7 +103,7 @@ class AdDifProblem(abc.ABC):
     def source_xy(self, x, y, t):
         """Elementwise source on separate coordinate tensors (broadcast),
         the form the fused paths' emission loads are built from
-        (ops/fused_hbm.EmissionLoads). The default wraps ``source_term``;
+        (ops/loads.EmissionLoads). The default wraps ``source_term``;
         a subclass with a closed form may override it."""
         x, y = torch.broadcast_tensors(x, y)
         xyt = torch.stack([x, y, torch.full_like(x, float(t))], dim=-1)

@@ -30,7 +30,18 @@ Phases, each printing one JSON line:
    fuse_chemistry=False (B4) checks and chain masses against the f64
    oracle; M2 (257^2, nt=1001, Chebyshev-6) against the stencil scan and
    with strided snapshots;
-8. the kernels line (launches on each path, errors, times, bounds).
+8. slice 4, sourced, Robin-flux and BiCGStab fused solves: kernel B1 with
+   a steady load plane and with a per-step load stack, B1's BiCGStab
+   variant, B2 with a load and B4 with a source + Robin flux plane against
+   their plain versions (f64 and f32); S1, tpu_sourced_fused.py's 257^2 row
+   (a Gaussian emitter, B1 with a load); S2, its 513^2 row on fused_hbm
+   (B2 with a load); S3, the plume at 257^2 with the default
+   solver_method (B1's BiCGStab variant), BE and CN, and one sourced
+   BiCGStab solve; P1 and P2, scripts/torch_port_production_scenario.py
+   at 1025^2 (nt=2001, a row every 200) and 513^2 with the
+   compensation-point flux (nt=1001, a row every 100) on B4 with its load
+   plane, with the lumped-mass budget;
+9. the kernels line (launches on each path, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -64,6 +75,18 @@ KERNELS = {
     "B6": ("multispecies_step",
            "airpollution_tpu_torch/csrc/multispecies_step.cu",
            "airpollution_tpu/ops/pallas_hbm.py:844"),
+    "B1-load": ("uniform_solver (source load)",
+                "airpollution_tpu_torch/csrc/uniform_solver.cu",
+                "airpollution_tpu/ops/pallas_solver.py:230"),
+    "B1-BiCGStab": ("uniform_bicgstab",
+                    "airpollution_tpu_torch/csrc/uniform_bicgstab.cu",
+                    "airpollution_tpu/ops/pallas_solver.py:230"),
+    "B2-load": ("uniform_step (source load)",
+                "airpollution_tpu_torch/csrc/uniform_step.cu",
+                "airpollution_tpu/ops/pallas_hbm.py:201"),
+    "B4-load": ("canvas_step (source + Robin flux load)",
+                "airpollution_tpu_torch/csrc/canvas_step.cu",
+                "airpollution_tpu/ops/pallas_hbm.py:518"),
 }
 
 # C1's Chebyshev iterations. The configuration of
@@ -100,8 +123,13 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, with the seconds since the script started."""
+    print(json.dumps(dict(obj, t_s=time.perf_counter() - T_START)),
+          flush=True)
 
 
 @functools.lru_cache(maxsize=1)
@@ -220,8 +248,8 @@ def phase_toolchain():
     version = subprocess.run([nvcc, "--version"], capture_output=True,
                              text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
-    per_source = _build.build(
-        [source.rsplit("/", 1)[1] for _, source, _ in KERNELS.values()])
+    per_source = _build.build(list(dict.fromkeys(
+        source.rsplit("/", 1)[1] for _, source, _ in KERNELS.values())))
     emit({"phase": "toolchain", "torch": torch.__version__,
           "torch_cuda": torch.version.cuda, "nvcc": nvcc,
           "nvcc_version": version.splitlines()[-1],
@@ -239,7 +267,11 @@ def kernel_objects():
     return {"B1": fused_solver.KERNEL, "B2": fused_hbm.KERNEL,
             "B3": fused_stencil.KERNEL, "B4": fused_hbm.CANVAS_KERNEL,
             "B5": fused_solver.CANVAS_KERNEL,
-            "B6": fused_hbm.MULTISPECIES_KERNEL}
+            "B6": fused_hbm.MULTISPECIES_KERNEL,
+            "B1-load": fused_solver.LOAD_KERNEL,
+            "B1-BiCGStab": fused_solver.BICGSTAB_KERNEL,
+            "B2-load": fused_hbm.LOAD_KERNEL,
+            "B4-load": fused_hbm.CANVAS_KERNEL}
 
 
 def reset_counts():
@@ -270,8 +302,8 @@ def phase_b1(meshes, problem):
                                       dtype)
             kw = dict(n_steps=n_steps, n_iters=4, use_ka=order == 2,
                       extrapolate=ext)
-            got = fused_solver.kernel_solve(scal, u3, **kw)
-            ref = fused_solver.plain_solve(scal, u3, **kw)
+            got, _ = fused_solver.kernel_solve(scal, u3, **kw)
+            ref, _ = fused_solver.plain_solve(scal, u3, **kw)
             torch.cuda.synchronize()
             abs_e, rel, _ = rel_err(got, ref)
             rows.append({"ms": ms, "dtype": name, "order": order,
@@ -437,8 +469,8 @@ def kernel_times(meshes, problem):
     n_steps, k = md.nt - 1, 4
     scal, u3 = uniform_inputs(md, problem, 1, k, torch.float32)
     kw = dict(n_steps=n_steps, n_iters=k, use_ka=False, extrapolate=True)
-    abs_e, rel, _ = rel_err(fused_solver.kernel_solve(scal, u3, **kw),
-                            fused_solver.plain_solve(scal, u3, **kw))
+    abs_e, rel, _ = rel_err(fused_solver.kernel_solve(scal, u3, **kw)[0],
+                            fused_solver.plain_solve(scal, u3, **kw)[0])
     check(rel <= TOL["float32"], f"B1 257^2 x 1000 steps: rel err {rel:.3e}")
     ms = cuda_ms(lambda: fused_solver.kernel_solve(scal, u3, **kw), 5)
     plain = cuda_ms(lambda: fused_solver.plain_solve(scal, u3, **kw), 1)
@@ -1003,13 +1035,14 @@ def step_loads(inp, md, source, K, use_ka, C, masks, lumped, dtype):
     """The emission load of ``source`` on species 0 (B6's ``loads`` and
     ``load_index``), as the fused solve builds it."""
     from airpollution_tpu_torch.mesh.data import structured_grid
-    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+    from airpollution_tpu_torch.ops import fused_solver
+    from airpollution_tpu_torch.ops.loads import EmissionLoads
 
     live = None
     if inp["dead"] is not None:
         live = 1.0 - fused_solver.to_canvases(inp["pattern"],
                                               inp["dead"].to(dtype))
-    loads = fused_hbm.EmissionLoads(
+    loads = EmissionLoads(
         (source.source_xy,) + (None,) * (K - 1), (True,) + (False,) * (K - 1),
         grid=structured_grid(md), dt=md.domain.T / (md.nt - 1), t0=0.0,
         use_ka=use_ka, lumped=lumped, mass3=C[15:18], masks=masks, live=live)
@@ -1361,6 +1394,723 @@ def multispecies_kernel_times(meshes, problems, cache):
     return {"B6": (ms, plain, b_ms, by, abs_e, None)}
 
 
+# --- slice 4: loads on B1, B2 and B4, B1's BiCGStab variant, S1-S3, P1-P2
+
+
+# tpu_sourced_fused.py's emitter (its 257^2 and 513^2 rows) and the
+# production scenario's TPU rows (results_snapshot/production_scenario.json,
+# a TPU figure, held loosely: another card's float32 rounding).
+S_SOURCE = dict(q=50.0, xs=-8.0, ys=5.0, sigma_s=3.0)
+S_ITERS = 4
+TPU_SCENARIO = {(1025, 0.0): {"mass_final": 9.935103416442871,
+                              "deposited": 0.0574382787453942},
+                (513, 0.005): {"mass_final": 10.011184692382812}}
+SCENARIO_TOL = 5e-3
+# The 257^2 reference rel_l2 of the plume (the JAX package's scan on the
+# CPU in float32, bench configuration).
+REF_REL_L2_257 = 0.31563
+
+
+def scenario():
+    """scripts/torch_port_production_scenario.py (problem, solver, budget)."""
+    from scripts import torch_port_production_scenario as mod
+
+    return mod
+
+
+@functools.lru_cache(maxsize=None)
+def scenario_problem():
+    """The scenario's problem with the compensation-point flux (one
+    instance, so that canvas_inputs' cache serves every phase: c_comp
+    changes the load, not the operator)."""
+    return scenario().BoundaryLayerEmitter(c_comp=0.005)
+
+
+def s_source():
+    import airpollution_tpu_torch as apt
+
+    return apt.GaussianSourceProblem(**S_SOURCE)
+
+
+def ramp_source():
+    """A time-dependent emitter (tests/test_pallas_hbm.py's ramp)."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+
+    class Ramp(apt.Problem):
+        zero_source = False
+        steady_source = False
+
+        def source_term(self, xyt):
+            return self.source_xy(xyt[..., 0], xyt[..., 1], xyt[..., 2])
+
+        def source_xy(self, x, y, t):
+            return (0.2 + 0.1 * t) * torch.exp(-0.03 * (x ** 2 + y ** 2))
+
+    return Ramp(sigma=1.0)
+
+
+def uniform_load(md, scal, order, source, n_steps, dtype):
+    """The load of ``source`` as B1 / B2 take it: one (3, n, n) plane for a
+    steady source, an (n_steps, 3, n, n) stack otherwise."""
+    from airpollution_tpu_torch.mesh.data import structured_grid
+    from airpollution_tpu_torch.ops import fused_solver
+
+    el = fused_solver.uniform_loads(
+        source.source_xy, source.steady_source, scal[15:18],
+        fused_solver.rect_masks(md.structured_n, dtype, scal.device),
+        grid=structured_grid(md), dt=md.domain.T / (md.nt - 1), t0=0.0,
+        use_ka=order == 2, lumped=True)
+    if source.steady_source:
+        return el.planes[0]
+    return el.window(n_steps)[:, 0]
+
+
+def bicgstab_tol(name, rel_moved):
+    """B5's rule for a BiCGStab kernel in float32: the larger of TOL and 10x
+    the plain solve's own sensitivity to a 1e-7 input change."""
+    if name != "float32":
+        return TOL[name]
+    return max(TOL[name], 10.0 * rel_moved)
+
+
+def phase_b1_loads(meshes):
+    """B1 (Chebyshev-4) with a steady load plane and with a per-step load
+    stack, and B1's BiCGStab variant (k=5) with and without a load, against
+    their plain versions: 65^2 x 32 steps, BE and CN, and 257^2 x 16 steps,
+    extrapolated. The stack runs in two launches that carry u and u_prev."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_solver
+
+    problem = plume()
+    worst = {}
+    rows = []
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms, n_steps in ((65, 32), (257, 16)):
+            md = meshes[(ms, name)]
+            for order in (1, 2):
+                scal, u3 = uniform_inputs(md, problem, order, S_ITERS, dtype)
+                kw = dict(n_iters=S_ITERS, use_ka=order == 2,
+                          extrapolate=True)
+                for label, source in (("steady", s_source()),
+                                      ("stack", ramp_source())):
+                    load = uniform_load(md, scal, order, source, n_steps,
+                                        dtype)
+                    if label == "steady":
+                        got, _ = fused_solver.kernel_solve(
+                            scal, u3, n_steps=n_steps, load=load, **kw)
+                    else:
+                        half = n_steps // 2
+                        u, up = fused_solver.kernel_solve(
+                            scal, u3, n_steps=half, load=load[:half], **kw)
+                        got, _ = fused_solver.kernel_solve(
+                            scal, u, n_steps=n_steps - half, up=up,
+                            load=load[half:], **kw)
+                    ref, _ = fused_solver.plain_solve(
+                        scal, u3, n_steps=n_steps, load=load, **kw)
+                    torch.cuda.synchronize()
+                    abs_e, rel, diff = rel_err(got, ref)
+                    rows.append({"kernel": "B1-load", "ms": ms,
+                                 "dtype": name, "order": order,
+                                 "load": label, "rel_err": rel,
+                                 "worst_at": worst_at(diff)})
+                    check(rel <= TOL[name], f"B1+load {rows[-1]}: rel err "
+                          f"above {TOL[name]:.0e}")
+                    if ms == 257 and name == "float32":
+                        worst["B1-load"] = max(worst.get("B1-load", 0.0),
+                                               abs_e)
+                scal21 = scal[:21].contiguous()
+                for ext in (False, True):
+                    for label in ("none", "steady"):
+                        load = (None if label == "none" else uniform_load(
+                            md, scal, order, s_source(), n_steps, dtype))
+                        bkw = dict(n_steps=n_steps, n_iters=5,
+                                   use_ka=order == 2, extrapolate=ext,
+                                   load=load)
+                        got, _ = fused_solver.kernel_uniform_bicgstab_solve(
+                            scal21, u3, **bkw)
+                        ref, _ = fused_solver.plain_uniform_bicgstab_solve(
+                            scal21, u3, **bkw)
+                        torch.cuda.synchronize()
+                        abs_e, rel, diff = rel_err(got, ref)
+                        sens = None
+                        if name == "float32":
+                            moved, _ = fused_solver.plain_uniform_bicgstab_solve(
+                                scal21, u3 * (1.0 + 1e-7), **bkw)
+                            sens = rel_err(moved, ref)[1]
+                        tol = bicgstab_tol(name, sens)
+                        rows.append({"kernel": "B1-BiCGStab", "ms": ms,
+                                     "dtype": name, "order": order,
+                                     "extrapolate": ext, "load": label,
+                                     "rel_err": rel,
+                                     "plain_sensitivity": sens, "tol": tol,
+                                     "worst_at": worst_at(diff)})
+                        check(rel <= tol, f"B1-BiCGStab {rows[-1]}: rel "
+                              f"err above tol")
+                        if ms == 257 and name == "float32":
+                            worst["B1-BiCGStab"] = max(
+                                worst.get("B1-BiCGStab", 0.0), abs_e)
+    emit({"phase": "b1_loads_bicgstab_vs_plain", "card": card_line(),
+          "cases": rows})
+    return worst
+
+
+def plume():
+    import airpollution_tpu_torch as apt
+
+    return apt.Problem(sigma=1.0)
+
+
+def phase_b2_load(meshes):
+    """B2 with a load against plain_step with the same load: one step at
+    129^2 and 1025^2, k = 4 and 8, BE and CN, from a state that differs
+    from u_prev, with S1's steady load."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    worst = {}
+    rows = []
+    problem = plume()
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (129, 1025):
+            md = meshes[(ms, name)]
+            for k in (4, 8):
+                for order in (1, 2):
+                    use_ka = order == 2
+                    scal, u0 = uniform_inputs(md, problem, order, k, dtype)
+                    load = uniform_load(md, scal, order, s_source(), 1,
+                                        dtype)
+                    masks = fused_solver.rect_masks(u0.shape[-1], dtype,
+                                                     u0.device)
+                    u, up = fused_solver.plain_step(scal, k, u0, u0, use_ka,
+                                                    masks, load)
+                    ref_u, ref_up = fused_solver.plain_step(
+                        scal, k, u, up, use_ka, masks, load)
+                    tile = fused_solver.choose_tile(
+                        fused_solver.halo_of(k, use_ka), dtype,
+                        fused_hbm.TILE)
+                    got_u, got_up = torch.empty_like(u), torch.empty_like(u)
+                    halt = torch.tensor(-1, dtype=torch.int32,
+                                        device=u.device)
+                    fused_hbm.kernel_step(scal, k, u, up, got_u, got_up,
+                                          use_ka, halt, tile, load=load)
+                    torch.cuda.synchronize()
+                    abs_e, rel, diff = rel_err(got_u, ref_u)
+                    check(bool(torch.equal(got_up, ref_up)),
+                          f"B2+load {ms}^2 k={k}: u_prev output differs")
+                    rows.append({"ms": ms, "dtype": name, "k": k,
+                                 "order": order, "tile": tile,
+                                 "rel_err": rel, "worst_at": worst_at(diff)})
+                    check(rel <= TOL[name], f"B2+load {rows[-1]}: rel err "
+                          f"above {TOL[name]:.0e}")
+                    if ms == 1025 and name == "float32":
+                        worst["B2-load"] = max(worst.get("B2-load", 0.0),
+                                               abs_e)
+    emit({"phase": "b2_load_vs_plain", "card": card_line(), "cases": rows})
+    return worst
+
+
+def flux_plane(inp, md, problem, use_ka, C, masks, dtype):
+    """B4's load plane of a problem with a source and a Robin flux hook:
+    the source load plus dt g |e| on the wall lines, for the first step,
+    as fused_solve_canvas_hbm builds it."""
+    from airpollution_tpu_torch.mesh.data import structured_grid
+    from airpollution_tpu_torch.ops import fused_solver, loads
+
+    live = None
+    if inp["dead"] is not None:
+        live = 1.0 - fused_solver.to_canvases(inp["pattern"],
+                                              inp["dead"].to(dtype))
+    grid = structured_grid(md)
+    dt = md.domain.T / (md.nt - 1)
+    src = loads.EmissionLoads(
+        (problem.source_xy,), (True,), grid=grid, dt=dt, t0=0.0,
+        use_ka=use_ka, lumped=True, mass3=C[15:18], masks=masks, live=live)
+    walls = loads.RobinFluxLoads(
+        problem.robin_g_xy, tuple(sorted(problem.robin_sides)), grid=grid,
+        dt=dt, use_ka=use_ka, masks=masks, live=live)
+    plane = src.planes[0].clone()
+    walls.add(plane, src.planes[0], dt)
+    return plane
+
+
+def phase_b4_flux(meshes, cache):
+    """B4 with the production scenario's load plane (steady source + the
+    compensation-point flux g |e| on the ground line) against
+    plain_canvas_step: one step at 129^2 and 1025^2, k=8, BE and CN, on
+    the scenario's operator (log-profile wind, Robin floor and lid)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    problem = scenario_problem()
+    worst = {}
+    rows = []
+    k = 8
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (129, 1025):
+            md = meshes[(ms, name)]
+            for order in (1, 2):
+                use_ka = order == 2
+                inp = canvas_inputs(md, problem, order, dtype, cache)
+                C, cheb, u, masks = canvas_step_inputs(inp, k, dtype)
+                u = u + 0.01 * masks  # a nonzero state under the plume
+                plane = flux_plane(inp, md, problem, use_ka, C, masks, dtype)
+                tile = fused_solver.choose_tile(
+                    fused_solver.halo_of(k, use_ka), dtype,
+                    fused_hbm.CANVAS_TILE)
+                got = torch.empty_like(u)
+                halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+                fused_hbm.canvas_kernel_step(
+                    C, cheb, k, u, u, got, torch.empty_like(u), use_ka,
+                    inp["rect"], halt, tile, load=plane)
+                ref, _ = fused_hbm.plain_canvas_step(C, cheb, k, u, u,
+                                                     use_ka, masks, plane)
+                torch.cuda.synchronize()
+                abs_e, rel, diff = rel_err(got, ref)
+                rows.append({"ms": ms, "dtype": name, "order": order,
+                             "tile": tile, "rel_err": rel,
+                             "flux_line_max": float(plane[0, 0].abs().max()),
+                             "worst_at": worst_at(diff)})
+                check(rel <= TOL[name], f"B4+flux {rows[-1]}: rel err above "
+                      f"{TOL[name]:.0e}")
+                if ms == 1025 and name == "float32":
+                    worst["B4-load"] = max(worst.get("B4-load", 0.0), abs_e)
+    emit({"phase": "b4_source_flux_vs_plain", "card": card_line(),
+          "cases": rows})
+    return worst
+
+
+def cuda_ms_once(fn):
+    """(result, device ms) of one call of ``fn`` (CUDA events, no warm-up:
+    for plain versions that every earlier phase has already run)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def timed_phase(solver, reps, store=False):
+    """(first solve s, warm solve times): a first solve (assembly, spectral
+    estimates), then ``reps`` warm ones."""
+    t0 = time.perf_counter()
+    solver.solve(store_solutions=store)
+    first = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        solver.solve(store_solutions=store)
+        times.append(solver.solve_time)
+    return first, times
+
+
+def rates(out, tag, n_steps, times):
+    out[f"{tag}steps_per_s_best"] = n_steps / min(times)
+    out[f"{tag}steps_per_s_median"] = n_steps / statistics.median(times)
+
+
+def sourced_check(out, ms, domain, impl):
+    """tpu_sourced_fused.py's check at nt=33: the fused path (Chebyshev-6)
+    against the stencil scan, relative to max|scan|. Gated: the scan with
+    the same Chebyshev-6 on the same interval (the load and kernel path
+    against an independent RHS). Reported: the scan with BiCGStab to 1e-7,
+    as the script compares; at this dt (dt |v| / h ~ 2.2 at 257^2) k=6
+    leaves an iteration error of tens of percent in both packages."""
+    import warnings
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    md = apt.MeshData(apt.create_mesh(ms, 20.0), domain, nt=33)
+    scan = CRBESolver(domain, s_source(), md, matvec_impl="stencil",
+                      solver_tol=1e-7, solver_maxiter=60)
+    ref = scan.solve(store_solutions=False)
+    fused = CRBESolver(domain, s_source(), md, matvec_impl=impl,
+                       solver_method="chebyshev", chebyshev_iters=6)
+    fused.set_operators(scan._ops)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the marginal-k warning, expected
+        got = fused.solve(store_solutions=False)
+    same = CRBESolver(domain, s_source(), md, matvec_impl="stencil",
+                      solver_method="chebyshev", chebyshev_iters=6,
+                      cheb_bounds=fused._cheb_bounds)
+    same.set_operators(scan._ops)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cheb = same.solve(store_solutions=False)
+    scale = float(ref.abs().max())
+    out.update({
+        "check_route": f"{fused.fused_kernel} ({fused.solver_method})",
+        "check_cheb_factor": fused._cheb_factor,
+        "check_rel_vs_cheb6_scan": float((got - cheb).abs().max()) / scale,
+        "check_rel_vs_bicgstab_scan": float((got - ref).abs().max()) / scale,
+    })
+    check(out["check_rel_vs_cheb6_scan"] <= 1e-4,
+          f"{out['phase']}: fused vs the Chebyshev-6 scan "
+          f"{out['check_rel_vs_cheb6_scan']:.3e} > 1e-4")
+
+
+def phase_s1(md, domain):
+    """S1: tpu_sourced_fused.py's 257^2 row: the Gaussian emitter, nt=1001,
+    BE, Chebyshev-4, extrapolated, 'fused' -> B1 with a load plane, one
+    launch per solve; the zero-source solve timed beside it."""
+    import torch
+
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    out = {"phase": "s1_sourced_257", "card": card_line(), "ms": 257,
+           "nt": md.nt, "dofs": md.number_of_segments}
+    n_steps = md.nt - 1
+    kw = dict(matvec_impl="fused", solver_method="chebyshev",
+              chebyshev_iters=S_ITERS, extrapolate_warm_start=True)
+    s = CRBESolver(domain, s_source(), md, **kw)
+    reset_counts()
+    first, times = timed_phase(s, 5)
+    launches = launches_of("B1-load")
+    out.update({"route": s.fused_kernel, "first_solve_s": first,
+                "b1_load_launches": launches,
+                "b1_load_launches_per_solve": launches / 6})
+    rates(out, "", n_steps, times)
+    check(s.fused_kernel == "B1" and launches == 6
+          and launches_of("B1") == 0,
+          f"S1: {launches} B1 load launches in 6 solves, not 6")
+    check(bool(torch.isfinite(s.solutions).all()), "S1: non-finite state")
+    zero = CRBESolver(domain, plume(), md, **kw)
+    _, ztimes = timed_phase(zero, 5)
+    rates(out, "zero_source_", n_steps, ztimes)
+    sourced_check(out, 257, domain, "fused")
+    emit(out)
+    return launches, s
+
+
+def phase_s2(md, domain):
+    """S2: the same emitter at 513^2, 'fused_hbm' -> B2 with a load plane,
+    1,000 launches per solve; the zero-source solve timed beside it."""
+    import torch
+
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    out = {"phase": "s2_sourced_513", "card": card_line(), "ms": 513,
+           "nt": md.nt, "dofs": md.number_of_segments}
+    n_steps = md.nt - 1
+    kw = dict(matvec_impl="fused_hbm", solver_method="chebyshev",
+              chebyshev_iters=S_ITERS, extrapolate_warm_start=True)
+    s = CRBESolver(domain, s_source(), md, **kw)
+    reset_counts()
+    s.solve(store_solutions=False)
+    per_solve = launches_of("B2-load")
+    check(s.fused_kernel == "B2" and per_solve == n_steps
+          and launches_of("B2") == 0,
+          f"S2: {per_solve} B2 load launches in one solve, not {n_steps}")
+    _, times = timed_phase(s, 3)
+    launches = launches_of("B2-load")
+    out.update({"route": s.fused_kernel,
+                "b2_load_launches_per_solve": per_solve,
+                "b2_load_launches": launches})
+    rates(out, "", n_steps, times)
+    check(bool(torch.isfinite(s.solutions).all()), "S2: non-finite state")
+    zero = CRBESolver(domain, plume(), md, **kw)
+    _, ztimes = timed_phase(zero, 3)
+    rates(out, "zero_source_", n_steps, ztimes)
+    sourced_check(out, 513, domain, "fused_hbm")
+    emit(out)
+    return launches
+
+
+def phase_s3(md, domain, s1_solver):
+    """S3: the plume at 257^2 on 'fused' with the default solver_method
+    (BiCGStab-5), extrapolated, BE and CN -> B1's BiCGStab variant; rel_l2
+    within 5e-4 of the reference's 0.31563 and max|fused - converged scan|
+    <= 1e-4; and one sourced BiCGStab solve (S1's emitter) against the
+    converged scan, as S1's Chebyshev solve."""
+    import torch
+
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    problem = plume()
+    out = {"phase": "s3_bicgstab_257", "card": card_line(), "ms": 257,
+           "nt": md.nt, "dofs": md.number_of_segments}
+    n_steps = md.nt - 1
+    total = 0
+    for order in (1, 2):
+        tag = "be" if order == 1 else "cn"
+        kw = dict(time_scheme_order=order, stiffness_convention="reference")
+        s = CRBESolver(domain, problem, md, matvec_impl="fused",
+                       extrapolate_warm_start=True, **kw)
+        reset_counts()
+        s.solve(store_solutions=False)
+        per_solve = launches_of("B1-BiCGStab")
+        check(s.fused_kernel == "B1-BiCGStab" and per_solve == 1,
+              f"S3 {tag}: {per_solve} B1-BiCGStab launches in one solve")
+        _, times = timed_phase(s, 3)
+        total += launches_of("B1-BiCGStab")
+        rates(out, f"{tag}_", n_steps, times)
+        rel, _, _ = s.compute_errors(problem.analytical_solution)
+        scan = CRBESolver(domain, problem, md, matvec_impl="stencil",
+                          solver_tol=1e-6, solver_maxiter=100, **kw)
+        scan.solve(store_solutions=False)
+        diff = max_diff(s, scan)
+        out.update({f"{tag}_rel_l2": rel,
+                    f"{tag}_max_fused_minus_scan": diff})
+        check(abs(rel - REF_REL_L2_257) <= 5e-4,
+              f"S3 {tag}: rel_l2 {rel} not within 5e-4 of {REF_REL_L2_257}")
+        check(diff <= 1e-4, f"S3 {tag}: max|fused - scan| {diff:.3e}")
+    src = CRBESolver(domain, s_source(), md, matvec_impl="fused",
+                     extrapolate_warm_start=True)
+    reset_counts()
+    src.solve(store_solutions=False)
+    total += launches_of("B1-BiCGStab")
+    check(src.fused_kernel == "B1-BiCGStab"
+          and launches_of("B1-BiCGStab") == 1,
+          "S3: the sourced BiCGStab solve did not launch B1's variant once")
+    scan = CRBESolver(domain, s_source(), md, matvec_impl="stencil",
+                      solver_tol=1e-6, solver_maxiter=100)
+    scan.solve(store_solutions=False)
+    scale = float(scan.solutions[-1].abs().max())
+    out["sourced_rel_vs_scan"] = max_diff(src, scan) / scale
+    out["s1_chebyshev_rel_vs_scan"] = max_diff(s1_solver, scan) / scale
+    check(bool(torch.isfinite(src.solutions).all()),
+          "S3: non-finite sourced state")
+    check(out["sourced_rel_vs_scan"] <= 1e-4,
+          f"S3: sourced BiCGStab vs scan {out['sourced_rel_vs_scan']:.3e}")
+    check(out["s1_chebyshev_rel_vs_scan"] <= 1e-4,
+          f"S1 at nt=1001 vs scan {out['s1_chebyshev_rel_vs_scan']:.3e}")
+    out["b1_bicgstab_launches"] = total
+    emit(out)
+    return total
+
+
+def phase_scenario(ms, nt, every, c_comp, tag):
+    """P1 / P2: the production scenario (scripts/torch_port_production_
+    scenario.py) on B4 with its load plane: the steady source, plus the
+    compensation-point flux on the ground line when c_comp != 0. Warm
+    steps/s, launches per solve, the budget against the TPU's row (a TPU
+    figure, <= 5e-3), and over a short horizon (the first 40 steps, a row
+    every 10) against the port's stencil scan with the same iterations and
+    interval: the extrapolated final state (<= 1e-4), and, without the
+    extrapolated warm start (whose u_prev restarts at every snapshot
+    chunk, as in the JAX solver), every strided row (<= 1e-4) and the
+    last strided row against the final state, bit for bit."""
+    import torch
+
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    sc = scenario()
+    out = {"phase": f"{tag}_production_{ms}", "card": card_line(), "ms": ms,
+           "nt": nt, "snapshot_every": every, "c_comp": c_comp, "k": 8}
+    s = sc.make_solver(ms, nt, every, 8, c_comp=c_comp)
+    n_steps = nt - 1
+    out["dofs"] = s.mesh_data.number_of_segments
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = s.solve(store_solutions=True)
+    out["first_solve_s"] = time.perf_counter() - t0
+    per_solve = launches_of("B4-load")
+    check(s.fused_kernel == "B4" and per_solve == n_steps,
+          f"{tag}: {per_solve} B4 launches in one solve, not {n_steps}")
+    check(s._robin_g_fused == bool(c_comp), f"{tag}: Robin flux routing")
+    times = []
+    for _ in range(2):
+        rows = s.solve(store_solutions=True)
+        times.append(s.solve_time)
+    rates(out, "", n_steps, times)
+    out["b4_launches_per_solve"] = per_solve
+    out["b4_launches"] = launches_of("B4-load")
+    check(rows.shape == (n_steps // every + 1, out["dofs"])
+          and bool(torch.isfinite(rows).all()),
+          f"{tag}: snapshot rows {tuple(rows.shape)} or non-finite")
+    out["budget"] = sc.budget(s, rows, every)
+    final = s.solve(store_solutions=False)
+    out["last_row_rel_vs_final_extrapolated"] = rel_max(rows[-1], final[0])
+    for name, want in TPU_SCENARIO.get((ms, c_comp), {}).items():
+        got = out["budget"][name]
+        out[f"{name}_tpu"] = want
+        out[f"{name}_rel_vs_tpu"] = abs(got - want) / abs(want)
+        check(out[f"{name}_rel_vs_tpu"] <= SCENARIO_TOL,
+              f"{tag}: {name} {got} not within {SCENARIO_TOL} of the TPU's "
+              f"{want}")
+    # Short horizon: the scenario's first 40 steps (its own dt), fused
+    # against the stencil scan, on one operator and one interval. The
+    # strided fused path restarts the extrapolated warm start at every
+    # chunk (as the JAX solver does) and the scan does not, which early in
+    # a source-driven run, where u grows fast relative to itself, moves
+    # the rows by Chebyshev-8's iteration error: that gap is reported; the
+    # gates compare like with like.
+    short = sc.make_solver(ms, 41, 10, 8, c_comp=c_comp, T=40 * s.dt)
+    f_rows = short.solve(store_solutions=True)
+
+    def twin(impl, ext, every):
+        t = CRBESolver(short.domain, short.problem, short.mesh_data,
+                       matvec_impl=impl, solver_method="chebyshev",
+                       chebyshev_iters=8, time_scheme_order=2,
+                       extrapolate_warm_start=ext, snapshot_every=every,
+                       cheb_bounds=short._cheb_bounds)
+        t.set_operators(short._ops)
+        return t
+
+    def rows_rel(a, b):
+        return max(rel_max(a[j], b[j]) for j in range(1, a.shape[0]))
+
+    scan_ext = twin("stencil", True, 10).solve(store_solutions=True)
+    out["short_strided_rows_rel_vs_scan_extrapolated"] = rows_rel(f_rows,
+                                                                  scan_ext)
+    out["short_final_rel_vs_scan_extrapolated"] = rel_max(
+        short.solve(store_solutions=False)[0], scan_ext[-1])
+    check(out["short_final_rel_vs_scan_extrapolated"] <= 1e-4,
+          f"{tag}: fused vs scan (extrapolated) "
+          f"{out['short_final_rel_vs_scan_extrapolated']:.3e}")
+    plain = twin("fused_hbm", False, 10)
+    strided = plain.solve(store_solutions=True)
+    out["short_strided_rows_rel_vs_scan"] = rows_rel(
+        strided, twin("stencil", False, 10).solve(store_solutions=True))
+    check(out["short_strided_rows_rel_vs_scan"] <= 1e-4,
+          f"{tag}: strided fused vs scan rows "
+          f"{out['short_strided_rows_rel_vs_scan']:.3e}")
+    final = plain.solve(store_solutions=False)
+    out["short_last_row_equals_final"] = bool(torch.equal(strided[-1],
+                                                          final[0]))
+    check(out["short_last_row_equals_final"],
+          f"{tag}: the last strided row differs from the final state")
+    emit(out)
+    return out["b4_launches"]
+
+
+def slice4_kernel_times(meshes, cache, s1_md, s2_md):
+    """Per-launch times of the slice's kernel variants at their main paths'
+    shapes (float32), their plain versions, bounds and largest |kernel -
+    plain|: B1 with a load (S1's solve, 1000 steps), B1's BiCGStab variant
+    (S3's BE solve), B2 with a load (S2's step, 513^2, k=4) and B4 with the
+    source + flux plane (P2's step, 513^2, k=8, CN). Also, in this call,
+    B2 without and with a load at 1025^2, k=8, and B4's load at P1's
+    shape."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    f32 = torch.float32
+    out = {}
+    extra = {"phase": "slice4_kernel_times", "card": card_line()}
+    problem = plume()
+    # B1 with S1's load plane: one launch = the whole S1 solve.
+    n_steps = s1_md.nt - 1
+    scal, u3 = uniform_inputs(s1_md, problem, 1, S_ITERS, f32)
+    load = uniform_load(s1_md, scal, 1, s_source(), n_steps, f32)
+    kw = dict(n_steps=n_steps, n_iters=S_ITERS, use_ka=False,
+              extrapolate=True, load=load)
+    (ref, _), plain = cuda_ms_once(
+        lambda: fused_solver.plain_solve(scal, u3, **kw))
+    abs_e, rel, _ = rel_err(fused_solver.kernel_solve(scal, u3, **kw)[0],
+                            ref)
+    check(rel <= TOL["float32"], f"B1+load 257^2 x 1000: rel err {rel:.3e}")
+    ms = cuda_ms(lambda: fused_solver.kernel_solve(scal, u3, **kw), 5)
+    dofs = s1_md.number_of_segments
+    b_ms, by = bound(3 * u3.numel() * 4, n_steps * dofs * (
+        step_flops_per_dof(S_ITERS, False, True) + 1))
+    out["B1-load"] = (ms, plain, b_ms, by, abs_e, None)
+    extra["b1_without_load_ms"] = cuda_ms(lambda: fused_solver.kernel_solve(
+        scal, u3, **dict(kw, load=None)), 5)
+    # B1's BiCGStab variant: one launch = S3's BE solve (k=5, ext).
+    md = meshes[(257, "float32")]
+    scal, u3 = uniform_inputs(md, problem, 1, S_ITERS, f32)
+    scal21 = scal[:21].contiguous()
+    kw = dict(n_steps=md.nt - 1, n_iters=5, use_ka=False, extrapolate=True)
+    got, _ = fused_solver.kernel_uniform_bicgstab_solve(scal21, u3, **kw)
+    (ref, _), plain = cuda_ms_once(
+        lambda: fused_solver.plain_uniform_bicgstab_solve(scal21, u3, **kw))
+    abs_e, rel, _ = rel_err(got, ref)
+    check(rel <= TOL["float32"], f"B1-BiCGStab 257^2 x 1000: rel err "
+          f"{rel:.3e}")
+    ms = cuda_ms(lambda: fused_solver.kernel_uniform_bicgstab_solve(
+        scal21, u3, **kw), 3)
+    b_ms, by = bound(2 * u3.numel() * 4, (md.nt - 1) * md.number_of_segments
+                     * bicgstab_flops_per_dof(5, False, True))
+    out["B1-BiCGStab"] = (ms, plain, b_ms, by, abs_e, None)
+    # B2 with a load: one S2 step (513^2, k=4, BE, ext), and at 1025^2,
+    # k=8 without and with a load.
+    for label, bmd, k in (("s2", s2_md, S_ITERS),
+                          ("1025", meshes[(1025, "float32")], 8)):
+        scal, u = uniform_inputs(bmd, problem, 1, k, f32)
+        load = uniform_load(bmd, scal, 1, s_source(), 1, f32)
+        up = u.clone()
+        got_u, got_up = torch.empty_like(u), torch.empty_like(u)
+        halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+        tile = fused_solver.choose_tile(fused_solver.halo_of(k, False), f32,
+                                        fused_hbm.TILE)
+        masks = fused_solver.rect_masks(u.shape[-1], f32, u.device)
+
+        def launch(ld):
+            fused_hbm.kernel_step(scal, k, u, up, got_u, got_up, False, halt,
+                                  tile, load=ld)
+
+        launch(load)
+        abs_e, rel, _ = rel_err(got_u, fused_solver.plain_step(
+            scal, k, u, up, False, masks, load)[0])
+        check(rel <= TOL["float32"], f"B2+load {label}: rel err {rel:.3e}")
+        with_load = cuda_ms(lambda: launch(load), 50)
+        without = cuda_ms(lambda: launch(None), 50)
+        with_load_2 = cuda_ms(lambda: launch(load), 50)
+        without_2 = cuda_ms(lambda: launch(None), 50)
+        extra[f"b2_{label}_ms_without_with_with_without"] = [
+            without, with_load, with_load_2, without_2]
+        if label == "s2":
+            plain = cuda_ms(lambda: fused_solver.plain_step(
+                scal, k, u, up, False, masks, load), 5)
+            b_ms, by = bound(5 * u.numel() * 4, bmd.number_of_segments * (
+                step_flops_per_dof(k, False, True) + 1))
+            out["B2-load"] = (min(with_load, with_load_2), plain, b_ms, by,
+                              abs_e, None)
+    # B4 with the scenario's source + flux plane at P2's shape, and its
+    # source-only plane at P1's shape.
+    problem_s = scenario_problem()
+    for label, c_comp, bmd in (("p2", 0.005, meshes[(513, "float32")]),
+                               ("p1", 0.0, meshes[(1025, "float32")])):
+        inp = canvas_inputs(bmd, problem_s, 2, f32, cache)
+        C, cheb, u, masks = canvas_step_inputs(inp, 8, f32)
+        u = u + 0.01 * masks
+        if c_comp:
+            plane = flux_plane(inp, bmd, problem_s, True, C, masks, f32)
+        else:
+            (plane,), _ = step_loads(inp, bmd, problem_s, 1, True, C, masks,
+                                     True, f32)
+        tile = fused_solver.choose_tile(fused_solver.halo_of(8, True), f32,
+                                        fused_hbm.CANVAS_TILE)
+        got = torch.empty_like(u)
+        got_up = torch.empty_like(u)
+        halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+
+        def launch(ld):
+            fused_hbm.canvas_kernel_step(C, cheb, 8, u, u, got, got_up, True,
+                                         inp["rect"], halt, tile, load=ld)
+
+        launch(plane)
+        abs_e, rel, _ = rel_err(got, fused_hbm.plain_canvas_step(
+            C, cheb, 8, u, u, True, masks, plane)[0])
+        check(rel <= TOL["float32"], f"B4+load {label}: rel err {rel:.3e}")
+        with_load = cuda_ms(lambda: launch(plane), 30)
+        without = cuda_ms(lambda: launch(None), 30)
+        extra[f"b4_{label}_ms_with_without"] = [with_load, without]
+        if label == "p2":
+            plain = cuda_ms(lambda: fused_hbm.plain_canvas_step(
+                C, cheb, 8, u, u, True, masks, plane), 5)
+            b_ms, by = bound((C.numel() + 5 * u.numel()) * 4,
+                             bmd.number_of_segments * (
+                                 canvas_step_flops_per_dof(8, True, True)
+                                 + 1))
+            out["B4-load"] = (with_load, plain, b_ms, by, abs_e, None)
+    emit(extra)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1392,6 +2142,8 @@ def main() -> int:
             meshes[(ms, name)] = apt.MeshData(mesh, domain, nt=nt,
                                               dtype=getattr(torch, name))
     meshes[(1025, "float64")] = meshes[(1025, "float32")]
+    meshes[(513, "float32")] = apt.MeshData(apt.create_mesh(513, 20.0),
+                                            domain, nt=1001)
     md_257_65 = apt.MeshData(apt.create_mesh(257, 20.0), domain, nt=65)
     worst = phase_b1(meshes, problem)
     worst.update(phase_b2(meshes, problem))
@@ -1402,9 +2154,14 @@ def main() -> int:
     worst.update(phase_b6(meshes, problems, cache))
     worst["B4"] = max(worst["B4"],
                       phase_b4_load(meshes, problems, cache)["B4"])
+    worst.update(phase_b1_loads(meshes))
+    worst.update(phase_b2_load(meshes))
+    worst.update(phase_b4_flux(meshes, cache))
     times = kernel_times(meshes, problem)
     times.update(canvas_kernel_times(meshes, problems, cache))
     times.update(multispecies_kernel_times(meshes, problems, cache))
+    times.update(slice4_kernel_times(meshes, cache, meshes[(257, "float32")],
+                                     meshes[(513, "float32")]))
 
     launches = {
         "B1": phase_main_257(meshes[(257, "float32")], problem, domain),
@@ -1420,6 +2177,12 @@ def main() -> int:
     md_m1 = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=4001)
     launches["B6"] = phase_m1(md_m1, domain)
     phase_m2(meshes[(257, "float32")], domain)
+    del md_m1
+    launches["B1-load"], s1 = phase_s1(meshes[(257, "float32")], domain)
+    launches["B2-load"] = phase_s2(meshes[(513, "float32")], domain)
+    launches["B1-BiCGStab"] = phase_s3(meshes[(257, "float32")], domain, s1)
+    launches["B4-load"] = phase_scenario(1025, 2001, 200, 0.0, "p1")
+    launches["B4-load"] += phase_scenario(513, 1001, 100, 0.005, "p2")
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library = times[kid]

@@ -3,7 +3,7 @@ never fall back to the CPU on their own, a CPU tensor takes a kernel's
 plain version without needing the CUDA toolchain, every option it does
 not have yet raises NotImplementedError (and an invalid one ValueError,
 as in the JAX package), and each option a slice ported solves through the
-plain version of its kernel."""
+plain version of its kernel, with no CUDA launch."""
 
 import os
 import subprocess
@@ -37,6 +37,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.ops.fused_stencil",
     "airpollution_tpu_torch.ops.lifting",
     "airpollution_tpu_torch.ops.linalg",
+    "airpollution_tpu_torch.ops.loads",
     "airpollution_tpu_torch.ops.sparse",
     "airpollution_tpu_torch.ops.stencil",
     "airpollution_tpu_torch.ops.uniform",
@@ -67,6 +68,7 @@ def test_port_imports_no_jax():
 def test_port_sources_name_no_jax():
     files = list((REPO / "airpollution_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.append(REPO / "scripts" / "torch_port_production_scenario.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -81,9 +83,11 @@ def test_kernel_modules_import_without_nvcc():
         from airpollution_tpu_torch.ops import fused_hbm, fused_solver
         from airpollution_tpu_torch.ops import fused_stencil
         assert fused_solver.KERNEL.launches == 0
-        kernels = (fused_solver.KERNEL, fused_solver.CANVAS_KERNEL,
-                   fused_hbm.KERNEL, fused_hbm.CANVAS_KERNEL,
-                   fused_hbm.MULTISPECIES_KERNEL, fused_stencil.KERNEL)
+        kernels = (fused_solver.KERNEL, fused_solver.LOAD_KERNEL,
+                   fused_solver.BICGSTAB_KERNEL, fused_solver.CANVAS_KERNEL,
+                   fused_hbm.KERNEL, fused_hbm.LOAD_KERNEL,
+                   fused_hbm.CANVAS_KERNEL, fused_hbm.MULTISPECIES_KERNEL,
+                   fused_stencil.KERNEL)
         assert all(k._lib is None for k in kernels)
     """, env=env)
     assert out.returncode == 0, out.stderr
@@ -165,27 +169,20 @@ FUSED_CHEB = dict(matvec_impl="fused", solver_method="chebyshev")
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(matvec_impl="fused", solver_method="bicgstab"),
-     NotImplementedError),
     (dict(matvec_impl="fused_hbm", solver_method="bicgstab"), ValueError),
-    (dict(problem=_Sourced(), **FUSED_CHEB), NotImplementedError),
-    (dict(problem=_Sourced(), matvec_impl="fused_hbm",
-          solver_method="chebyshev"), NotImplementedError),
     (dict(problem=_Sourced(), matvec_impl="fused", fused_operator="canvas",
           solver_method="bicgstab"), ValueError),
-    (dict(problem=_RobinFlux(), matvec_impl="fused_hbm",
-          solver_method="chebyshev"), NotImplementedError),
+    (dict(problem=_RobinFlux(), matvec_impl="fused",
+          solver_method="bicgstab"), ValueError),
     (dict(problem=_Variable(), fused_operator="uniform", **FUSED_CHEB),
      ValueError),
     (dict(problem=_TimeVarying()), ValueError),
-    (dict(snapshot_every=2), NotImplementedError),
     (dict(assembly="patch", **FUSED_CHEB), NotImplementedError),
     (dict(preconditioner="spectral", matvec_impl="stencil"),
      NotImplementedError),
     (dict(matvec_impl="uniform"), NotImplementedError),
-], ids=["fused-bicgstab", "fused_hbm-bicgstab", "fused-sourced",
-        "fused_hbm-sourced", "canvas-bicgstab-sourced", "robin_g_xy-fused",
-        "variable-uniform-operator", "time-varying", "snapshot_every",
+], ids=["fused_hbm-bicgstab", "canvas-bicgstab-sourced",
+        "robin_g_xy-bicgstab", "variable-uniform-operator", "time-varying",
         "patch", "spectral", "uniform"])
 def test_out_of_scope_options_raise(kw, exc):
     with pytest.raises(exc):
@@ -205,6 +202,10 @@ def _spy(monkeypatch, module, name):
     return calls
 
 
+def _emitter():
+    return tapt.GaussianSourceProblem(q=5.0, xs=-2.0, ys=1.0, sigma_s=4.0)
+
+
 @pytest.mark.parametrize("kw,kernel", [
     (dict(fused_operator="canvas", **FUSED_CHEB), "B4"),
     (dict(problem=_Robin(), matvec_impl="fused_hbm",
@@ -215,12 +216,24 @@ def _spy(monkeypatch, module, name):
           solver_method="chebyshev"), "B4"),
     (dict(matvec_impl="pallas"), "B3"),
     (dict(problem=_Robin(), assemble_only=True), None),
+    (dict(matvec_impl="fused", solver_method="bicgstab"), "B1-BiCGStab"),
+    (dict(problem=_emitter(), **FUSED_CHEB), "B1"),
+    (dict(problem=_emitter(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), "B2"),
+    (dict(problem=_RobinFlux(), matvec_impl="fused_hbm",
+          solver_method="chebyshev"), "B4"),
+    (dict(snapshot_every=4, store=True, **FUSED_CHEB), "B1"),
 ], ids=["canvas", "robin", "obstacles", "variable-coefficients", "pallas",
-        "assemble-robin"])
+        "assemble-robin", "fused-bicgstab", "fused-sourced",
+        "fused_hbm-sourced", "robin_g_xy-fused", "snapshot_every"])
 def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
     from airpollution_tpu_torch.models import crbe
 
     plain = {
+        "B1": _spy(monkeypatch, fused_solver, "plain_solve"),
+        "B1-BiCGStab": _spy(monkeypatch, fused_solver,
+                            "plain_uniform_bicgstab_solve"),
+        "B2": _spy(monkeypatch, fused_solver, "plain_step"),
         "B3": _spy(monkeypatch, fused_stencil.stencil, "stencil_matvec"),
         "B4": _spy(monkeypatch, fused_hbm, "plain_canvas_step"),
         "B5": _spy(monkeypatch, fused_solver, "plain_bicgstab_solve"),
@@ -231,15 +244,18 @@ def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
         ops = crbe.assemble(md, kw["problem"], 0.1, 1)
         assert bool(torch.isfinite(ops.system.vals).all())
         return
+    store = kw.pop("store", False)
     s = _unported(**kw)
-    out = s.solve(store_solutions=False)
-    assert out.shape == (1, s.mesh_data.number_of_segments)
+    out = s.solve(store_solutions=store)
+    n_rows = (s.mesh_data.nt - 1) // s.snapshot_every + 1 if store else 1
+    assert out.shape == (n_rows, s.mesh_data.number_of_segments)
     assert bool(torch.isfinite(out).all())
     assert getattr(s, "fused_kernel", "B3") == kernel
     assert plain[kernel], f"the plain version of {kernel} was not used"
     assert all(k.launches == 0 for k in (
-        fused_stencil.KERNEL, fused_hbm.CANVAS_KERNEL,
-        fused_solver.CANVAS_KERNEL))
+        fused_stencil.KERNEL, fused_solver.KERNEL, fused_solver.LOAD_KERNEL,
+        fused_solver.BICGSTAB_KERNEL, fused_solver.CANVAS_KERNEL,
+        fused_hbm.KERNEL, fused_hbm.LOAD_KERNEL, fused_hbm.CANVAS_KERNEL))
 
 
 def test_other_entry_points_raise_on_unported_input():
@@ -249,10 +265,9 @@ def test_other_entry_points_raise_on_unported_input():
                        device="cpu")
     with pytest.raises(NotImplementedError):
         crbe.assemble(md, _TimeVarying(), 0.1, 1)
-    with pytest.raises(NotImplementedError):
-        fused_solver.fused_solve_uniform(
-            None, None, None, None, torch.zeros(3), n_steps=1, n_iters=1,
-            method="bicgstab")
+    with pytest.raises(NotImplementedError, match="patch"):
+        CRBESolver(tapt.Domain(), tapt.Problem(), md, assembly="patch",
+                   device="cpu")
 
 
 def _chemistry(sourced=True):
@@ -302,12 +317,10 @@ def test_multispecies_unported_options_raise():
 
     with pytest.raises(NotImplementedError):
         _multispecies(matvec_impl="uniform")
-    # The commute route rides the port's CRBESolver, whose snapshot_every
-    # is still to port.
+    # The commute route rides the port's CRBESolver and its snapshot_every.
     s = _multispecies(_chemistry(sourced=False), snapshot_every=4)
     assert s.splitting == "commute"
-    with pytest.raises(NotImplementedError):
-        s.solve()
+    assert s.solve().shape == (3, 2, s.mesh_data.number_of_segments)
     s = _multispecies(splitting="strang", solver_method="chebyshev")
     ops = s.build_global_matrices()
     C0 = s.set_initial_condition()

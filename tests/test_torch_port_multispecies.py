@@ -34,6 +34,7 @@ from airpollution_tpu_torch.mesh.data import structured_grid as t_grid
 from airpollution_tpu_torch.models import multispecies as t_ms
 from airpollution_tpu_torch.models.multispecies import MultiSpeciesSolver
 from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+from airpollution_tpu_torch.ops import loads as t_loads
 from airpollution_tpu_torch.ops import stencil as t_stencil
 
 from torch_port_helpers import port_operators, rel_diff
@@ -299,8 +300,8 @@ def test_emission_load_coordinates_and_trapezoid():
                        dtype=torch.float64, device="cpu")
     pattern = t_stencil.get_pattern(md)
     perm = torch.as_tensor(pattern.perm.astype(np.int64))
-    X, Y = fused_hbm.family_coordinates(pattern.n, t_grid(md),
-                                        torch.float64, "cpu")
+    X, Y = t_loads.family_coordinates(pattern.n, t_grid(md),
+                                      torch.float64, "cpu")
     mid = md.midpoints[perm]
     for i, P in ((0, X), (1, Y)):
         np.testing.assert_allclose(
@@ -309,7 +310,7 @@ def test_emission_load_coordinates_and_trapezoid():
     n = pattern.n
     masks = fused_solver.rect_masks(n, torch.float64, "cpu")
     mass3 = torch.ones((3, n, n), dtype=torch.float64)
-    loads = fused_hbm.EmissionLoads(
+    loads = t_loads.EmissionLoads(
         (None, lambda x, y, t: 0.0 * x + t), (False, False),
         grid=t_grid(md), dt=0.5, t0=1.0, use_ka=True, lumped=True,
         mass3=mass3, masks=masks)

@@ -135,11 +135,20 @@ def test_divergent_chebyshev_is_rerouted_or_refused():
     with pytest.warns(UserWarning, match="auto-switching"):
         scan.solve(store_solutions=False)
     assert scan.solver_method == "bicgstab"
+    # 'fused' on the uniform operator switches to B1's BiCGStab variant, as
+    # the JAX solver does; the per-step kernels are Chebyshev-only.
     fused = CRBESolver(tapt.Domain(), tapt.Problem(), md,
                        matvec_impl="fused", solver_method="chebyshev",
                        device="cpu")
-    with pytest.raises(ValueError, match="Chebyshev-only"):
+    with pytest.warns(UserWarning, match="auto-switching"):
         fused.solve(store_solutions=False)
+    assert fused.solver_method == "bicgstab"
+    assert fused.fused_kernel == "B1-BiCGStab"
+    hbm = CRBESolver(tapt.Domain(), tapt.Problem(), md,
+                     matvec_impl="fused_hbm", solver_method="chebyshev",
+                     device="cpu")
+    with pytest.raises(ValueError, match="Chebyshev-only"):
+        hbm.solve(store_solutions=False)
 
 
 def test_fused_returns_final_state_only():
