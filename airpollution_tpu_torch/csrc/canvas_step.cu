@@ -35,6 +35,25 @@
 // every phase; they never change during a solve and the L1 / L2 caches
 // serve the repeats.
 //
+// Raw mode (kRaw, the entry points crbe_canvas_step_raw_*): the TPU
+// kernel's raw_b=True, the primal and adjoint solve of the differentiable
+// fused engine (ops/fused_hbm.chebyshev_apply_canvas_hbm). The input is
+// the right-hand side b itself and the step is the bare Jacobi-
+// preconditioned Chebyshev polynomial from a zero start, p(A) mask(b):
+//
+//   r  = mask b;  x = 0;  d = (id r) / theta
+//   k times: x += d; r -= S d; d = a_k d + b_k (id r)
+//
+// no mass read, no u_prev, no load. Since x0 = 0 the matvec on it is
+// skipped, so S is applied k - 1 times and the halo is k - 1. Only the
+// input is masked: nothing inside the iterations or on the output is,
+// because over the transposed coefficients (ops/stencil.
+// transpose_coefficients) the Dirichlet rows carry A's Dirichlet columns
+// and p(A^T) b is not zero there. The mass planes of C are unused (zero).
+// x is never read by a neighbour, so raw mode keeps it on the T x T tile
+// only: r, d, d_next on the window and x on the tile (raw_smem_bytes),
+// which lets float64 reach k = 24 (a 54^2 window around an 8^2 tile).
+//
 // What bounds it on an H100: device memory must see the coefficient stack
 // once and the state once each way per step: (21 + 4 x 3) x n^2 x
 // sizeof(T), 138.7 MB at 1025^2 in f32, 41 us at 3.35 TB/s (3 more planes
@@ -54,7 +73,7 @@ namespace crbe {
 // ~5% slower on an H100 at 1025^2 (0.843 against 0.797 ms at k=14);
 // written so, B4 without a load runs as it did before loads existed and a
 // load adds ~4% (scripts/torch_port_b4_ab.py compares two trees' B4).
-template <int NT, typename T, bool kLoad>
+template <int NT, typename T, bool kLoad, bool kRaw>
 __global__ void __launch_bounds__(NT)
     canvas_step_kernel(Geometry g, Rect rc, const T* __restrict__ C,
                        const T* scal, const T* u_in, const T* up_in,
@@ -75,10 +94,13 @@ __global__ void __launch_bounds__(NT)
   const int r0 = (tile_id / g.tiles_per_row) * g.tile - h;
   const int c0 = (tile_id % g.tiles_per_row) * g.tile - h;
   const size_t nn = static_cast<size_t>(n) * n;
-  T* X = reinterpret_cast<T*>(smem_raw);
-  T* R = X + 3 * PS;
+  // Raw mode: R, Dc, Dn on the window, then X on the tile alone.
+  T* const base = reinterpret_cast<T*>(smem_raw);
+  T* X = kRaw ? base + 9 * PS : base;
+  T* R = kRaw ? base : X + 3 * PS;
   T* Dc = R + 3 * PS;
   T* Dn = Dc + 3 * PS;
+  const int TT = g.tile * g.tile;
   const T inv_theta = s[0];
 
   auto cell = [&](int wr, int wc, size_t& off) {
@@ -88,73 +110,98 @@ __global__ void __launch_bounds__(NT)
     return inside;
   };
 
-  // 1. Load the state window; cells outside the canvas are zero.
-  for_square<NT>(W, 0, [&](int wr, int wc) {
-    size_t off;
-    const bool inside = cell(wr, wc, off);
-    const int q = wr * W + wc;
+  int lo = 0;
+  if constexpr (kRaw) {
+    // 1-3. Raw mode: r = mask b and the first search direction on the
+    //      whole window (no matvec yet: x0 = 0), x = 0 on the tile.
+    for_square<NT>(W, 0, [&](int wr, int wc) {
+      size_t off;
+      const bool inside = cell(wr, wc, off);
+      const int q = wr * W + wc;
+      const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
+      T m[3];
+      rect_masks(r0 + wr, c0 + wc, c, rc, m);
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      X[f * PS + q] = inside ? u_in[f * nn + off] : T(0);
-    }
-  });
-  __syncthreads();
+      for (int f = 0; f < 3; ++f) {
+        const int i = f * PS + q;
+        const T b = inside ? u_in[f * nn + off] : T(0);
+        const T idg = inside ? __ldg(C + (18 + f) * nn + off) : T(0);
+        const T r = m[f] * b;
+        R[i] = r;
+        Dc[i] = inv_theta * (idg * r);
+        if (own) X[f * TT + (wr - h) * g.tile + (wc - h)] = T(0);
+      }
+    });
+    __syncthreads();
+  } else {
+    // 1. Load the state window; cells outside the canvas are zero.
+    for_square<NT>(W, 0, [&](int wr, int wc) {
+      size_t off;
+      const bool inside = cell(wr, wc, off);
+      const int q = wr * W + wc;
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {
+        X[f * PS + q] = inside ? u_in[f * nn + off] : T(0);
+      }
+    });
+    __syncthreads();
 
-  // 2. Right-hand side (+ the load) and warm start (x0 goes to Dn).
-  //    Crank-Nicolson reads S u, so its square shrinks by one.
-  int lo = g.use_ka ? 1 : 0;
-  for_square<NT>(W, lo, [&](int wr, int wc) {
-    size_t off;
-    const bool inside = cell(wr, wc, off);
-    const int q = wr * W + wc;
-    T m[3], y[3] = {T(0), T(0), T(0)};
-    rect_masks(r0 + wr, c0 + wc, c, rc, m);
-    if (g.use_ka) apply_canvas(C, nn, off, inside, X, q, W, PS, y);
-    const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
+    // 2. Right-hand side (+ the load) and warm start (x0 goes to Dn).
+    //    Crank-Nicolson reads S u, so its square shrinks by one.
+    lo = g.use_ka ? 1 : 0;
+    for_square<NT>(W, lo, [&](int wr, int wc) {
+      size_t off;
+      const bool inside = cell(wr, wc, off);
+      const int q = wr * W + wc;
+      T m[3], y[3] = {T(0), T(0), T(0)};
+      rect_masks(r0 + wr, c0 + wc, c, rc, m);
+      if (g.use_ka) apply_canvas(C, nn, off, inside, X, q, W, PS, y);
+      const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      const T u = X[f * PS + q];
-      const T mass = inside ? __ldg(C + (15 + f) * nn + off) : T(0);
-      T r;
-      if (g.use_ka) {
-        r = T(2) * mass * u + (T(1) - m[f]) * u - y[f];
-      } else {
-        r = mass * u;
+      for (int f = 0; f < 3; ++f) {
+        const T u = X[f * PS + q];
+        const T mass = inside ? __ldg(C + (15 + f) * nn + off) : T(0);
+        T r;
+        if (g.use_ka) {
+          r = T(2) * mass * u + (T(1) - m[f]) * u - y[f];
+        } else {
+          r = mass * u;
+        }
+        if constexpr (kLoad) {
+          if (inside) r += load[f * nn + off];
+        }
+        R[f * PS + q] = r;
+        T guess = u;
+        if (up_in != nullptr) {
+          const T up = inside ? up_in[f * nn + off] : T(0);
+          guess = T(2) * u - up;
+          if (own && inside) up_out[f * nn + off] = u;
+        }
+        Dn[f * PS + q] = m[f] * guess;
       }
-      if constexpr (kLoad) {
-        if (inside) r += load[f * nn + off];
-      }
-      R[f * PS + q] = r;
-      T guess = u;
-      if (up_in != nullptr) {
-        const T up = inside ? up_in[f * nn + off] : T(0);
-        guess = T(2) * u - up;
-        if (own && inside) up_out[f * nn + off] = u;
-      }
-      Dn[f * PS + q] = m[f] * guess;
-    }
-  });
-  __syncthreads();
+    });
+    __syncthreads();
 
-  // 3. x = x0, initial residual and search direction.
-  ++lo;
-  for_square<NT>(W, lo, [&](int wr, int wc) {
-    size_t off;
-    const bool inside = cell(wr, wc, off);
-    const int q = wr * W + wc;
-    T y[3];
-    apply_canvas(C, nn, off, inside, Dn, q, W, PS, y);
+    // 3. x = x0, initial residual and search direction.
+    ++lo;
+    for_square<NT>(W, lo, [&](int wr, int wc) {
+      size_t off;
+      const bool inside = cell(wr, wc, off);
+      const int q = wr * W + wc;
+      T y[3];
+      apply_canvas(C, nn, off, inside, Dn, q, W, PS, y);
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      const int i = f * PS + q;
-      const T idg = inside ? __ldg(C + (18 + f) * nn + off) : T(0);
-      X[i] = Dn[i];
-      const T r = R[i] - y[f];
-      R[i] = r;
-      Dc[i] = inv_theta * (idg * r);
-    }
-  });
-  __syncthreads();
+      for (int f = 0; f < 3; ++f) {
+        const int i = f * PS + q;
+        const T idg = inside ? __ldg(C + (18 + f) * nn + off) : T(0);
+        X[i] = Dn[i];
+        const T r = R[i] - y[f];
+        R[i] = r;
+        Dc[i] = inv_theta * (idg * r);
+      }
+    });
+    __syncthreads();
+  }
 
   // 4. The first k - 1 Chebyshev iterations: no reductions, one barrier
   //    each.
@@ -173,7 +220,13 @@ __global__ void __launch_bounds__(NT)
         const int i = f * PS + q;
         const T idg = inside ? __ldg(C + (18 + f) * nn + off) : T(0);
         const T d = Dc[i];
-        X[i] += d;
+        if constexpr (kRaw) {
+          if (wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile) {
+            X[f * TT + (wr - h) * g.tile + (wc - h)] += d;
+          }
+        } else {
+          X[i] += d;
+        }
         const T r = R[i] - y[f];
         R[i] = r;
         Dn[i] = a * d + b * (idg * r);
@@ -193,22 +246,32 @@ __global__ void __launch_bounds__(NT)
     const size_t off = static_cast<size_t>(gr) * n + gc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
-      u_out[f * nn + off] = X[f * PS + q] + Dc[f * PS + q];
+      const T x = kRaw ? X[f * TT + (wr - h) * g.tile + (wc - h)]
+                       : X[f * PS + q];
+      u_out[f * nn + off] = x + Dc[f * PS + q];
     }
   });
 }
 
-template <int NT, typename T, bool kLoad>
+// Raw mode's shared memory: r, d, d_next on the window, x on the tile.
+inline size_t raw_smem_bytes(int tile, int halo, size_t elem) {
+  const size_t w = static_cast<size_t>(tile + 2 * halo);
+  const size_t t = static_cast<size_t>(tile);
+  return (9 * w * w + 3 * t * t) * elem;
+}
+
+template <int NT, typename T, bool kLoad, bool kRaw = false>
 int launch_canvas_step_as(const T* C, const T* scal, const T* u_in,
                           const T* up_in, T* u_out, T* up_out,
                           const int* halt, const T* load, Geometry g,
                           Rect rc, void* stream) {
-  const size_t smem = smem_bytes(g.tile, g.halo, sizeof(T));
+  const size_t smem = kRaw ? raw_smem_bytes(g.tile, g.halo, sizeof(T))
+                           : smem_bytes(g.tile, g.halo, sizeof(T));
   static size_t smem_set = 0;
   cudaError_t err =
-      ensure_smem(canvas_step_kernel<NT, T, kLoad>, smem, &smem_set);
+      ensure_smem(canvas_step_kernel<NT, T, kLoad, kRaw>, smem, &smem_set);
   if (err != cudaSuccess) return err;
-  canvas_step_kernel<NT, T, kLoad>
+  canvas_step_kernel<NT, T, kLoad, kRaw>
       <<<g.tiles_per_row * g.tiles_per_row, NT, smem,
          static_cast<cudaStream_t>(stream)>>>(g, rc, C, scal, u_in, up_in,
                                               u_out, up_out, halt, load);
@@ -258,9 +321,54 @@ int launch_canvas_step(const T* C, const T* scal, const T* u_in,
   return cudaErrorInvalidValue;
 }
 
+// Raw mode: x_out = p(A) mask(b), (3, n, n) each; halo >= k - 1.
+template <typename T>
+int launch_canvas_raw(const T* C, const T* scal, const T* b, T* x_out, int n,
+                      int tile, int halo, int n_iters, int h_lo, int h_hi,
+                      int v_lo, int v_hi, int threads, void* stream) {
+  if (n_iters < 1 || n_iters > kMaxIters) return cudaErrorInvalidValue;
+  if (halo < n_iters - 1) return cudaErrorInvalidValue;
+  Geometry g;
+  g.n = n;
+  g.tile = tile;
+  g.halo = halo;
+  g.tiles_per_row = (n + tile - 1) / tile;
+  g.n_iters = n_iters;
+  g.use_ka = 0;
+  Rect rc{h_lo, h_hi, v_lo, v_hi};
+  if (threads == 256) {
+    return launch_canvas_step_as<256, T, false, true>(
+        C, scal, b, nullptr, x_out, nullptr, nullptr, nullptr, g, rc, stream);
+  }
+  if (threads == 512) {
+    return launch_canvas_step_as<512, T, false, true>(
+        C, scal, b, nullptr, x_out, nullptr, nullptr, nullptr, g, rc, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace crbe
 
 extern "C" {
+
+int crbe_canvas_step_raw_f32(const float* C, const float* scal,
+                             const float* b, float* x_out, int n, int tile,
+                             int halo, int n_iters, int h_lo, int h_hi,
+                             int v_lo, int v_hi, int threads, void* stream) {
+  return crbe::launch_canvas_raw<float>(C, scal, b, x_out, n, tile, halo,
+                                        n_iters, h_lo, h_hi, v_lo, v_hi,
+                                        threads, stream);
+}
+
+int crbe_canvas_step_raw_f64(const double* C, const double* scal,
+                             const double* b, double* x_out, int n, int tile,
+                             int halo, int n_iters, int h_lo, int h_hi,
+                             int v_lo, int v_hi, int threads, void* stream) {
+  return crbe::launch_canvas_raw<double>(C, scal, b, x_out, n, tile, halo,
+                                         n_iters, h_lo, h_hi, v_lo, v_hi,
+                                         threads, stream);
+}
+
 
 int crbe_canvas_step_f32(const float* C, const float* scal, const float* u_in,
                          const float* up_in, float* u_out, float* up_out,

@@ -9,7 +9,10 @@ interval to ``CRBESolver(cheb_bounds=...)`` and the operator to
 ``CRBESolver.set_operators``. ``stacked_operators_from_numpy`` stacks
 per-species operators for ``MultiSpeciesSolver.set_operators``, and
 ``canvas_operator_from_numpy`` carries the per-DOF canvas operator that
-the fused canvas kernels take.
+the fused canvas kernels take. ``params_from_numpy`` carries a parameter
+pytree (a dict of arrays) into the dict of tensors that the port's
+diagnostics/inverse.py takes, so that both packages start a fit or a
+posterior from the same parameters.
 """
 
 from __future__ import annotations
@@ -79,3 +82,16 @@ def canvas_operator_from_numpy(*, coeffs, mass_fam, inv_diag_fam,
     if len(coeffs) != 15:
         raise ValueError("a canvas operator has 15 coefficient grids")
     return tuple(real(g) for g in coeffs), real(mass_fam), real(inv_diag_fam)
+
+
+def params_from_numpy(params, *, dtype=None, device=None,
+                      requires_grad: bool = False):
+    """A parameter pytree, a dict of numpy arrays (as
+    ``{k: np.asarray(v) for k, v in params.items()}`` gives it), as a dict
+    of tensors of the same shapes. ``dtype`` defaults to each array's own,
+    ``device`` to the CUDA card; ``requires_grad`` makes every value a leaf
+    of autograd."""
+    device = resolve_device(device)
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device,
+                            requires_grad=requires_grad)
+            for k, v in params.items()}

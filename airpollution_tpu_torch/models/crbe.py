@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.mesh.data import (
@@ -266,9 +267,10 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
     K = to_ell(loc.stiffness)
     A = to_ell(loc.advection)
     ka_vals = K.vals + A.vals
-    # First-order reaction: + r c in the PDE is + r M in the operator.
-    r = float(getattr(problem, "reaction", 0.0))
-    if r != 0.0:
+    # First-order reaction: + r c in the PDE is + r M in the operator. A
+    # Python 0 adds nothing; a tensor rate always enters (its gradient).
+    r = getattr(problem, "reaction", 0.0)
+    if not (isinstance(r, (int, float)) and r == 0.0):
         ka_vals = add_diag(ka_vals, r * mass_diag)
     # Robin walls: the diagonal alpha |e| boundary term folds into K + A.
     dirichlet_mask, _, robin_vec = robin_terms(md, problem)
@@ -288,11 +290,20 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
                            ka=ka, system=system, system_diag=system_diag)
 
 
+def _ell_matvec(cols):
+    """The ELL SpMV over ``cols`` as a :class:`linalg.BoundMatvec` body."""
+    def fn(x, vals):
+        return sparse.ell_matvec(sparse.EllMatrix(vals=vals, cols=cols), x)
+    return fn
+
+
 def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
                   tol, maxiter, store_solutions=True, collect_iters=False,
-                  matvec=None, ka_matvec=None, extrapolate_warm_start=False,
-                  precond=None, solver="bicgstab", chebyshev_iters=8,
-                  source_quadrature="mass_lumped", t0=0.0, bounds=None):
+                  matvec=None, ka_matvec=None, differentiable=False,
+                  extrapolate_warm_start=False, precond=None,
+                  solver="bicgstab", chebyshev_iters=8,
+                  source_quadrature="mass_lumped", t0=0.0, bounds=None,
+                  cheb_solve_impl=None, cheb_transpose_solve_impl=None):
     """The implicit time-stepping loop (crbe.py:383-433 semantics).
 
     Each step forms the RHS, masks Dirichlet rows, and solves the fixed
@@ -304,7 +315,31 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     may be a family-layout view (stencil.FamilyView). ``bounds``: the
     Chebyshev interval; estimated with power_bounds when None. Returns
     ``(solutions, iterations)``.
+
+    ``differentiable=True`` makes the loop differentiable in the problem's
+    tensor parameters and in ``u0``, as the JAX loop's: each step's solve
+    is linalg.differentiable_solve (BiCGStab) or
+    linalg.differentiable_chebyshev_solve (``solver='chebyshev'``, whose
+    adjoint is the exact transpose polynomial), with the Chebyshev warm
+    start applied by the delta trick (``u = x0 + solve(b - A x0)``, linear
+    in b). ``matvec`` must then be a linalg.BoundMatvec (the default ELL
+    one is), since the operator's gradient comes from its tensors; the
+    Chebyshev interval and the preconditioner carry no gradient (JAX's
+    ``stop_gradient``). Each step is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant) while grad mode is on, so
+    the reverse pass keeps one state per step and re-runs each step once;
+    torch's checkpoint does not take forward-mode AD, so forward-mode
+    callers run under ``torch.no_grad()`` (posterior_covariance does), where
+    no checkpoint is made. ``cheb_solve_impl`` /
+    ``cheb_transpose_solve_impl``: optional ``(rhs, bounds=) -> x`` fused
+    replacements of the primal and adjoint Chebyshev sweeps (kernel B4's
+    raw mode, diagnostics/inverse._solve); they must apply the same
+    Jacobi-preconditioned polynomial. Incompatible with
+    ``collect_iters``.
     """
+    if differentiable and collect_iters:
+        raise ValueError("differentiable=True cannot collect iteration "
+                         "counts (the solve is an implicit primitive)")
     md = mesh_data
     midpoints = md.midpoints
     nt = md.nt
@@ -329,20 +364,32 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
             return load
 
     if matvec is None:
-        matvec = partial(sparse.ell_matvec, ops.system)
+        matvec = linalg.BoundMatvec(_ell_matvec(ops.system.cols),
+                                    ops.system.vals)
     if ka_matvec is None:
         ka_matvec = partial(sparse.ell_matvec, ops.ka)
+    if differentiable and not isinstance(matvec, linalg.BoundMatvec):
+        raise TypeError("differentiable=True needs matvec to be a "
+                        "linalg.BoundMatvec (its operator tensors carry the "
+                        "gradient)")
     if precond is None:
-        precond = linalg.jacobi_preconditioner(ops.system_diag)
+        diag = ops.system_diag.detach() if differentiable \
+            else ops.system_diag
+        precond = linalg.jacobi_preconditioner(diag)
     if solver not in ("bicgstab", "chebyshev"):
         raise ValueError(f"unknown solver {solver!r}")
     if source_quadrature not in ("mass_lumped", "reference"):
         raise ValueError(f"unknown source_quadrature {source_quadrature!r}")
     if solver == "chebyshev" and bounds is None:
+        # The interval parameterises the polynomial; it carries no gradient
+        # (the implicit-function rule treats the solve as A^-1).
         bounds = linalg.power_bounds(
-            matvec, torch.zeros_like(u0),
-            scale=1.0 / torch.sqrt(ops.system_diag),
+            matvec.detached() if differentiable else matvec,
+            torch.zeros_like(u0).detach(),
+            scale=1.0 / torch.sqrt(ops.system_diag.detach()),
         )
+        if differentiable:
+            bounds = tuple(b.detach() for b in bounds)
     sourced = not getattr(problem, "zero_source", False)
 
     def at_time(t):
@@ -373,25 +420,53 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
 
     lift_at = lifting.make_lift(problem, midpoints, bmask, zero_mask=dead)
 
-    u, u_prev = u0, u0
-    snaps = [u0] if store_solutions else None
-    iters = [] if collect_iters else None
-    for i in range(1, nt):
-        t = t0 + dt * i
-        b = rhs(u, t)
-        guess = (2.0 * u - u_prev) if extrapolate_warm_start else u
-        x0 = torch.where(bmask, zero, guess)
+    def solve(b, x0):
+        """``(u_new, iterations)`` of one step's system from the masked warm
+        start; differentiable as the loop's docstring says."""
+        if differentiable and solver == "chebyshev":
+            s_impl = (partial(cheb_solve_impl, bounds=bounds)
+                      if cheb_solve_impl is not None else None)
+            t_impl = (partial(cheb_transpose_solve_impl, bounds=bounds)
+                      if cheb_transpose_solve_impl is not None else None)
+            delta = linalg.differentiable_chebyshev_solve(
+                matvec, b - matvec(x0), bounds=bounds,
+                iters=chebyshev_iters, precond=precond, solve_impl=s_impl,
+                transpose_solve_impl=t_impl)
+            return x0 + delta, None
+        if differentiable:
+            return linalg.differentiable_solve(
+                matvec, b, x0=x0, tol=tol, maxiter=maxiter,
+                precond=precond), None
         if solver == "chebyshev":
             res = linalg.chebyshev(matvec, b, x0=x0, bounds=bounds,
                                    iters=chebyshev_iters, precond=precond)
         else:
             res = linalg.bicgstab(matvec, b, x0=x0, tol=tol,
                                   maxiter=maxiter, precond=precond)
-        u_prev, u = u, res.x
+        return res.x, res.iterations
+
+    def step(u, u_prev, t):
+        b = rhs(u, t)
+        guess = (2.0 * u - u_prev) if extrapolate_warm_start else u
+        u_new, its = solve(b, torch.where(bmask, zero, guess))
+        return u_new, (u_new + lift_at(t) if store_solutions else None), its
+
+    checkpointed = differentiable and torch.is_grad_enabled()
+    u, u_prev = u0, u0
+    snaps = [u0] if store_solutions else None
+    iters = [] if collect_iters else None
+    for i in range(1, nt):
+        t = t0 + dt * i
+        if checkpointed:
+            u_new, out, its = checkpoint(step, u, u_prev, t,
+                                         use_reentrant=False)
+        else:
+            u_new, out, its = step(u, u_prev, t)
+        u_prev, u = u, u_new
         if store_solutions:
-            snaps.append(u + lift_at(t))
+            snaps.append(out)
         if collect_iters:
-            iters.append(res.iterations)
+            iters.append(its)
     if store_solutions:
         solutions = torch.stack(snaps)
     else:

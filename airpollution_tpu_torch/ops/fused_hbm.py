@@ -17,6 +17,11 @@ and ``_guarded_scan``.
 - Kernel B6 (``fused_multispecies_canvas_hbm``): one Strang step of K
   species sharing the canvas operator, the (K, K) chemistry half-steps
   applied inside the kernel. ``csrc/multispecies_step.cu``.
+- B4's raw mode (``chebyshev_apply_canvas_hbm``): the bare
+  Jacobi-preconditioned Chebyshev polynomial ``p(A) mask(b)`` from a zero
+  start, one launch; over the transposed coefficients it is ``p(A^T)``.
+  The primal and adjoint solve of the differentiable fused engine
+  (diagnostics/inverse.py). ``csrc/canvas_step.cu`` (``kRaw``).
 
 Loads (ops/loads.py). The TPU kernels evaluate a problem's Python hooks
 inside the kernel, on coordinates rebuilt from iotas. A Python hook cannot
@@ -68,6 +73,12 @@ CANVAS_KERNEL = _build.Kernel(
     {torch.float32: "crbe_canvas_step_f32",
      torch.float64: "crbe_canvas_step_f64"},
     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+)
+CANVAS_RAW_KERNEL = _build.Kernel(
+    "canvas_step_raw", "canvas_step.cu",
+    {torch.float32: "crbe_canvas_step_raw_f32",
+     torch.float64: "crbe_canvas_step_raw_f64"},
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
 MULTISPECIES_KERNEL = _build.Kernel(
     "multispecies_step", "multispecies_step.cu",
@@ -182,6 +193,105 @@ def canvas_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect,
                          P(up_out), P(halt), P(load), n, tile, halo, n_iters,
                          int(use_ka), *rect, threads,
                          _build.current_stream())
+
+
+def raw_operator(pattern, coeffs, inv_diag_fam, dtype):
+    """B4's (21, n, n) stack for the raw mode: the coefficient canvases,
+    zero mass planes (unused there) and the inverse diagonal, as the JAX
+    package builds it."""
+    return canvas_operator(pattern, coeffs, torch.zeros_like(inv_diag_fam),
+                           inv_diag_fam, dtype)
+
+
+def plain_canvas_raw(C, cheb, n_iters, b, masks):
+    """B4's raw mode, plain version: ``p(A) mask(b)`` on the full canvas
+    from a zero start, with the (21, n, n) stack ``C`` and the Chebyshev
+    scalars ``cheb`` (fused_solver.cheb_scalars). Only the input is masked
+    (see csrc/canvas_step.cu); the last iteration's matvec, whose r and d
+    are never read, is skipped as the kernel skips it."""
+    S, idg = C[:15], C[18:21]
+    r = masks * b
+    x = torch.zeros_like(b)
+    d = cheb[0] * (idg * r)
+    for k in range(n_iters):
+        x = x + d
+        if k + 1 < n_iters:
+            r = r - fused_solver.stencil_terms(S, d)
+            d = cheb[1 + k] * d + cheb[1 + n_iters + k] * (idg * r)
+    return x
+
+
+def canvas_raw_kernel(C, cheb, n_iters, b, x_out, rect, tile,
+                      threads=CANVAS_THREADS):
+    """One launch of B4's raw mode: ``x_out = p(A) mask(b)``, (3, n, n)
+    canvases; CUDA tensors only. ``rect``: interior-rectangle bounds."""
+    n = b.shape[-1]
+    if not (b.is_cuda and x_out.is_cuda and C.is_cuda and cheb.is_cuda):
+        raise ValueError("canvas_raw_kernel needs CUDA tensors")
+    if C.shape != (21, n, n) or C.dtype != b.dtype or cheb.dtype != b.dtype:
+        raise ValueError("C must be the (21, n, n) canvas operator of b, "
+                         "C and cheb of b's dtype")
+    if x_out.shape != b.shape or x_out.dtype != b.dtype:
+        raise ValueError("x_out must be like b")
+    P = _build.pointer
+    CANVAS_RAW_KERNEL.launch(b.dtype, P(C), P(cheb), P(b), P(x_out), n, tile,
+                             raw_halo(n_iters), n_iters, *rect, threads,
+                             _build.current_stream())
+
+
+def raw_halo(n_iters: int) -> int:
+    """The raw mode's window halo: A is applied k - 1 times (x0 = 0)."""
+    return n_iters - 1
+
+
+def raw_tile(n_iters: int, dtype, preferred: int = CANVAS_TILE) -> int:
+    """The raw mode's output tile: the largest up to ``preferred`` whose
+    window planes fit shared memory, r, d and d_next on the window and x
+    on the tile alone (csrc/canvas_step.cu raw_smem_bytes)."""
+    halo = raw_halo(n_iters)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    for t in fused_solver.TILE_CANDIDATES:
+        w = t + 2 * halo
+        if t <= preferred and (9 * w * w + 3 * t * t) * elem \
+                <= fused_solver.SMEM_BUDGET:
+            return t
+    raise ValueError(f"chebyshev_iters={n_iters} too deep for the raw "
+                     f"mode's shared-memory budget in {dtype}")
+
+
+def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None):
+    """``p(A) mask(b)`` in family layout with a prebuilt raw stack ``C``
+    (:func:`raw_operator`) and Chebyshev scalars ``cheb``: one launch of
+    B4's raw mode on a CUDA tensor, its plain version on a CPU tensor."""
+    n, c = pattern.n, pattern.c
+    rect = tuple(rect) if rect is not None else (1, c, 1, c)
+    b = fused_solver.to_canvases(pattern, b_fam.to(C.dtype))
+    if b.is_cuda:
+        x = torch.empty_like(b)
+        canvas_raw_kernel(C, cheb, n_iters, b, x, rect,
+                          raw_tile(n_iters, b.dtype))
+    else:
+        masks = fused_solver.rect_masks(n, b.dtype, b.device, rect)
+        x = plain_canvas_raw(C, cheb, n_iters, b, masks)
+    return fused_solver.from_canvases(pattern, x)
+
+
+def chebyshev_apply_canvas_hbm(pattern, coeffs, inv_diag_fam, b_fam, *,
+                               n_iters: int, bounds, rect=None):
+    """Apply the Jacobi-preconditioned Chebyshev polynomial ``p(A) b`` (b
+    masked to the interior rectangle, ``rect`` as in
+    :func:`fused_solve_canvas_hbm`) from a zero start: B4's raw mode, one
+    launch with all ``n_iters`` iterations. Over
+    stencil.transpose_coefficients(coeffs) it applies ``p(A^T)``, the exact
+    adjoint (``p(A)^T == p(A^T)``). The same polynomial and preconditioner
+    as linalg.chebyshev. The solve and transpose solve of
+    linalg.differentiable_chebyshev_solve on the fused engine (which builds
+    the stack once per solve and calls :func:`apply_canvas_raw`)."""
+    dtype = b_fam.dtype
+    C = raw_operator(pattern, coeffs, inv_diag_fam, dtype)
+    cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, b_fam.device)
+    return apply_canvas_raw(pattern, C, b_fam, n_iters=n_iters, cheb=cheb,
+                            rect=rect)
 
 
 def _step_loop(step, u, up, n_steps, guard_every, keep=None):

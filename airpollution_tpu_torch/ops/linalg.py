@@ -1,12 +1,20 @@
 """Iterative linear solvers for the implicit time step, PyTorch counterpart
 of ``airpollution_tpu/ops/linalg.py``.
 
-``matvec`` is a closure (ELL SpMV or the family-layout stencils). BiCGStab
+``matvec`` is a closure (ELL SpMV or the family-layout stencils), or a
+:class:`BoundMatvec` that names the tensors it is built from. BiCGStab
 stops on the residual norm, which it reads on the host once per iteration;
 Chebyshev runs a fixed number of iterations with no inner products. The
-transposes that the spectral estimates need come from the vector-Jacobian
-product of the linear map (``torch.func.vjp``), which for a linear map is
-exactly ``A^T``.
+transposes that the spectral estimates and the adjoint solves need come
+from the vector-Jacobian product of the linear map (a backward pass
+through one recorded application), which for a linear map is exactly
+``A^T``.
+
+:func:`differentiable_solve` and :func:`differentiable_chebyshev_solve`
+are the counterparts of ``lax.custom_linear_solve``: one
+``torch.autograd.Function`` whose forward runs the solve with no graph,
+whose backward is one transposed solve (the implicit-function theorem), and
+whose forward-mode rule is one more solve.
 """
 
 from __future__ import annotations
@@ -103,19 +111,30 @@ def chebyshev(
                        residual_norm=torch.linalg.norm(r))
 
 
+def _transpose(matvec: Callable, example: torch.Tensor) -> Callable:
+    """``y -> A^T y`` of a linear matvec: one application recorded on a zero
+    input, then one backward pass through the retained graph per call (the
+    vector-Jacobian product of a linear map is its transpose). A plain
+    autograd backward costs the host a small fraction of what the function
+    ``torch.func.vjp`` returns does, per call, with the same values."""
+    with torch.enable_grad():
+        x = torch.zeros_like(example, requires_grad=True)
+        y = matvec(x)
+
+    def vecmat(w):
+        return torch.autograd.grad(y, x, w, retain_graph=True)[0]
+
+    return vecmat
+
+
 def _scaled_and_transpose(matvec, example, scale):
-    """``B x = s * A(s * x)`` and its transpose ``B^T`` (via the VJP)."""
+    """``B x = s * A(s * x)`` and its transpose ``B^T``."""
     s = torch.ones_like(example) if scale is None else scale
 
     def scaled(x):
         return s * matvec(s * x)
 
-    _, vjp_fn = torch.func.vjp(scaled, example)
-
-    def transpose(x):
-        return vjp_fn(x)[0]
-
-    return scaled, transpose
+    return scaled, _transpose(scaled, example)
 
 
 def power_bounds(
@@ -227,6 +246,202 @@ def divergence_message(where: str, step, n_steps: int, iters=None) -> str:
         f"Fixes: scale dt with h (try doubling nt); raise chebyshev_iters; "
         f"or use solver_method='bicgstab' on matvec_impl='ell'/'stencil'."
     )
+
+
+class BoundMatvec:
+    """A matvec ``x -> fn(x, *params)`` whose operator tensors ``params``
+    are explicit, so that a differentiable solve can make them inputs of
+    its autograd Function (the JAX package's ``custom_linear_solve`` finds
+    the tensors a closure captures by tracing; here they are named).
+    Calling it is ``fn(x, *params)``."""
+
+    def __init__(self, fn: Callable, *params: torch.Tensor):
+        self.fn = fn
+        self.params = tuple(params)
+
+    def __call__(self, x):
+        return self.fn(x, *self.params)
+
+    def detached(self) -> "BoundMatvec":
+        """The same operator on detached tensors (no gradient, no tangent):
+        what the spectral estimates and the solves themselves use."""
+        return BoundMatvec(self.fn, *(p.detach() for p in self.params))
+
+
+class _Solver:
+    """What :class:`_ImplicitSolve` needs besides its tensors: the operator
+    ``fn(x, *params)`` and the solve of A and of A^T, each a function
+    ``(rhs, bound_matvec) -> x`` given the operator on detached tensors."""
+
+    def __init__(self, fn, solve, transpose_solve):
+        self.fn = fn
+        self.solve = solve
+        self.transpose_solve = transpose_solve
+
+
+def _operator_vjp(fn, x, params, lam, needs):
+    """``vjp(theta -> A(theta) x)(lam)`` for the params flagged in
+    ``needs`` (None for the others)."""
+    wanted = [i for i, need in enumerate(needs) if need]
+    if not wanted:
+        return [None] * len(params)
+    with torch.enable_grad():
+        ps = [p.detach().requires_grad_(i in wanted)
+              for i, p in enumerate(params)]
+        y = fn(x.detach(), *ps)
+        grads = torch.autograd.grad(y, [ps[i] for i in wanted], lam,
+                                    allow_unused=True)
+    out = [None] * len(params)
+    for i, g in zip(wanted, grads):
+        out[i] = torch.zeros_like(params[i]) if g is None else g
+    return out
+
+
+def _operator_jvp(fn, x, params, tangents):
+    """``(d/dtheta A(theta) x) . theta_dot``, by a vector-Jacobian product
+    of the vector-Jacobian product (torch has no nested forward mode):
+    ``g(w) = J^T w`` is linear in w, and its own transpose applied to the
+    tangents is ``J theta_dot``."""
+    pairs = [(i, t) for i, t in enumerate(tangents) if t is not None]
+    if not pairs:
+        return torch.zeros_like(x)
+    with torch.enable_grad():
+        ps = [p.detach().requires_grad_(True) for p in params]
+        y = fn(x.detach(), *ps)
+        w = torch.zeros_like(y, requires_grad=True)
+        grads = torch.autograd.grad(y, [ps[i] for i, _ in pairs], w,
+                                    create_graph=True, allow_unused=True)
+        used = [(g, t) for g, (_, t) in zip(grads, pairs) if g is not None]
+        if not used:
+            return torch.zeros_like(x)
+        (jx,) = torch.autograd.grad([g for g, _ in used], w,
+                                    [t for _, t in used], allow_unused=True)
+    return torch.zeros_like(x) if jx is None else jx
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """``x = solve(b)`` for the operator ``A(theta) = fn(., *theta)``, with
+    the semantics of ``lax.custom_linear_solve``: the forward keeps no
+    graph through the iterations; the backward is ``lam = solve_T(x_bar)``,
+    ``b_bar = lam`` and ``theta_bar = -vjp(theta -> A(theta) x)(lam)``; the
+    forward-mode rule is ``x_dot = solve(b_dot - A_dot x)``. ``x`` is the
+    computed solution, so the gradient is the exact adjoint of what the
+    solve computed when ``solve_T`` is the exact transpose of ``solve``
+    (the Chebyshev polynomial), and of ``A^-1`` to the solve tolerance
+    otherwise."""
+
+    @staticmethod
+    def forward(b, solver, *params):
+        mv = BoundMatvec(solver.fn, *(p.detach() for p in params))
+        return solver.solve(b.detach(), mv)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, solver, *params = inputs
+        ctx.solver = solver
+        ctx.save_for_backward(output, *params)
+        ctx.save_for_forward(output, *params)
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        x, *params = ctx.saved_tensors
+        solver = ctx.solver
+        mv = BoundMatvec(solver.fn, *(p.detach() for p in params))
+        lam = solver.transpose_solve(x_bar.detach(), mv)
+        grads = _operator_vjp(solver.fn, x, params, lam,
+                              ctx.needs_input_grad[2:])
+        return (lam, None, *(None if g is None else -g for g in grads))
+
+    @staticmethod
+    def jvp(ctx, b_dot, _solver_dot, *param_dots):
+        x, *params = ctx.saved_tensors
+        solver = ctx.solver
+        rhs = (torch.zeros_like(x) if b_dot is None else b_dot) \
+            - _operator_jvp(solver.fn, x, params, param_dots)
+        mv = BoundMatvec(solver.fn, *(p.detach() for p in params))
+        return solver.solve(rhs, mv)
+
+
+def _bound(matvec) -> BoundMatvec:
+    if not isinstance(matvec, BoundMatvec):
+        raise TypeError(
+            "a differentiable solve needs a linalg.BoundMatvec, whose "
+            "operator tensors are explicit (a plain closure would hide them "
+            "from the gradient)")
+    return matvec
+
+
+def differentiable_solve(
+    matvec: BoundMatvec,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-8,
+    maxiter: int = 1000,
+    precond: Optional[Callable] = None,
+) -> torch.Tensor:
+    """BiCGStab solve with the implicit-function gradient
+    (:class:`_ImplicitSolve`): the backward is one BiCGStab solve with
+    ``A^T`` (the vector-Jacobian product of the matvec) and the same Jacobi
+    preconditioner (diag(A^T) == diag(A)), and gradients reach every tensor
+    of ``matvec.params`` (the assembled operator's dependence on D and v).
+    ``x0`` is only a warm start: no gradient flows through it. Gradient
+    accuracy is bounded by ``tol``."""
+    mv0 = _bound(matvec)
+    x0 = None if x0 is None else x0.detach()
+
+    def solve(rhs, mv):
+        return bicgstab(mv, rhs, x0=x0, tol=tol, maxiter=maxiter,
+                        precond=precond).x
+
+    def transpose_solve(y, mv):
+        return bicgstab(_transpose(mv, y), y, tol=tol, maxiter=maxiter,
+                        precond=precond).x
+
+    return _ImplicitSolve.apply(b, _Solver(mv0.fn, solve, transpose_solve),
+                                *mv0.params)
+
+
+def differentiable_chebyshev_solve(
+    matvec: BoundMatvec,
+    b: torch.Tensor,
+    *,
+    bounds,
+    iters: int,
+    precond: Optional[Callable] = None,
+    solve_impl: Optional[Callable] = None,
+    transpose_solve_impl: Optional[Callable] = None,
+) -> torch.Tensor:
+    """Fixed-iteration Chebyshev, ``x = p(A) b``, with the gradient of
+    :class:`_ImplicitSolve`. Its exact adjoint is the same polynomial of
+    ``A^T`` (same interval, same Jacobi diagonal), so the gradient is the
+    exact discrete adjoint of the computed primal. Warm starts go outside,
+    by the delta trick (``x = x0 + solve(b - A x0)``), so that the map stays
+    linear in b (models/crbe.run_time_loop).
+
+    ``solve_impl`` / ``transpose_solve_impl``: optional ``rhs -> x``
+    replacements applying the same polynomial, such as kernel B4's raw
+    mode over the coefficient canvases and their transpose
+    (ops/fused_hbm.chebyshev_apply_canvas_hbm); they hold detached
+    canvases, so the operator's gradient comes from ``matvec.params``
+    alone. The defaults run :func:`chebyshev` on the matvec and on its
+    transpose."""
+    mv0 = _bound(matvec)
+
+    def solve(rhs, mv):
+        if solve_impl is not None:
+            return solve_impl(rhs)
+        return chebyshev(mv, rhs, bounds=bounds, iters=iters,
+                         precond=precond).x
+
+    def transpose_solve(y, mv):
+        if transpose_solve_impl is not None:
+            return transpose_solve_impl(y)
+        return chebyshev(_transpose(mv, y), y, bounds=bounds, iters=iters,
+                         precond=precond).x
+
+    return _ImplicitSolve.apply(b, _Solver(mv0.fn, solve, transpose_solve),
+                                *mv0.params)
 
 
 def jacobi_preconditioner(diag: torch.Tensor) -> Callable:

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from airpollution_tpu_torch.ops.linalg import BoundMatvec
+
 
 @dataclasses.dataclass(frozen=True)
 class StencilPattern:
@@ -215,6 +217,40 @@ def stencil_matvec(pattern: StencilPattern, coeffs: tuple, x_fam):
                       yD.reshape(lead + (-1,))], dim=-1)
 
 
+def transpose_coefficients(coeffs: tuple) -> tuple:
+    """Coefficient grids of the TRANSPOSED operator, in the same 15-term
+    layout and padding: ``stencil_matvec(pattern,
+    transpose_coefficients(c), x) == A^T x``.
+
+    Each directed term (row family -> column family at a fixed offset) has
+    one reverse term (column family -> row family at the negated offset);
+    transposing moves each grid into its reverse term's slot, shifted to be
+    indexed by the new row. The diagonal terms (HH, VV, DD) stay. The
+    adjoint sweep of the differentiable fused engine runs kernel B4's raw
+    mode over these (ops/fused_hbm.chebyshev_apply_canvas_hbm)."""
+    (cHH, cHVu, cHDu, cHVd, cHDd,
+     cVV, cVDl, cVHl, cVHr, cVDr,
+     cDD, cDVr, cDHd, cDHu, cDVl) = coeffs
+    c = cDD.shape[0]
+    return (
+        cHH,
+        _pad(cVHl[:, 1:], bottom=1),  # H->V(up): reverse of V->H(left)
+        _pad(cDHd, bottom=1),         # H->D(up): reverse of D->H(down)
+        _pad(cVHr[:, :c], top=1),     # H->V(down): reverse of V->H(right)
+        _pad(cDHu, top=1),            # H->D(down): reverse of D->H(up)
+        cVV,
+        _pad(cDVr, left=1),           # V->D(left): reverse of D->V(right)
+        _pad(cHVu[:c, :], left=1),    # V->H(left): reverse of H->V(up)
+        _pad(cHVd[1:, :], right=1),   # V->H(right): reverse of H->V(down)
+        _pad(cDVl, right=1),          # V->D(right): reverse of D->V(left)
+        cDD,
+        cVDl[:, 1:],                  # D->V(right): reverse of V->D(left)
+        cHDu[:c, :],                  # D->H(down): reverse of H->D(up)
+        cHDd[1:, :],                  # D->H(up): reverse of H->D(down)
+        cVDr[:, :c],                  # D->V(left): reverse of V->D(right)
+    )
+
+
 def get_pattern(mesh_data) -> StencilPattern:
     """Build (and cache on the MeshData instance) the stencil pattern."""
     pattern = getattr(mesh_data, "_stencil_pattern", None)
@@ -261,14 +297,16 @@ def family_view(mesh_data, perm, dead_mask=None) -> FamilyView:
 def family_operators(pattern: StencilPattern, ops, order: int,
                      matvec_fn=None):
     """Permuted diagonal operators plus stencil matvec closures (system,
-    and K+A for Crank-Nicolson) for a family-layout time loop.
+    and K+A for Crank-Nicolson) for a family-layout time loop; the system
+    matvec is a linalg.BoundMatvec over the 15 coefficient grids, so that
+    a differentiable loop can take the operator's gradient through them.
     ``matvec_fn`` defaults to :func:`stencil_matvec` (pass kernel B3's
     wrapper, ops/fused_stencil.stencil_matvec_fused, to use the kernel)."""
     mv = matvec_fn or stencil_matvec
     perm = torch.as_tensor(pattern.perm.astype(np.int64),
                            device=ops.mass_diag.device)
     coeffs = extract_coefficients(pattern, ops.system.vals)
-    matvec = functools.partial(mv, pattern, coeffs)
+    matvec = BoundMatvec(lambda x, *cs: mv(pattern, cs, x), *coeffs)
     ka_matvec = None
     if order == 2:
         ka_coeffs = extract_coefficients(pattern, ops.ka.vals)

@@ -12,10 +12,12 @@ the 21 scalars the fused kernels take.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from airpollution_tpu_torch.ops.linalg import BoundMatvec
 from airpollution_tpu_torch.ops.stencil import (
     StencilPattern,
     split_families,
@@ -122,3 +124,23 @@ def uniform_matvec(spec: UniformSpec, consts, x_fam, *,
         yV = torch.where(v_bnd, torch.zeros_like(yV), yV)
     return torch.cat([yH.reshape(-1), yV.reshape(-1), yD.reshape(-1)])
 
+
+def uniform_family_operators(spec: UniformSpec, pattern: StencilPattern,
+                             ops, order: int):
+    """Uniform-operator analogue of stencil.family_operators: the permuted
+    diagonal operators, the system matvec as a linalg.BoundMatvec over the
+    15 scalar coefficients (gathered from the assembled values, so the
+    gradient reaches D and v through 15 elements instead of 15 grids), and
+    for Crank-Nicolson the K+A matvec with ``boundary="drop"``."""
+    perm = torch.as_tensor(pattern.perm.astype(np.int64),
+                           device=ops.mass_diag.device)
+    consts = extract_constants(spec, ops.system.vals)
+    matvec = BoundMatvec(lambda x, c: uniform_matvec(spec, c, x), consts)
+    ka_matvec = None
+    if order == 2:
+        ka_consts = extract_constants(spec, ops.ka.vals)
+        ka_matvec = functools.partial(uniform_matvec, spec, ka_consts,
+                                      boundary="drop")
+    ops_fam = ops._replace(mass_diag=ops.mass_diag[perm],
+                           system_diag=ops.system_diag[perm])
+    return ops_fam, matvec, ka_matvec

@@ -52,13 +52,44 @@ def robin_g_xy_provided(problem) -> bool:
             or type(problem).robin_g_xy is not AdDifProblem.robin_g_xy)
 
 
+def param(x):
+    """A physical parameter: a tensor stays the tensor it is (its autograd
+    graph included), anything else becomes a Python float."""
+    return x if isinstance(x, torch.Tensor) else float(x)
+
+
+def param_vector(v):
+    """A constant wind ``v``: a tensor stays as it is, a sequence with a
+    tensor in it becomes one stacked tensor (differentiable in each
+    component), and a sequence of numbers a tuple of floats."""
+    if isinstance(v, torch.Tensor):
+        return v
+    comps = list(v)
+    ref = next((c for c in comps if isinstance(c, torch.Tensor)), None)
+    if ref is None:
+        return tuple(float(c) for c in comps)
+    return torch.stack([
+        c if isinstance(c, torch.Tensor)
+        else torch.tensor(float(c), dtype=ref.dtype, device=ref.device)
+        for c in comps])
+
+
+def _is_zero(x) -> bool:
+    """True for a Python number equal to 0 (a tensor is never taken as 0:
+    its gradient must flow)."""
+    return isinstance(x, (int, float)) and x == 0.0
+
+
 class AdDifProblem(abc.ABC):
     """Abstract 2D advection-diffusion(-reaction) problem.
 
     ``v`` is held as a tuple of two floats (or None where the wind is a
     field, see ``velocity_at``), ``D`` as a float and ``reaction`` as a
-    float. The class flags mirror the JAX package's: the solver refuses
-    the paths a flagged problem cannot take.
+    float; a tensor argument is kept as a tensor instead (:func:`param`,
+    :func:`param_vector`), so that autograd reaches it through assembly,
+    the hooks and the solve (diagnostics/inverse.py). The class flags
+    mirror the JAX package's: the solver refuses the paths a flagged
+    problem cannot take.
     """
 
     # True when source_term is identically zero.
@@ -84,9 +115,9 @@ class AdDifProblem(abc.ABC):
     obstacles = None
 
     def __init__(self, v, D, reaction=0.0):
-        self.v = None if v is None else tuple(float(c) for c in v)
-        self.D = float(D)
-        self.reaction = float(reaction)
+        self.v = None if v is None else param_vector(v)
+        self.D = param(D)
+        self.reaction = param(reaction)
 
     @abc.abstractmethod
     def initial_condition_fn(self, xy):
@@ -140,13 +171,16 @@ class AdDifProblem(abc.ABC):
     def diffusion_at(self, xy, t=None):
         """Diffusion field at (N, 2) points -> (N,). Default: the constant
         ``D`` broadcast to every point."""
+        if isinstance(self.D, torch.Tensor):
+            return self.D.to(dtype=xy.dtype, device=xy.device).expand(
+                xy.shape[:-1])
         return torch.full(xy.shape[:-1], float(self.D), dtype=xy.dtype,
                           device=xy.device)
 
 
 def _plume(num, denom, reaction, t):
     plume = torch.exp(-num / denom) / (math.pi * denom)
-    if reaction == 0.0:
+    if _is_zero(reaction):
         return plume
     return plume * torch.exp(-reaction * t)
 
@@ -162,13 +196,16 @@ def _check_xy(xy):
 
 
 class Problem(AdDifProblem):
-    """Default Gaussian-plume problem with a closed-form solution."""
+    """Default Gaussian-plume problem with a closed-form solution. ``v``,
+    ``D``, ``sigma`` and ``reaction`` may be tensors (:func:`param`): the
+    initial condition and the boundary lift are then differentiable in
+    them, as in the JAX package."""
 
     zero_source = True
 
     def __init__(self, v=(1.0, 0.5), D=0.1, sigma=1.0, reaction=0.0):
         super().__init__(v, D, reaction)
-        self.sigma = float(sigma)
+        self.sigma = param(sigma)
 
     def analytical_solution(self, xyt):
         """Exact solution at (N, 3) space-time points [x, y, t]; with a
@@ -228,7 +265,9 @@ class GaussianSourceProblem(AdDifProblem):
                   / (2 pi sigma_s^2),
 
     a total emission rate ``q`` spread over a footprint of width
-    ``sigma_s`` centred at ``(xs, ys)``. It has no closed-form solution."""
+    ``sigma_s`` centred at ``(xs, ys)``. It has no closed-form solution.
+    ``q``, ``xs``, ``ys``, ``sigma_s``, ``v`` and ``D`` may be tensors
+    (:func:`param`): the source is then differentiable in them."""
 
     zero_source = False
     steady_source = True  # t-independent: the fused paths build its load once
@@ -236,10 +275,10 @@ class GaussianSourceProblem(AdDifProblem):
     def __init__(self, v=(1.0, 0.5), D=0.1, q=1.0, xs=0.0, ys=0.0,
                  sigma_s=1.0, reaction=0.0):
         super().__init__(v, D, reaction)
-        self.q = float(q)
-        self.xs = float(xs)
-        self.ys = float(ys)
-        self.sigma_s = float(sigma_s)
+        self.q = param(q)
+        self.xs = param(xs)
+        self.ys = param(ys)
+        self.sigma_s = param(sigma_s)
 
     def initial_condition_fn(self, xy):
         _check_xy(xy)

@@ -41,7 +41,18 @@ Phases, each printing one JSON line:
    at 1025^2 (nt=2001, a row every 200) and 513^2 with the
    compensation-point flux (nt=1001, a row every 100) on B4 with its load
    plane, with the lumped-mass budget;
-9. the kernels line (launches on each path, errors, times, bounds).
+9. slice 5, differentiable fused solves and source inversion: B4's raw
+   mode (p(A) mask(b), kernel B4 with raw_b) against its plain version at
+   513^2 and 1025^2 (I1's uniform operator, f32) and 257^2 (C1's variable
+   operator, f64 and f32), k = 12 and 8, over the coefficients and their
+   transpose, with the adjoint dot-product test; gradients through the
+   fused engine (engine="fused_hbm", Chebyshev-24) at 129^2, f64, nt=129,
+   BE and CN, for Problem(D) and the emitter's (log q, xs, ys), against
+   the scan engine and central differences; I1, the production source
+   inversion of scripts/torch_port_source_inversion.py at 513^2, nt=128
+   (96 sensors, 8 snapshots, 1% noise, 120 Adam steps, the posterior),
+   whose solves run on B4's raw mode;
+10. the kernels line (launches on each path, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -87,6 +98,9 @@ KERNELS = {
     "B4-load": ("canvas_step (source + Robin flux load)",
                 "airpollution_tpu_torch/csrc/canvas_step.cu",
                 "airpollution_tpu/ops/pallas_hbm.py:518"),
+    "B4-raw": ("canvas_step (raw_b: p(A) b, forward and adjoint)",
+               "airpollution_tpu_torch/csrc/canvas_step.cu",
+               "airpollution_tpu/ops/pallas_hbm.py:691"),
 }
 
 # C1's Chebyshev iterations. The configuration of
@@ -271,7 +285,8 @@ def kernel_objects():
             "B1-load": fused_solver.LOAD_KERNEL,
             "B1-BiCGStab": fused_solver.BICGSTAB_KERNEL,
             "B2-load": fused_hbm.LOAD_KERNEL,
-            "B4-load": fused_hbm.CANVAS_KERNEL}
+            "B4-load": fused_hbm.CANVAS_KERNEL,
+            "B4-raw": fused_hbm.CANVAS_RAW_KERNEL}
 
 
 def reset_counts():
@@ -469,11 +484,13 @@ def kernel_times(meshes, problem):
     n_steps, k = md.nt - 1, 4
     scal, u3 = uniform_inputs(md, problem, 1, k, torch.float32)
     kw = dict(n_steps=n_steps, n_iters=k, use_ka=False, extrapolate=True)
+    # The plain solve runs once, timed, and is the check's reference.
+    (ref, _), plain = cuda_ms_once(
+        lambda: fused_solver.plain_solve(scal, u3, **kw))
     abs_e, rel, _ = rel_err(fused_solver.kernel_solve(scal, u3, **kw)[0],
-                            fused_solver.plain_solve(scal, u3, **kw)[0])
+                            ref)
     check(rel <= TOL["float32"], f"B1 257^2 x 1000 steps: rel err {rel:.3e}")
     ms = cuda_ms(lambda: fused_solver.kernel_solve(scal, u3, **kw), 5)
-    plain = cuda_ms(lambda: fused_solver.plain_solve(scal, u3, **kw), 1)
     dofs = md.number_of_segments
     b_ms, by = bound(2 * u3.numel() * 4,
                      n_steps * dofs * step_flops_per_dof(k, False, True))
@@ -758,7 +775,7 @@ def phase_canvas_1025(md, problem, domain):
         check(s.fused_kernel == "B4" and per_solve == md.nt - 1,
               f"C1 {tag}: {per_solve} B4 launches in one solve, not "
               f"{md.nt - 1}")
-        times = timed_solves(s, 3)
+        times = timed_solves(s, 2)
         total += launches_of("B4")
         rel, _, _ = s.compute_errors(problem.analytical_solution)
         scan = CRBESolver(domain, problem, md, matvec_impl="stencil",
@@ -941,11 +958,12 @@ def canvas_kernel_times(meshes, problems, cache):
     inp = canvas_inputs(md, problems["C1"], 1, f32, cache)
     C, u3 = bicgstab_inputs(inp, f32)
     kw = dict(n_steps=md.nt - 1, n_iters=5, use_ka=False, extrapolate=True)
+    ref, plain = cuda_ms_once(
+        lambda: fused_solver.plain_bicgstab_solve(C, u3, **kw))
     abs_e, rel, _ = rel_err(fused_solver.kernel_bicgstab_solve(C, u3, **kw),
-                            fused_solver.plain_bicgstab_solve(C, u3, **kw))
+                            ref)
     check(rel <= TOL["float32"], f"B5 257^2 x 1000 steps: rel err {rel:.3e}")
     ms = cuda_ms(lambda: fused_solver.kernel_bicgstab_solve(C, u3, **kw), 3)
-    plain = cuda_ms(lambda: fused_solver.plain_bicgstab_solve(C, u3, **kw), 1)
     b_ms, by = bound((C.numel() + 2 * u3.numel()) * 4,
                      (md.nt - 1) * md.number_of_segments
                      * bicgstab_flops_per_dof(5, False, True))
@@ -1241,7 +1259,7 @@ def phase_m1(md, domain):
     out["first_solve_s"] = time.perf_counter() - t0
     check(first == n_steps and launches_of("B4") == 0,
           f"M1: {first} B6 launches in one solve, not {n_steps}")
-    times = timed_solves(s, 2, warm_up=False)
+    times = timed_solves(s, 1, warm_up=False)
     launches = launches_of("B6")
     out.update({"b6_launches_per_solve": first, "b6_launches": launches,
                 "steps_per_s_best": n_steps / min(times),
@@ -1271,9 +1289,9 @@ def phase_m1(md, domain):
     out["b4_launches_per_solve_unfused"] = launches_of("B4")
     check(launches_of("B4") == 3 * n_steps and launches_of("B6") == 0,
           f"M1 unfused: {launches_of('B4')} B4 launches, not {3 * n_steps}")
-    times_u = timed_solves(unf, 2, warm_up=False)
-    out["unfused_steps_per_s_best"] = n_steps / min(times_u)
-    out["unfused_steps_per_s_median"] = n_steps / statistics.median(times_u)
+    # The check solve is the timed one: solve_time excludes building the
+    # solve function, as for the warm solves of timed_solves.
+    out["unfused_steps_per_s"] = n_steps / unf.solve_time
     out["fuse_rel_maxdiff"] = rel_max(U, unf.solutions[-1])
     check(out["fuse_rel_maxdiff"] < 1e-4,
           f"M1 fuse A/B {out['fuse_rel_maxdiff']:.3e} >= 1e-4")
@@ -2111,6 +2129,273 @@ def slice4_kernel_times(meshes, cache, s1_md, s2_md):
     return out
 
 
+# I1: scripts/torch_port_source_inversion.py at the size of the JAX
+# package's results row (results_snapshot/source_inversion_513.csv, a TPU
+# figure printed beside the card's for reference, held loosely: another
+# card's float32 rounding), and its gates.
+I1 = dict(mesh_size=513, nt=128, sensors=96, steps=120, lr=0.1, noise=0.01,
+          engine="auto", chebyshev_iters=12)
+I1_TPU = {"q_rel_err": 0.00106, "location_offset": 0.0076,
+          "s_per_step": 0.5563}
+I1_SOURCE = dict(q=2.0, xs=-4.0, ys=2.5, sigma_s=1.5)
+RAW_TOL_ADJOINT = {"float64": 1e-12, "float32": 1e-5}
+
+
+def raw_flops_per_dof(k):
+    """Floating-point operations per DOF of B4's raw mode: r = mask b and
+    d = (id r) / theta, then k iterations (x += d, r -= S d, d = a d +
+    b (id r)), the last of which is only x += d (the kernel skips its
+    matvec)."""
+    row = 9
+    return 3 + (k - 1) * (1 + row + 1 + 4) + 1
+
+
+def raw_inputs(md, problem, dtype, cache, transposed):
+    """B4-raw's (21, n, n) stack (zero mass planes) over the coefficients
+    or their transpose, and the interval, from canvas_inputs."""
+    from airpollution_tpu_torch.ops import fused_hbm, stencil
+
+    inp = canvas_inputs(md, problem, 1, dtype, cache)
+    coeffs = inp["coeffs"]
+    if transposed:
+        coeffs = stencil.transpose_coefficients(coeffs)
+    C = fused_hbm.raw_operator(inp["pattern"], coeffs, inp["inv_diag"],
+                               dtype)
+    return inp, C
+
+
+def run_raw(C, cheb, k, b, rect):
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm
+
+    x = torch.empty_like(b)
+    fused_hbm.canvas_raw_kernel(C, cheb, k, b, x, rect,
+                                fused_hbm.raw_tile(k, b.dtype))
+    return x
+
+
+def phase_b4_raw(cases, cache):
+    """B4's raw mode against plain_canvas_raw on ``cases`` ((label, md,
+    problem, dtypes)), k = 12 and 8, over the coefficients and their
+    transpose, from a random b (seed 0); and the adjoint dot-product test
+    <K_A(b), m y> = <m b, K_A^T(y)> with K_A(b) = p(A) m b, the
+    transposed-coefficient launch as K_A^T, random b and y."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    worst = {}
+    rows = []
+    gaps = {}
+    for label, md, problem, dtypes in cases:
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            rng = np.random.default_rng(0)
+            n = md.structured_n
+            b, y = (torch.tensor(rng.standard_normal((3, n, n)), dtype=dtype,
+                                 device=md.device) for _ in range(2))
+            for k in (12, 8):
+                outs = {}
+                for transposed in (False, True):
+                    inp, C = raw_inputs(md, problem, dtype, cache,
+                                        transposed)
+                    cheb = fused_solver.cheb_scalars(inp["bounds"], k, dtype,
+                                                     C.device)
+                    masks = fused_solver.rect_masks(n, dtype, C.device,
+                                                    inp["rect"])
+                    vec = y if transposed else b
+                    got = run_raw(C, cheb, k, vec, inp["rect"])
+                    ref = fused_hbm.plain_canvas_raw(C, cheb, k, vec, masks)
+                    torch.cuda.synchronize()
+                    abs_e, rel, diff = rel_err(got, ref)
+                    rows.append({"case": label, "dtype": name, "k": k,
+                                 "transposed": transposed, "rel_err": rel,
+                                 "worst_at": worst_at(diff)})
+                    check(rel <= TOL[name],
+                          f"B4-raw {label} {name} k={k} T={transposed}: rel "
+                          f"err {rel:.3e} > {TOL[name]:.0e}")
+                    outs[transposed] = got
+                    if label == "i1_513" and name == "float32":
+                        worst["B4-raw"] = max(worst.get("B4-raw", 0.0), abs_e)
+                lhs = torch.sum(outs[False].double() * (masks * y).double())
+                rhs = torch.sum((masks * b).double() * outs[True].double())
+                gap = float((lhs - rhs).abs() / torch.maximum(lhs.abs(),
+                                                              rhs.abs()))
+                gaps[name] = max(gaps.get(name, 0.0), gap)
+                check(gap <= RAW_TOL_ADJOINT[name],
+                      f"B4-raw {label} {name} k={k}: adjoint gap {gap:.3e}"
+                      f" > {RAW_TOL_ADJOINT[name]:.0e}")
+    emit({"phase": "b4_raw_vs_plain", "cases": rows,
+          "adjoint_gap_float64": gaps.get("float64"),
+          "adjoint_gap_float32": gaps.get("float32"),
+          "adjoint_tol": RAW_TOL_ADJOINT})
+    return worst
+
+
+def grad_rel(a, b):
+    import torch
+
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+
+def phase_grad_129(md):
+    """Gradients through the fused engine on the card: 129^2, f64,
+    nt=129 (dt |v| / h ~ 0.28, where Chebyshev-24 converges tightly, as
+    the JAX test at 17^2, nt=17), BE and CN, of sum(u_T^2) in D for
+    Problem(D=0.1) and in (log q, xs, ys) for the emitter. The fused
+    engine (B4's raw mode, forward and adjoint) within 2e-5 of the scan
+    engine (BiCGStab to 1e-10), and its component along itself within
+    5e-3 of a central difference of its own loss (step 1e-3)."""
+    import math
+
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    f64 = torch.float64
+
+    def plume(th):
+        return apt.Problem(D=th[0])
+
+    def emitter(th):
+        return apt.GaussianSourceProblem(
+            q=torch.exp(th[0]), xs=th[1], ys=th[2],
+            sigma_s=I1_SOURCE["sigma_s"])
+
+    cases = {"plume_D": (plume, [0.1]),
+             "emitter_logq_xs_ys": (emitter, [math.log(I1_SOURCE["q"]),
+                                              I1_SOURCE["xs"],
+                                              I1_SOURCE["ys"]])}
+    out = {"phase": "grad_129_fused_vs_scan", "card": card_line(),
+           "ms": 129, "nt": md.nt, "k": 24}
+    launches = 0
+    for cname, (make, theta) in cases.items():
+        for order in (1, 2):
+            tag = f"{cname}_{'be' if order == 1 else 'cn'}"
+
+            def loss(th, engine, **kw):
+                u = inverse.solve_final_state(make(th), md, engine=engine,
+                                              time_scheme_order=order, **kw)
+                return torch.sum(u ** 2)
+
+            def grad(engine, **kw):
+                th = torch.tensor(theta, dtype=f64, device=md.device,
+                                  requires_grad=True)
+                (g,) = torch.autograd.grad(loss(th, engine, **kw), th)
+                return g
+
+            reset_counts()
+            t0 = time.perf_counter()
+            g_fused = grad("fused_hbm", chebyshev_iters=24)
+            torch.cuda.synchronize()
+            fused_s = time.perf_counter() - t0
+            launches += launches_of("B4-raw")
+            check(launches_of("B4-raw") > 0,
+                  f"{tag}: the fused gradient launched no B4-raw")
+            t0 = time.perf_counter()
+            g_scan = grad("scan", tol=1e-10, maxiter=500)
+            scan_s = time.perf_counter() - t0
+            # The central difference along the gradient's direction e (step
+            # 1e-3): it checks g . e, the component a descent step uses;
+            # the scan comparison checks every component.
+            e = g_fused / torch.linalg.norm(g_fused)
+            with torch.no_grad():
+                th = torch.tensor(theta, dtype=f64, device=md.device)
+                fd = (loss(th + 1e-3 * e, "fused_hbm", chebyshev_iters=24)
+                      - loss(th - 1e-3 * e, "fused_hbm",
+                             chebyshev_iters=24)) / 2e-3
+            out[f"{tag}_grad_fused"] = g_fused.tolist()
+            out[f"{tag}_rel_vs_scan"] = grad_rel(g_fused, g_scan)
+            out[f"{tag}_rel_vs_central_difference"] = float(
+                abs(torch.dot(g_fused, e) - fd) / abs(fd))
+            out[f"{tag}_fused_s"] = fused_s
+            out[f"{tag}_scan_s"] = scan_s
+            check(out[f"{tag}_rel_vs_scan"] <= 2e-5,
+                  f"{tag}: fused vs scan gradient "
+                  f"{out[f'{tag}_rel_vs_scan']:.3e} > 2e-5")
+            check(out[f"{tag}_rel_vs_central_difference"] <= 5e-3,
+                  f"{tag}: fused gradient vs central difference "
+                  f"{out[f'{tag}_rel_vs_central_difference']:.3e} > 5e-3")
+    out["b4_raw_launches"] = launches
+    emit(out)
+    return launches
+
+
+def phase_i1():
+    """I1: the production source inversion (scripts/
+    torch_port_source_inversion.py) at 513^2, nt=128, f32 on the
+    differentiable fused engine (engine="auto" -> B4's raw mode forward
+    and adjoint), with the observations from the same engine, 120 Adam
+    steps and the posterior. Gates: q within 1%, location within 0.05,
+    |z| <= 4 for each coordinate, and the loss down 50x."""
+    import torch
+
+    from scripts import torch_port_source_inversion as si
+
+    reset_counts()
+    t0 = time.perf_counter()
+    row = si.run(**I1, device="cuda", dtype=torch.float32)
+    total_s = time.perf_counter() - t0
+    launches = launches_of("B4-raw")
+    out = {"phase": "i1_source_inversion_513", "card": card_line(),
+           **row, "total_s": total_s, "b4_raw_launches": launches,
+           "tpu_reference": I1_TPU}
+    emit(out)
+    check(launches > 0 and row["b4_raw_launches_fit"] > 0,
+          "I1: the inversion launched no B4-raw")
+    check(row["q_rel_err"] <= 1e-2, f"I1: q_rel_err {row['q_rel_err']:.3e}")
+    check(row["location_offset"] <= 0.05,
+          f"I1: location offset {row['location_offset']:.3e}")
+    for z in ("z_q", "z_xs", "z_ys"):
+        check(abs(row[z]) <= 4.0, f"I1: {z} = {row[z]:.2f}")
+    check(row["loss_last"] < row["loss_first"] / 50,
+          f"I1: loss {row['loss_first']:.3e} -> {row['loss_last']:.3e}")
+    return launches
+
+
+def slice5_kernel_times(md_513, cache):
+    """B4-raw's time per launch at I1's shape (513^2, k=12, f32, the
+    emitter's uniform operator), its plain version's, and the bound: read
+    15 coefficient, 3 inverse-diagonal and 3 b planes, write 3 x planes."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    f32 = torch.float32
+    problem = i1_problem()
+    inp, C = raw_inputs(md_513, problem, f32, cache, False)
+    k = I1["chebyshev_iters"]
+    n = md_513.structured_n
+    cheb = fused_solver.cheb_scalars(inp["bounds"], k, f32, C.device)
+    masks = fused_solver.rect_masks(n, f32, C.device, inp["rect"])
+    b = torch.tensor(np.random.default_rng(1).standard_normal((3, n, n)),
+                     dtype=f32, device=C.device)
+    x = torch.empty_like(b)
+    tile = fused_hbm.raw_tile(k, f32)
+    ms = cuda_ms(lambda: fused_hbm.canvas_raw_kernel(
+        C, cheb, k, b, x, inp["rect"], tile), 50)
+    plain = cuda_ms(lambda: fused_hbm.plain_canvas_raw(C, cheb, k, b, masks),
+                    5)
+    abs_e, _, _ = rel_err(x, fused_hbm.plain_canvas_raw(C, cheb, k, b, masks))
+    b_ms, by = bound((15 + 3 + 3 + 3) * n * n * 4,
+                     md_513.number_of_segments * raw_flops_per_dof(k))
+    emit({"phase": "slice5_kernel_times", "card": card_line(),
+          "b4_raw_513_k12_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+          "bound_by": by, "tile": tile})
+    return {"B4-raw": (ms, plain, b_ms, by, abs_e, None)}
+
+
+@functools.lru_cache(maxsize=1)
+def i1_problem():
+    import airpollution_tpu_torch as apt
+
+    return apt.GaussianSourceProblem(**I1_SOURCE)
+
+
 def main() -> int:
     import torch
 
@@ -2141,9 +2426,10 @@ def main() -> int:
         for name in dtypes:
             meshes[(ms, name)] = apt.MeshData(mesh, domain, nt=nt,
                                               dtype=getattr(torch, name))
+    mesh_1025 = mesh
     meshes[(1025, "float64")] = meshes[(1025, "float32")]
-    meshes[(513, "float32")] = apt.MeshData(apt.create_mesh(513, 20.0),
-                                            domain, nt=1001)
+    mesh_513 = apt.create_mesh(513, 20.0)
+    meshes[(513, "float32")] = apt.MeshData(mesh_513, domain, nt=1001)
     md_257_65 = apt.MeshData(apt.create_mesh(257, 20.0), domain, nt=65)
     worst = phase_b1(meshes, problem)
     worst.update(phase_b2(meshes, problem))
@@ -2183,6 +2469,27 @@ def main() -> int:
     launches["B1-BiCGStab"] = phase_s3(meshes[(257, "float32")], domain, s1)
     launches["B4-load"] = phase_scenario(1025, 2001, 200, 0.0, "p1")
     launches["B4-load"] += phase_scenario(513, 1001, 100, 0.005, "p2")
+    # Slice 5: B4's raw mode, the fused gradients, and I1.
+    cache.clear()
+    nt_i1 = I1["nt"]
+    md_513_i1 = apt.MeshData(mesh_513, domain, nt=nt_i1)
+    md_1025_i1 = apt.MeshData(mesh_1025, domain, nt=nt_i1)
+    worst.update(phase_b4_raw([
+        ("i1_513", md_513_i1, i1_problem(), (torch.float32,)),
+        ("i1_1025", md_1025_i1, i1_problem(), (torch.float32,)),
+        ("c1_257_f64", meshes[(257, "float64")], problems["C1"],
+         (torch.float64,)),
+        ("c1_257_f32", meshes[(257, "float32")], problems["C1"],
+         (torch.float32,)),
+    ], cache))
+    times.update(slice5_kernel_times(md_513_i1, cache))
+    del md_1025_i1
+    cache.clear()
+    md_129_grad = apt.MeshData(apt.create_mesh(129, 20.0), domain, nt=129,
+                               dtype=torch.float64)
+    phase_grad_129(md_129_grad)
+    del md_129_grad
+    launches["B4-raw"] = phase_i1()
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library = times[kid]

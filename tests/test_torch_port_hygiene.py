@@ -25,6 +25,8 @@ PORT_MODULES = [
     "airpollution_tpu_torch",
     "airpollution_tpu_torch._build",
     "airpollution_tpu_torch.device",
+    "airpollution_tpu_torch.diagnostics",
+    "airpollution_tpu_torch.diagnostics.inverse",
     "airpollution_tpu_torch.interop",
     "airpollution_tpu_torch.problems",
     "airpollution_tpu_torch.mesh.data",
@@ -56,9 +58,10 @@ def test_port_imports_no_jax():
         for m in {PORT_MODULES!r}:
             importlib.import_module(m)
         import chip_smoke
+        import scripts.torch_port_source_inversion
         bad = [m for m in sys.modules
-               if m == "jax" or m.startswith("jax.")
-               or m == "airpollution_tpu" or m.startswith("airpollution_tpu.")]
+               if m in ("jax", "optax", "airpollution_tpu")
+               or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
         print("BAD", bad)
         assert not bad, bad
     """)
@@ -69,11 +72,13 @@ def test_port_sources_name_no_jax():
     files = list((REPO / "airpollution_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "torch_port_production_scenario.py")
+    files.append(REPO / "scripts" / "torch_port_source_inversion.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
-                assert "jax" not in s and "airpollution_tpu." not in \
+                assert "jax" not in s and "optax" not in s \
+                    and "airpollution_tpu." not in \
                     s.replace("airpollution_tpu_torch", ""), (f, s)
 
 
@@ -86,8 +91,8 @@ def test_kernel_modules_import_without_nvcc():
         kernels = (fused_solver.KERNEL, fused_solver.LOAD_KERNEL,
                    fused_solver.BICGSTAB_KERNEL, fused_solver.CANVAS_KERNEL,
                    fused_hbm.KERNEL, fused_hbm.LOAD_KERNEL,
-                   fused_hbm.CANVAS_KERNEL, fused_hbm.MULTISPECIES_KERNEL,
-                   fused_stencil.KERNEL)
+                   fused_hbm.CANVAS_KERNEL, fused_hbm.CANVAS_RAW_KERNEL,
+                   fused_hbm.MULTISPECIES_KERNEL, fused_stencil.KERNEL)
         assert all(k._lib is None for k in kernels)
     """, env=env)
     assert out.returncode == 0, out.stderr
