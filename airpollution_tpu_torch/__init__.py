@@ -1,15 +1,19 @@
 """airpollution_tpu_torch: the PyTorch + CUDA port of airpollution_tpu.
 
-The structured-mesh CRBE solve (Crouzeix-Raviart FEM, backward Euler or
-Crank-Nicolson) on PyTorch tensors, on the uniform operator and on the
-per-DOF canvas operator (variable winds, Robin walls, obstacles), and the
-multi-species chemistry-transport solve (``MultiSpeciesSolver``), with its
-kernels written in CUDA C++ for Hopper (``csrc/``, built with ``nvcc`` on
-first use). Entry points run on the CUDA card unless given ``device="cpu"``,
-where every kernel is replaced by its plain PyTorch version.
+The CRBE solve (Crouzeix-Raviart FEM, backward Euler or Crank-Nicolson) on
+PyTorch tensors: on structured meshes with the uniform operator and the
+per-DOF canvas operator (variable winds, Robin walls, obstacles), on
+general meshes (unstructured, gmsh ``.msh`` files, mirrored grids) with
+the ELL operator, and the multi-species chemistry-transport solve
+(``MultiSpeciesSolver``), with its kernels written in CUDA C++ for Hopper
+(``csrc/``, built with ``nvcc`` on first use). Entry points run on the
+CUDA card unless given ``device="cpu"``, where every kernel is replaced by
+its plain PyTorch version.
 """
 
-from airpollution_tpu_torch.mesh import Mesh, MeshData, create_mesh
+from airpollution_tpu_torch.mesh import (Mesh, MeshData, create_mesh,
+                                        create_unstructured_mesh, read_msh,
+                                        write_msh)
 from airpollution_tpu_torch.models.crbe import CRBESolver
 from airpollution_tpu_torch.models.multispecies import MultiSpeciesSolver
 from airpollution_tpu_torch.ops.fused_hbm import fused_multispecies_canvas_hbm
@@ -38,5 +42,8 @@ __all__ = [
     "RotatingPlumeProblem",
     "SquarePulseProblem",
     "create_mesh",
+    "create_unstructured_mesh",
     "fused_multispecies_canvas_hbm",
+    "read_msh",
+    "write_msh",
 ]

@@ -23,27 +23,31 @@ import torch
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.models.crbe import GlobalOperators
 from airpollution_tpu_torch.models.multispecies import stack_operators
-from airpollution_tpu_torch.ops.sparse import EllMatrix
+from airpollution_tpu_torch.ops.sparse import EllMatrix, ell_index
 
 
 def operators_from_numpy(*, mass_diag, stiffness, advection, ka, system,
                          system_diag, dtype=None,
                          device=None) -> GlobalOperators:
     """``GlobalOperators`` from numpy arrays; each ELL operator is a
-    ``(vals, cols)`` pair of (n_seg, width) arrays. ``dtype`` defaults to
-    the arrays' own, ``device`` to the CUDA card."""
+    ``(vals, cols)`` pair of (n_seg, width) arrays, and gets its int32
+    columns and transposition map (ops/sparse.ell_index) once per
+    pattern. ``dtype`` defaults to the arrays' own, ``device`` to the CUDA
+    card."""
     device = resolve_device(device)
 
     def real(a):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
+    index = {}
+
     def ell(pair):
         vals, cols = pair
-        return EllMatrix(
-            vals=real(vals),
-            cols=torch.tensor(np.asarray(cols, dtype=np.int64),
-                              device=device),
-        )
+        cols = np.asarray(cols)
+        key = cols.tobytes()  # the four operators share one pattern
+        if key not in index:
+            index[key] = ell_index(cols, device)
+        return EllMatrix(real(vals), *index[key])
 
     return GlobalOperators(
         mass_diag=real(mass_diag),

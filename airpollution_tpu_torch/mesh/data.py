@@ -16,6 +16,7 @@ import torch
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.mesh import topology as topo_mod
 from airpollution_tpu_torch.mesh.structured import Mesh
+from airpollution_tpu_torch.ops import sparse
 
 
 class MeshData:
@@ -89,6 +90,7 @@ class MeshData:
         self.structured_n = getattr(mesh, "n_points_per_axis", None)
         self._host_t2s = topo.triangle_to_segments
         self._ell_pattern = None
+        self._ell_index = None
 
     def _ensure_ell(self):
         if self._ell_pattern is None:
@@ -105,7 +107,16 @@ class MeshData:
 
     @property
     def ell_cols(self):
-        return self._ell_tensor("cols")
+        return self.ell_index().cols
+
+    def ell_index(self):
+        """The operators' ELL index on the device (int64 and int32
+        columns, the transposition map), built once per mesh."""
+        if self._ell_index is None:
+            pattern = self._ensure_ell()
+            self._ell_index = sparse.ell_index(pattern.cols, self.device,
+                                               tslot=pattern.tslot)
+        return self._ell_index
 
     @property
     def ell_entry_to_slot(self):

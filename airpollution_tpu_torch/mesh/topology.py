@@ -1,5 +1,6 @@
-"""Edge enumeration and ELL sparsity pattern, a copy of the vectorised
-numpy path of ``airpollution_tpu/mesh/topology.py``.
+"""Edge enumeration and ELL sparsity pattern, a copy of
+``airpollution_tpu/mesh/topology.py`` (the native enumeration through
+mesh/native.py, the vectorised numpy path otherwise).
 
 Crouzeix-Raviart DOFs are edge midpoints. Edges are numbered in
 first-encounter order over triangles x local edges ``[(v1, v2), (v2, v0),
@@ -37,32 +38,29 @@ class EdgeTopology:
     boundary_triangle_first_segment: np.ndarray
 
 
+#: Triangle count from which the native enumeration (mesh/native.py) is
+#: tried first, as in the JAX package.
+NATIVE_MIN_TRIANGLES = 4096
+
+
 def enumerate_edges(triangles: np.ndarray, n_points: int) -> EdgeTopology:
-    """Enumerate unique edges in first-encounter order (vectorised)."""
+    """Enumerate unique edges in first-encounter order: the native C++
+    pass for meshes of at least :data:`NATIVE_MIN_TRIANGLES` triangles when
+    its library is available, else vectorised numpy (the same output)."""
     tris = np.asarray(triangles, dtype=np.int64)
     n_tri = tris.shape[0]
 
-    # (n_tri, 3, 2): local edges in contract order, canonical (min, max).
-    edges = tris[:, _LOCAL_EDGES]
-    lo = edges.min(axis=2)
-    hi = edges.max(axis=2)
-    keys = (lo * n_points + hi).ravel()  # int64 key per undirected edge
+    found = None
+    if n_tri >= NATIVE_MIN_TRIANGLES:
+        from airpollution_tpu_torch.mesh import native
 
-    # np.unique sorts the keys; remap ranks so ids follow each key's
-    # first occurrence in ``keys``.
-    _, first_idx, inverse = np.unique(
-        keys, return_index=True, return_inverse=True
-    )
-    order = np.argsort(first_idx, kind="stable")
-    rank_to_id = np.empty_like(order)
-    rank_to_id[order] = np.arange(order.size)
-    seg_ids = rank_to_id[inverse.reshape(-1)]
-
-    seg_keys = keys[np.sort(first_idx)]
-    segments = np.stack(
-        [seg_keys // n_points, seg_keys % n_points], axis=1
-    ).astype(np.int32)
-    triangle_to_segments = seg_ids.reshape(n_tri, 3).astype(np.int32)
+        found = native.enumerate_edges_native(tris, n_points)
+    if found is not None:
+        segments, triangle_to_segments = found
+        seg_ids = triangle_to_segments.reshape(-1).astype(np.int64)
+    else:
+        segments, triangle_to_segments, seg_ids = _enumerate_numpy(
+            tris, n_points)
 
     counts = np.bincount(seg_ids, minlength=segments.shape[0])
     boundary_segments = np.nonzero(counts == 1)[0].astype(np.int32)
@@ -83,6 +81,33 @@ def enumerate_edges(triangles: np.ndarray, n_points: int) -> EdgeTopology:
     )
 
 
+def _enumerate_numpy(tris, n_points):
+    """``(segments, triangle_to_segments, flat segment ids)`` by sorting
+    edge keys."""
+    n_tri = tris.shape[0]
+    # (n_tri, 3, 2): local edges in contract order, canonical (min, max).
+    edges = tris[:, _LOCAL_EDGES]
+    lo = edges.min(axis=2)
+    hi = edges.max(axis=2)
+    keys = (lo * n_points + hi).ravel()  # int64 key per undirected edge
+
+    # np.unique sorts the keys; remap ranks so ids follow each key's
+    # first occurrence in ``keys``.
+    _, first_idx, inverse = np.unique(
+        keys, return_index=True, return_inverse=True
+    )
+    order = np.argsort(first_idx, kind="stable")
+    rank_to_id = np.empty_like(order)
+    rank_to_id[order] = np.arange(order.size)
+    seg_ids = rank_to_id[inverse.reshape(-1)]
+
+    seg_keys = keys[np.sort(first_idx)]
+    segments = np.stack(
+        [seg_keys // n_points, seg_keys % n_points], axis=1
+    ).astype(np.int32)
+    return segments, seg_ids.reshape(n_tri, 3).astype(np.int32), seg_ids
+
+
 @dataclasses.dataclass(frozen=True)
 class EllPattern:
     """Static ELL sparsity pattern of the CR global operators.
@@ -93,12 +118,15 @@ class EllPattern:
       local-matrix entry (tri, a, b), flattened in that order.
     diag_slot: (n_seg,) int32 flat slot of each row's diagonal.
     width: ELL width (5 for interior rows of a triangular mesh).
+    tslot: (n_seg * width,) int64 flat slot of the transposed entry
+      (ops/sparse.transpose_slots), ``n_seg * width`` on padding slots.
     """
 
     cols: np.ndarray
     entry_to_slot: np.ndarray
     diag_slot: np.ndarray
     width: int
+    tslot: np.ndarray
 
 
 def build_ell_pattern(triangle_to_segments: np.ndarray, n_seg: int) -> EllPattern:
@@ -131,9 +159,18 @@ def build_ell_pattern(triangle_to_segments: np.ndarray, n_seg: int) -> EllPatter
         raise ValueError("every row must have a diagonal entry")
     diag_slot = slot_of_uniq[diag_rank]
 
+    # Local entry (t, a, b) lies in slot (row t2s[t, a], col t2s[t, b]);
+    # (t, b, a) lies in the transposed slot, so the pattern is symmetric
+    # by construction and padding slots are never written.
+    e2s = entry_to_slot.astype(np.int64)
+    e2s_t = e2s.reshape(n_tri, 3, 3).transpose(0, 2, 1).reshape(-1)
+    tslot = np.full(n_seg * width, n_seg * width, dtype=np.int64)
+    tslot[e2s] = e2s_t
+
     return EllPattern(
         cols=ell_cols,
         entry_to_slot=entry_to_slot.astype(np.int32),
         diag_slot=diag_slot.astype(np.int32),
         width=width,
+        tslot=tslot,
     )

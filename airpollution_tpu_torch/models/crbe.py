@@ -251,13 +251,13 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
         # rows (their columns are already zero: no live triangle).
         mass_diag = torch.where(dead, torch.ones_like(mass_diag), mass_diag)
 
-    ell_cols = md.ell_cols
+    ell_index = md.ell_index()
     ell_e2s = md.ell_entry_to_slot
     ell_diag_slot = md.ell_diag_slot
 
     def to_ell(local_vals):
         return sparse.ell_from_entries(local_vals.reshape(-1), ell_e2s,
-                                       ell_cols)
+                                       ell_index)
 
     def add_diag(vals, vec):
         flat = vals.reshape(-1).clone()
@@ -278,11 +278,10 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
         dirichlet_mask = dirichlet_mask | dead
     if robin_vec is not None:
         ka_vals = add_diag(ka_vals, robin_vec)
-    ka = sparse.EllMatrix(vals=ka_vals, cols=K.cols)
+    ka = K._replace(vals=ka_vals)
 
     c = {1: 1.0, 2: 0.5}[time_scheme_order]
-    system = sparse.EllMatrix(vals=add_diag((c * dt) * ka.vals, mass_diag),
-                              cols=ka.cols)
+    system = ka._replace(vals=add_diag((c * dt) * ka.vals, mass_diag))
     system = sparse.ell_mask_dirichlet_rows(system, dirichlet_mask,
                                             ell_diag_slot)
     system_diag = sparse.ell_diagonal(system, ell_diag_slot)
@@ -290,10 +289,11 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
                            ka=ka, system=system, system_diag=system_diag)
 
 
-def _ell_matvec(cols):
-    """The ELL SpMV over ``cols`` as a :class:`linalg.BoundMatvec` body."""
+def _ell_matvec(A):
+    """The ELL SpMV on ``A``'s pattern as a :class:`linalg.BoundMatvec`
+    body."""
     def fn(x, vals):
-        return sparse.ell_matvec(sparse.EllMatrix(vals=vals, cols=cols), x)
+        return sparse.ell_matvec(A._replace(vals=vals), x)
     return fn
 
 
@@ -364,7 +364,7 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
             return load
 
     if matvec is None:
-        matvec = linalg.BoundMatvec(_ell_matvec(ops.system.cols),
+        matvec = linalg.BoundMatvec(_ell_matvec(ops.system),
                                     ops.system.vals)
     if ka_matvec is None:
         ka_matvec = partial(sparse.ell_matvec, ops.ka)

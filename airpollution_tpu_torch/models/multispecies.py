@@ -61,8 +61,7 @@ def stack_operators(ops_list) -> GlobalOperators:
     """Stack per-species GlobalOperators along a new leading species axis."""
     def stack(*xs):
         if isinstance(xs[0], sparse.EllMatrix):
-            return sparse.EllMatrix(vals=torch.stack([x.vals for x in xs]),
-                                    cols=torch.stack([x.cols for x in xs]))
+            return sparse.stack_ell(xs)
         return torch.stack(xs)
 
     return GlobalOperators(*(stack(*fields) for fields in zip(*ops_list)))
@@ -146,8 +145,7 @@ def run_multispecies_loop(ops: GlobalOperators, C0, *, mesh_data, problem,
         ka_mv = partial(sparse.ell_matvec_stacked, ops.ka)
         # Each species' (matvec, diagonal), for its interval and BiCGStab.
         per_species = [
-            (partial(sparse.ell_matvec, sparse.EllMatrix(
-                vals=ops.system.vals[k], cols=ops.system.cols[k])),
+            (partial(sparse.ell_matvec, sparse.unstack_ell(ops.system, k)),
              ops.system_diag[k])
             for k in range(K)]
     else:

@@ -233,22 +233,26 @@ class Problem(AdDifProblem):
 
 class SquarePulseProblem(AdDifProblem):
     """Square-pulse release ("Problem 3" of the reference's case study):
-    c0 = amplitude on [lo, hi]^2, zero boundary values and source."""
+    c0 = amplitude on [lo, hi]^2, zero boundary values and source. Each
+    parameter may be a tensor (:func:`param`); the initial state is then
+    differentiable in ``amplitude``."""
 
     zero_source = True
 
     def __init__(self, v=(1.0, 0.0), D=0.1, lo=8.0, hi=12.0, amplitude=1.0,
                  reaction=0.0):
         super().__init__(v, D, reaction)
-        self.lo = float(lo)
-        self.hi = float(hi)
-        self.amplitude = float(amplitude)
+        self.lo = param(lo)
+        self.hi = param(hi)
+        self.amplitude = param(amplitude)
 
     def initial_condition_fn(self, xy):
         x, y = xy[..., 0], xy[..., 1]
         inside = ((x >= self.lo) & (x <= self.hi) & (y >= self.lo)
                   & (y <= self.hi))
-        return torch.where(inside, self.amplitude, 0.0).to(xy.dtype)
+        amplitude = torch.as_tensor(self.amplitude, dtype=xy.dtype,
+                                    device=xy.device)
+        return torch.where(inside, amplitude, torch.zeros_like(amplitude))
 
     def boundary_fn(self, xyt):
         return torch.zeros_like(xyt[..., 0])
@@ -490,6 +494,9 @@ class RotatingPlumeProblem(AdDifProblem):
 
         c(x, t) = exp(-|xi - x0|^2 / (4 D t + sigma^2))
                   / (pi (4 D t + sigma^2)) * exp(-reaction t).
+
+    Each parameter may be a tensor (:func:`param`): the wind, the initial
+    state and the closed form are then differentiable in it.
     """
 
     zero_source = True
@@ -500,12 +507,12 @@ class RotatingPlumeProblem(AdDifProblem):
         # No constant wind: v stays None so that a constant-coefficient
         # consumer fails instead of using a wrong wind.
         super().__init__(None, D, reaction)
-        self.omega = float(omega)
-        self.sigma = float(sigma)
-        self.x0 = float(x0)
-        self.y0 = float(y0)
-        self.cx = float(cx)
-        self.cy = float(cy)
+        self.omega = param(omega)
+        self.sigma = param(sigma)
+        self.x0 = param(x0)
+        self.y0 = param(y0)
+        self.cx = param(cx)
+        self.cy = param(cy)
 
     def velocity_at(self, xy, t=None):
         x, y = xy[..., 0], xy[..., 1]

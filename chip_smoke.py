@@ -52,19 +52,32 @@ Phases, each printing one JSON line:
    inversion of scripts/torch_port_source_inversion.py at 513^2, nt=128
    (96 sensors, 8 snapshots, 1% noise, 120 Adam steps, the posterior),
    whose solves run on B4's raw mode;
-10. the kernels line (launches on each path, errors, times, bounds).
+10. slice 6, general meshes: kernel B7 (the ELL gather) against its plain
+    version on the 257^2 (f64, f32) and 1025^2 (f32) unstructured system
+    operators, one x, a batch, a stack, the transposed backward and both
+    JAX-named entry points; its times beside cuSPARSE's CSR product and the
+    1025^2 mesh set-up (Delaunay, edges numpy and native, ELL pattern; the
+    native library must load); U1, CRBESolver on the 257^2 unstructured
+    mesh (f32, nt=1001) on B7 in BE, CN (BiCGStab) and Chebyshev, against
+    the same solve through B7's plain version; G1, gradients and a
+    posterior at 129^2 unstructured (f64), B7 against plain; the mirrored
+    257^2 grid written and read as a .msh file, its flip-solve-flip on B3
+    against the general-ELL solve of the raw triangulation on B7;
+11. the kernels line (launches on each path, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet):
 # device memory and non-tensor-core float32.
@@ -101,6 +114,12 @@ KERNELS = {
     "B4-raw": ("canvas_step (raw_b: p(A) b, forward and adjoint)",
                "airpollution_tpu_torch/csrc/canvas_step.cu",
                "airpollution_tpu/ops/pallas_hbm.py:691"),
+    "B7a": ("ell_gather (forward and transposed)",
+            "airpollution_tpu_torch/csrc/ell_gather.cu",
+            "airpollution_tpu/ops/pallas_gather.py:63"),
+    "B7b": ("ell_gather (entry ell_matvec_vmem_roll)",
+            "airpollution_tpu_torch/csrc/ell_gather.cu",
+            "airpollution_tpu/ops/pallas_gather.py:86"),
 }
 
 # C1's Chebyshev iterations. The configuration of
@@ -276,7 +295,7 @@ def phase_toolchain():
 def kernel_objects():
     """Kernel id -> the _build.Kernel that counts its launches."""
     from airpollution_tpu_torch.ops import fused_hbm, fused_solver
-    from airpollution_tpu_torch.ops import fused_stencil
+    from airpollution_tpu_torch.ops import fused_stencil, gather
 
     return {"B1": fused_solver.KERNEL, "B2": fused_hbm.KERNEL,
             "B3": fused_stencil.KERNEL, "B4": fused_hbm.CANVAS_KERNEL,
@@ -286,7 +305,8 @@ def kernel_objects():
             "B1-BiCGStab": fused_solver.BICGSTAB_KERNEL,
             "B2-load": fused_hbm.LOAD_KERNEL,
             "B4-load": fused_hbm.CANVAS_KERNEL,
-            "B4-raw": fused_hbm.CANVAS_RAW_KERNEL}
+            "B4-raw": fused_hbm.CANVAS_RAW_KERNEL,
+            "B7a": gather.KERNEL, "B7b": gather.KERNEL}
 
 
 def reset_counts():
@@ -2396,6 +2416,483 @@ def i1_problem():
     return apt.GaussianSourceProblem(**I1_SOURCE)
 
 
+# --- slice 6: general meshes, kernel B7 ------------------------------------
+
+# U1 and G1: the JAX A/B's unstructured mesh (scripts/tpu_vmem_gather_ab.py)
+# and its seed.
+UNSTRUCTURED_SEED = 1
+# B7 against its plain version, max|kernel - plain| / max|plain|: each
+# output is a sum of 5 products, summed in slot order by the kernel and by
+# torch.sum in its own order.
+B7_TOL = {"float64": 1e-14, "float32": 2e-6}
+
+
+def unstructured_md(ms, nt, dtype):
+    import torch
+
+    import airpollution_tpu_torch as apt
+
+    mesh = apt.create_unstructured_mesh(ms, 20.0, seed=UNSTRUCTURED_SEED)
+    return apt.MeshData(mesh, apt.Domain(), nt=nt,
+                        dtype=getattr(torch, dtype))
+
+
+@contextlib.contextmanager
+def plain_gather():
+    """Every ELL product through B7's plain version, on the card: the
+    reference side of the U1, G1 and msh comparisons (the port itself never
+    takes it for a CUDA tensor)."""
+    from airpollution_tpu_torch.ops import gather
+
+    kernel = gather.matvec
+    gather.matvec = lambda vals, cols, cols32, x: gather.plain_matvec(
+        vals, cols, x)
+    try:
+        yield
+    finally:
+        gather.matvec = kernel
+
+
+def ell_system(md, order=1):
+    """U1's masked system operator (Problem(sigma=1.0), the mesh's dt)."""
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models import crbe
+
+    dt = md.domain.T / (md.nt - 1)
+    return crbe.assemble(md, apt.Problem(sigma=1.0), dt, order).system
+
+
+def plain_transpose(A, y):
+    """A^T y by scatter-adding each slot's value into its column: an
+    independent plain version of B7's transposed product."""
+    import torch
+
+    contrib = (A.vals * y[..., None]).reshape(y.shape[:-1] + (-1,))
+    flat_cols = A.cols.reshape(A.cols.shape[:-2] + (-1,))
+    return torch.zeros_like(y).scatter_add_(-1, flat_cols.expand_as(contrib),
+                                            contrib)
+
+
+def b7_bytes(n, width, itemsize):
+    """Bytes one product must move: values and int32 columns, x and y,
+    each once."""
+    return n * width * (itemsize + 4) + 2 * n * itemsize
+
+
+def phase_b7(cases):
+    """Kernel B7 against its plain version on U1's operator: one x, a
+    shared batch of 3, a stack of 3 operators; forward and the transposed
+    backward (grad x through B7 over the transposed values, grad vals); the
+    two entry points named after the JAX kernels."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.ops import gather, sparse
+
+    rows = []
+    worst = {}
+    for tag, md in cases:
+        A = ell_system(md)
+        name = str(A.vals.dtype).split(".")[-1]
+        n, w = A.vals.shape
+        rng = np.random.default_rng(2)
+
+        def t(shape):
+            return torch.tensor(rng.standard_normal(shape), dtype=A.vals.dtype,
+                                device=md.device)
+
+        x, X, g, G = t(n), t((3, n)), t(n), t((3, n))
+        stack = sparse.stack_ell([A._replace(vals=A.vals * (1 + 0.1 * k))
+                                  for k in range(3)])
+        checks = {
+            "single": (sparse.ell_matvec(A, x),
+                       gather.plain_matvec(A.vals, A.cols, x)),
+            "batch3": (sparse.ell_matvec(A, X),
+                       gather.plain_matvec(A.vals, A.cols, X)),
+            "stacked3": (sparse.ell_matvec_stacked(stack, X),
+                         gather.plain_matvec(stack.vals, stack.cols, X)),
+            "ell_matvec_vmem": (gather.ell_matvec_vmem(A, x),
+                                gather.plain_matvec(A.vals, A.cols, x)),
+            "ell_matvec_vmem_roll": (gather.ell_matvec_vmem_roll(A, x),
+                                     gather.plain_matvec(A.vals, A.cols, x)),
+        }
+        for label, (op, vec, ybar) in {"single": (A, x, g),
+                                       "stacked3": (stack, X, G)}.items():
+            v = op.vals.clone().requires_grad_(True)
+            xr = vec.clone().requires_grad_(True)
+            y = sparse.EllMatvec.apply(v, xr, op.cols, op.cols32, op.tslot)
+            gv, gx = torch.autograd.grad(y, (v, xr), ybar)
+            checks[f"{label}_grad_x"] = (gx, plain_transpose(op, ybar))
+            checks[f"{label}_grad_vals"] = (
+                gv, ybar[..., None] * gather.gather_cols(vec, op.cols))
+        torch.cuda.synchronize()
+        row = {"case": tag, "dtype": name, "dofs": n, "width": w}
+        for label, (got, ref) in checks.items():
+            check(got.shape == ref.shape, f"B7 {tag} {label}: shape")
+            abs_e, rel, _ = rel_err(got, ref)
+            row[label] = rel
+            check(rel <= B7_TOL[name], f"B7 {tag} {label}: rel err "
+                  f"{rel:.3e} > {B7_TOL[name]:.0e}")
+            if name == "float32" and md.number_of_segments < 1_000_000:
+                worst["B7a"] = max(worst.get("B7a", 0.0), abs_e)
+                if label == "ell_matvec_vmem_roll":
+                    worst["B7b"] = abs_e
+        rows.append(row)
+    emit({"phase": "b7_vs_plain", "card": card_line(), "cases": rows})
+    return worst
+
+
+def mesh_setup_1025():
+    """The 1025^2 unstructured mesh's set-up on the host, split: jitter and
+    Delaunay, edge enumeration (numpy and native), MeshData (native
+    enumeration and geometry), and the ELL pattern with its transposition
+    map (built on first use)."""
+    import numpy as np
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.mesh import native, topology
+
+    check(native.available(), "the native topology library did not load: "
+          f"{native.load_error()}")
+    out = {}
+    t0 = time.perf_counter()
+    mesh = apt.create_unstructured_mesh(1025, 20.0, seed=UNSTRUCTURED_SEED)
+    out["delaunay_s"] = time.perf_counter() - t0
+    tris = np.asarray(mesh.triangles, np.int64)
+    t0 = time.perf_counter()
+    segs, t2s, _ = topology._enumerate_numpy(tris, len(mesh.points))
+    out["edges_numpy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = native.enumerate_edges_native(tris, len(mesh.points))
+    out["edges_native_s"] = time.perf_counter() - t0
+    check(np.array_equal(nat[0], segs) and np.array_equal(nat[1], t2s),
+          "native edge enumeration differs from numpy's")
+    t0 = time.perf_counter()
+    md = apt.MeshData(mesh, apt.Domain(), nt=1001)
+    out["meshdata_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    md.ell_index()  # the pattern, its transposition map, on the card
+    out["ell_pattern_s"] = time.perf_counter() - t0
+    out["native_library"] = str(native.library_path().relative_to(
+        native.BUILD_ROOT.parent.parent))
+    return md, out
+
+
+def b7_kernel_times(md_257, md_1025, setup):
+    """B7's time per product through each entry point at 257^2 and 1025^2
+    unstructured (f32, U1's operator), the plain version's, cuSPARSE's CSR
+    product of the same matrix (the library yardstick), and the bound by
+    bytes. The B7b entry point's launches are counted on its own run."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.ops import gather
+
+    out = {"phase": "b7_kernel_times", "card": card_line(),
+           "mesh_setup_1025": setup}
+    times = {}
+    for ms, md in ((257, md_257), (1025, md_1025)):
+        A = ell_system(md)
+        n, w = A.vals.shape
+        x = torch.tensor(np.random.default_rng(1).standard_normal(n),
+                         dtype=A.vals.dtype, device=md.device)
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, n * w + 1, w, device=md.device),
+            A.cols.reshape(-1), A.vals.reshape(-1), size=(n, n))
+        library = cuda_ms(lambda: csr @ x, 200)
+        plain = cuda_ms(lambda: gather.plain_matvec(A.vals, A.cols, x), 50)
+        b_ms, by = bound(b7_bytes(n, w, 4), 2 * n * w)
+        abs_csr = float((csr @ x - gather.plain_matvec(A.vals, A.cols, x))
+                        .abs().max())
+        for kid, entry in (("B7a", gather.ell_matvec_vmem),
+                           ("B7b", gather.ell_matvec_vmem_roll)):
+            ms_k = cuda_ms(lambda: entry(A, x), 200)
+            out[f"{kid}_{ms}_ms"] = ms_k
+            # The host's time to enqueue one product, card not awaited:
+            # where it is as long as ms_k, the launch path and not the card
+            # sets the pace.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                entry(A, x)
+            out[f"{kid}_{ms}_host_enqueue_ms"] = (
+                time.perf_counter() - t0) / 200 * 1e3
+            torch.cuda.synchronize()
+            if ms == 257:
+                times[kid] = [ms_k, plain, b_ms, by, 0.0, library]
+        out[f"dofs_{ms}"] = n
+        out[f"plain_{ms}_ms"] = plain
+        out[f"csr_{ms}_ms"] = library
+        out[f"csr_{ms}_max_abs_vs_plain"] = abs_csr
+        out[f"bound_{ms}_ms"] = b_ms
+        out[f"bound_{ms}_by"] = by
+    reset_counts()
+    A = ell_system(md_257)
+    x = torch.ones(A.n_rows, dtype=A.vals.dtype, device=md_257.device)
+    for _ in range(10):
+        gather.ell_matvec_vmem_roll(A, x)
+    out["b7b_entry_launches"] = launches_of("B7b")
+    emit(out)
+    return {kid: tuple(v) for kid, v in times.items()}, \
+        out["b7b_entry_launches"]
+
+
+def phase_u1(md, domain):
+    """U1, the general-mesh solve: CRBESolver on the 257^2 unstructured
+    mesh (197,120 DOFs), Problem(sigma=1.0), f32, nt=1001,
+    matvec_impl="auto" (-> "ell", kernel B7): BiCGStab (tol 1e-7) in BE and
+    CN, and Chebyshev extrapolated in BE at the smallest k the
+    applicability check accepts from 8 up. Each final state within 1e-4 of
+    max|u| of the same solve with B7's plain version on the card."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+    from airpollution_tpu_torch.ops import linalg
+
+    problem = apt.Problem(sigma=1.0)
+    out = {"phase": "u1_general_mesh_257", "card": card_line(),
+           "ms": round(md.number_of_points ** 0.5), "nt": md.nt,
+           "dofs": md.number_of_segments,
+           "ell_width": md.ell_width}
+    # Chebyshev at k=8, or at the smallest k that buys at least a 2x
+    # residual reduction per step (the applicability check's rule; its
+    # worst-case factor does not depend on k).
+    s = CRBESolver(domain, problem, md, solver_method="chebyshev",
+                   chebyshev_iters=8, extrapolate_warm_start=True)
+    s._check_chebyshev_applicable(s._require_ops(), warn=False)
+    factor = s._cheb_factor
+    check(factor < linalg.CHEBYSHEV_FACTOR_GATE,
+          f"U1: Chebyshev factor {factor:.3f} is refused")
+    k = 8
+    while factor ** k > 0.5:
+        k += 1
+    if k != 8:
+        s = CRBESolver(domain, problem, md, solver_method="chebyshev",
+                       chebyshev_iters=k, extrapolate_warm_start=True)
+    out["chebyshev_k"] = k
+    out["chebyshev_factor"] = factor
+    rows = {"be": dict(time_scheme_order=1),
+            "cn": dict(time_scheme_order=2),
+            "chebyshev_be": dict(time_scheme_order=1,
+                                 solver_method="chebyshev",
+                                 chebyshev_iters=k,
+                                 extrapolate_warm_start=True)}
+    total_launches = 0
+    cheb = s
+    for tag, kw in rows.items():
+        # solve_time leaves out assembly and the applicability check, and
+        # every kernel and torch op of the solve ran in earlier phases, so
+        # no solve is spent on warming up.
+        s = cheb if tag == "chebyshev_be" else CRBESolver(
+            domain, problem, md, matvec_impl="auto", **kw)
+        reset_counts()
+        times = timed_solves(s, 3, warm_up=False)
+        check(s.solver_method == kw.get("solver_method", "bicgstab"),
+              f"U1 {tag}: rerouted to {s.solver_method}")
+        launches = launches_of("B7a")
+        total_launches += launches
+        check(launches > 0, f"U1 {tag}: the solve launched no B7")
+        u = s.solutions[-1].clone()
+        rel, _, _ = s.compute_errors(problem.analytical_solution)
+        with plain_gather():
+            ref = CRBESolver(domain, problem, md, matvec_impl="auto",
+                             cheb_bounds=s._cheb_bounds, **kw)
+            ref.set_operators(s._ops)
+            ref.solve(store_solutions=False)
+        diff = float((u - ref.solutions[-1]).abs().max() / u.abs().max())
+        out[f"{tag}_steps_per_s_best"] = (md.nt - 1) / min(times)
+        out[f"{tag}_steps_per_s_median"] = (md.nt - 1) / statistics.median(
+            times)
+        out[f"{tag}_b7_launches_per_solve"] = launches / len(times)
+        out[f"{tag}_rel_l2"] = rel
+        out[f"{tag}_max_kernel_minus_plain_rel"] = diff
+        check(bool(torch.isfinite(u).all()), f"U1 {tag}: non-finite state")
+        check(diff <= 1e-4, f"U1 {tag}: kernel vs plain {diff:.3e} > 1e-4")
+    out["b7_launches"] = total_launches
+    emit(out)
+    return total_launches
+
+
+def phase_g1(md):
+    """G1, gradients on a general mesh: 129^2 unstructured, f64, nt=33,
+    the gradient of a weighted sum of solve_final_state in D (the plume)
+    and in the emitter's (log q, xs, ys), BiCGStab to 1e-13, B7 against its
+    plain version within 1e-10; one posterior_covariance (forward-mode
+    tangents through B7's double backward) within 1e-8."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    f64 = torch.float64
+    kw = dict(tol=1e-13, maxiter=500)
+    w = torch.tensor(np.random.default_rng(5).standard_normal(
+        md.number_of_segments), dtype=f64, device=md.device)
+
+    def emitter(th):
+        return apt.GaussianSourceProblem(q=torch.exp(th[0]), xs=th[1],
+                                         ys=th[2], sigma_s=3.0)
+
+    cases = {"plume_D": (lambda th: apt.Problem(D=th[0]), [0.1]),
+             "emitter_logq_xs_ys": (emitter, [math.log(2.0), -4.0, 2.5])}
+    out = {"phase": "g1_general_mesh_gradients_129", "card": card_line(),
+           "ms": round(md.number_of_points ** 0.5), "nt": md.nt,
+           "dofs": md.number_of_segments}
+
+    def grad(make, theta):
+        th = torch.tensor(theta, dtype=f64, device=md.device,
+                          requires_grad=True)
+        u = inverse.solve_final_state(make(th), md, **kw)
+        (g,) = torch.autograd.grad(torch.sum(w * u), th)
+        return g
+
+    for tag, (make, theta) in cases.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        g = grad(make, theta)
+        torch.cuda.synchronize()
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        out[f"{tag}_b7_launches"] = launches_of("B7a")
+        check(launches_of("B7a") > 0, f"G1 {tag}: no B7 launch")
+        with plain_gather():
+            g_ref = grad(make, theta)
+        out[f"{tag}_grad"] = g.tolist()
+        out[f"{tag}_rel_vs_plain"] = grad_rel(g, g_ref)
+        check(out[f"{tag}_rel_vs_plain"] <= 1e-10,
+              f"G1 {tag}: {out[f'{tag}_rel_vs_plain']:.3e} > 1e-10")
+    idx = [16, 32]
+    sens = list(range(0, md.number_of_segments, 499))
+    truth = emitter(torch.tensor([math.log(2.0), -4.0, 2.5], dtype=f64,
+                                 device=md.device))
+    obs = inverse.solve_snapshots(truth, md, indices=idx, **kw)[:, sens]
+    obs = obs + 0.01 * obs.abs().max() * torch.tensor(
+        np.random.default_rng(0).standard_normal(tuple(obs.shape)),
+        dtype=f64, device=md.device)
+    params = {"log_q": torch.tensor(0.6, dtype=f64),
+              "xy": torch.tensor([-3.5, 2.0], dtype=f64)}
+
+    def make_problem(p):
+        return emitter(torch.stack([p["log_q"], p["xy"][0], p["xy"][1]]))
+
+    post_kw = dict(snapshot_indices=idx, sensor_indices=sens, observed=obs,
+                   **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    uq = inverse.posterior_covariance(md, make_problem, params, **post_kw)
+    out["posterior_s"] = time.perf_counter() - t0
+    out["posterior_b7_launches"] = launches_of("B7a")
+    with plain_gather():
+        uq_ref = inverse.posterior_covariance(md, make_problem, params,
+                                              **post_kw)
+    cov, cov_ref = uq["cov"], uq_ref["cov"]
+    out["posterior_std"] = uq["std"]
+    out["posterior_cov_rel_vs_plain"] = float(
+        (cov - cov_ref).abs().max() / cov_ref.abs().max())
+    emit(out)
+    check(out["posterior_b7_launches"] > 0, "G1: the posterior launched "
+          "no B7")
+    check(out["posterior_cov_rel_vs_plain"] <= 1e-8,
+          f"G1 posterior: {out['posterior_cov_rel_vs_plain']:.3e} > 1e-8")
+
+
+def antidiagonal_grid(n):
+    """The regular n x n grid of create_mesh with every cell cut along its
+    other diagonal (tests/test_msh.py's mirrored grid)."""
+    import numpy as np
+
+    import airpollution_tpu_torch as apt
+
+    m = apt.create_mesh(n, 20.0)
+    j, i = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    v00 = (j * n + i).ravel()
+    v10, v01, v11 = v00 + 1, v00 + n, v00 + n + 1
+    tris = np.empty((2 * v00.size, 3), np.int32)
+    tris[0::2] = np.stack([v00, v10, v01], axis=1)
+    tris[1::2] = np.stack([v10, v11, v01], axis=1)
+    return apt.Mesh(points=m.points, triangles=tris)
+
+
+def phase_msh(domain, n=257):
+    """The mirrored n^2 grid: written with write_msh (into build/msh/ of the
+    checkout), read back (the
+    canonical mesh tagged mirror=(sx, sy)); the flip-solve-flip on the
+    canonical mesh with matvec_impl="pallas" (B3) against the general-ELL
+    solve of the file's own triangulation (B7), both f64, solver_tol 1e-12,
+    nt=33, within 1e-9 after sorting by midpoint; the canonical mesh on the
+    fused route (B1's BiCGStab variant at 80 iterations per step: its
+    default 5 leave this dt unconverged) printed beside them."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.mesh.mirror import (mirror_field,
+                                                     mirror_problem)
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    f64 = torch.float64
+    problem = apt.Problem(sigma=1.0)
+    out = {"phase": f"msh_mirrored_{n}", "card": card_line(), "ms": n,
+           "nt": 33}
+    workdir = Path(__file__).resolve().parent / "build" / "msh"
+    workdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path = apt.write_msh(antidiagonal_grid(n), str(workdir / f"grid_{n}.msh"))
+    out["write_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    canon = apt.read_msh(path)
+    out["read_detect_s"] = time.perf_counter() - t0
+    raw = apt.read_msh(path, structured=False)
+    out["mirror"] = canon.mirror
+    check(canon.n_points_per_axis == n and canon.mirror is not None,
+          f"msh: the mirrored grid was not detected ({canon.mirror})")
+    md_gen = apt.MeshData(raw, domain, nt=33, dtype=f64)
+    md_can = apt.MeshData(canon, domain, nt=33, dtype=f64, mirror_ok=True)
+    pulled = mirror_problem(problem, canon.mirror)
+
+    def solve(tag, kernel, md, p, **kw):
+        reset_counts()
+        s = CRBESolver(domain, p, md, **kw)
+        t0 = time.perf_counter()
+        u = s.solve(store_solutions=False)[-1]
+        torch.cuda.synchronize()
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        kid = getattr(s, "fused_kernel", None) or kernel
+        out[f"{tag}_kernel"] = kid
+        out[f"{tag}_launches"] = launches_of(kid)
+        check(launches_of(kid) > 0, f"msh: the {tag} solve launched no {kid}")
+        return u
+
+    tight = dict(solver_tol=1e-12, solver_maxiter=500)
+    u_gen = solve("ell", "B7a", md_gen, problem, matvec_impl="ell", **tight)
+    u_b3 = solve("pallas", "B3", md_can, pulled, matvec_impl="pallas",
+                 **tight)
+    u_b1 = solve("fused", None, md_can, pulled, matvec_impl="fused",
+                 fused_iters=80)
+
+    def order(md):
+        mid = md.midpoints.cpu().numpy()
+        q = np.rint((mid - mid.min(0)) / (20.0 / (n - 1))).astype(np.int64)
+        return torch.as_tensor(np.lexsort((q[:, 0], q[:, 1])),
+                               device=md.device)
+
+    og, oc = order(md_gen), order(md_can)
+    check(float((md_gen.midpoints[og] - md_can.midpoints[oc]).abs().max())
+          <= 1e-12, "msh: the two meshes' midpoint sets differ")
+    ref = u_gen[og]
+    for tag, u in (("pallas", u_b3), ("fused", u_b1)):
+        back = mirror_field(u, md_can, canon.mirror)[oc]
+        out[f"{tag}_max_abs_vs_ell"] = float((back - ref).abs().max())
+    out["max_abs_u"] = float(ref.abs().max())
+    emit(out)
+    check(out["pallas_max_abs_vs_ell"] <= 1e-9,
+          f"msh: flip-solve-flip vs general ELL "
+          f"{out['pallas_max_abs_vs_ell']:.3e} > 1e-9")
+
+
 def main() -> int:
     import torch
 
@@ -2490,6 +2987,20 @@ def main() -> int:
     phase_grad_129(md_129_grad)
     del md_129_grad
     launches["B4-raw"] = phase_i1()
+    # Slice 6: general meshes, kernel B7.
+    md_u257 = {name: unstructured_md(257, 1001, name)
+               for name in ("float64", "float32")}
+    md_u1025, setup = mesh_setup_1025()
+    worst.update(phase_b7([("257_f64", md_u257["float64"]),
+                           ("257_f32", md_u257["float32"]),
+                           ("1025_f32", md_u1025)]))
+    b7_times, launches["B7b"] = b7_kernel_times(md_u257["float32"],
+                                                md_u1025, setup)
+    times.update(b7_times)
+    del md_u1025, md_u257["float64"]
+    launches["B7a"] = phase_u1(md_u257["float32"], domain)
+    phase_g1(unstructured_md(129, 33, "float64"))
+    phase_msh(domain)
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library = times[kid]

@@ -30,6 +30,9 @@ PORT_MODULES = [
     "airpollution_tpu_torch.interop",
     "airpollution_tpu_torch.problems",
     "airpollution_tpu_torch.mesh.data",
+    "airpollution_tpu_torch.mesh.mirror",
+    "airpollution_tpu_torch.mesh.msh_io",
+    "airpollution_tpu_torch.mesh.native",
     "airpollution_tpu_torch.mesh.structured",
     "airpollution_tpu_torch.mesh.topology",
     "airpollution_tpu_torch.models.crbe",
@@ -37,6 +40,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.ops.fused_hbm",
     "airpollution_tpu_torch.ops.fused_solver",
     "airpollution_tpu_torch.ops.fused_stencil",
+    "airpollution_tpu_torch.ops.gather",
     "airpollution_tpu_torch.ops.lifting",
     "airpollution_tpu_torch.ops.linalg",
     "airpollution_tpu_torch.ops.loads",
@@ -334,3 +338,74 @@ def test_multispecies_unported_options_raise():
     for extra in (dict(differentiable=True), dict(R=s.problem.R)):
         with pytest.raises(NotImplementedError):
             multispecies.run_multispecies_loop(ops, C0, **base, **extra)
+
+
+def test_gather_and_native_modules_import_without_a_toolchain():
+    """Importing kernel B7's module or the native bridge builds nothing:
+    no nvcc, no C++ compiler, no library loaded."""
+    env = dict(os.environ, PATH="/nonexistent")
+    out = _run("""
+        from airpollution_tpu_torch.mesh import native
+        from airpollution_tpu_torch.ops import gather, sparse
+        assert gather.KERNEL._lib is None and gather.KERNEL.launches == 0
+        assert native._STATE == {"tried": False, "lib": None,
+                                 "error": None}
+    """, env=env)
+    assert out.returncode == 0, out.stderr
+
+
+def _general_solver(**kw):
+    md = tapt.MeshData(tapt.create_unstructured_mesh(9, 20.0, seed=1),
+                       tapt.Domain(), nt=33, dtype=torch.float64,
+                       device="cpu")
+    return CRBESolver(tapt.Domain(), tapt.Problem(), md, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("method", ["bicgstab", "chebyshev"])
+def test_general_mesh_cpu_solve_takes_plain_b7(monkeypatch, method):
+    """An unstructured CPU solve (and, for Chebyshev, the transposed
+    products of its spectral estimate) runs B7's plain version: no
+    build, no launch."""
+    from airpollution_tpu_torch.ops import gather
+
+    def no_build(*_a, **_k):
+        raise AssertionError("a CPU solve must not build CUDA kernels")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    calls = _spy(monkeypatch, gather, "plain_matvec")
+    s = _general_solver(solver_method=method, chebyshev_iters=12)
+    out = s.solve(store_solutions=False)
+    assert bool(torch.isfinite(out).all()) and not s._use_stencil()
+    assert s.solver_method == method
+    assert calls and gather.KERNEL.launches == 0
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports itself as a CUDA one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_b7_failure_raises_instead_of_falling_back(monkeypatch):
+    """A CUDA-typed product whose kernel launch fails raises; the plain
+    version is never taken in its place."""
+    from airpollution_tpu_torch.ops import gather, sparse
+
+    def failed(*_a, **_k):
+        raise RuntimeError("ell_gather launch failed: injected (1)")
+
+    monkeypatch.setattr(gather.KERNEL, "launch", failed)
+    monkeypatch.setattr(_build, "current_stream", lambda: None)
+    calls = _spy(monkeypatch, gather, "plain_matvec")
+    A = sparse.EllMatrix(torch.ones(4, 1),
+                         *sparse.ell_index([[0], [1], [2], [3]], "cpu"))
+    x = torch.Tensor._make_subclass(_CudaTyped, torch.ones(4))
+    with pytest.raises(RuntimeError, match="injected"):
+        sparse.ell_matvec(A, x)
+    with pytest.raises(RuntimeError, match="injected"):
+        gather.ell_matvec_vmem_roll(A, x)
+    with pytest.raises(ValueError, match="int32 columns"):
+        gather.matvec(A.vals, A.cols, None, x)
+    assert not calls
