@@ -54,6 +54,16 @@
 // only: r, d, d_next on the window and x on the tile (raw_smem_bytes),
 // which lets float64 reach k = 24 (a 54^2 window around an 8^2 tile).
 //
+// Kernel B9 (entry points crbe_canvas_block_step_*, the load optional as in
+// B4): the same step on one row block of the canvas, the counterpart of the
+// TPU kernel's sharded-block mode that airpollution_tpu/parallel/
+// hbm_shard.py launches per device (build_canvas_hbm_halo_solver). It is
+// the kBlock instantiation (tile_step.cuh's block mode): C, the state and
+// the load are an extended block of rows = local + 2 halo rows, whose
+// coefficient rows the caller extends once per solve with its neighbours'
+// (zero at the chain ends); the Robin-widened rectangle bounds are global,
+// as are the masks, and only the interior rows are written.
+//
 // What bounds it on an H100: device memory must see the coefficient stack
 // once and the state once each way per step: (21 + 4 x 3) x n^2 x
 // sizeof(T), 138.7 MB at 1025^2 in f32, 41 us at 3.35 TB/s (3 more planes
@@ -73,7 +83,7 @@ namespace crbe {
 // ~5% slower on an H100 at 1025^2 (0.843 against 0.797 ms at k=14);
 // written so, B4 without a load runs as it did before loads existed and a
 // load adds ~4% (scripts/torch_port_b4_ab.py compares two trees' B4).
-template <int NT, typename T, bool kLoad, bool kRaw>
+template <int NT, typename T, bool kLoad, bool kRaw, bool kBlock = false>
 __global__ void __launch_bounds__(NT)
     canvas_step_kernel(Geometry g, Rect rc, const T* __restrict__ C,
                        const T* scal, const T* u_in, const T* up_in,
@@ -91,9 +101,14 @@ __global__ void __launch_bounds__(NT)
   const int W = g.tile + 2 * h;
   const int PS = W * W;
   const int tile_id = blockIdx.x;
-  const int r0 = (tile_id / g.tiles_per_row) * g.tile - h;
+  const int rows = kBlock ? g.rows : n;
+  const int int_hi = kBlock ? g.int_hi : n;
+  // Array row and global row of window row 0 (tile_step.cuh's block mode).
+  const int r0 =
+      (kBlock ? g.int_lo : 0) + (tile_id / g.tiles_per_row) * g.tile - h;
+  const int g0 = (kBlock ? g.row0 : 0) + r0;
   const int c0 = (tile_id % g.tiles_per_row) * g.tile - h;
-  const size_t nn = static_cast<size_t>(n) * n;
+  const size_t nn = static_cast<size_t>(rows) * n;
   // Raw mode: R, Dc, Dn on the window, then X on the tile alone.
   T* const base = reinterpret_cast<T*>(smem_raw);
   T* X = kRaw ? base + 9 * PS : base;
@@ -104,9 +119,10 @@ __global__ void __launch_bounds__(NT)
   const T inv_theta = s[0];
 
   auto cell = [&](int wr, int wc, size_t& off) {
-    const int gr = r0 + wr, gc = c0 + wc;
-    const bool inside = gr >= 0 && gr < n && gc >= 0 && gc < n;
-    off = inside ? static_cast<size_t>(gr) * n + gc : 0;
+    const int br = r0 + wr, gr = g0 + wr, gc = c0 + wc;
+    const bool inside = (!kBlock || (br >= 0 && br < rows)) && gr >= 0 &&
+                        gr < n && gc >= 0 && gc < n;
+    off = inside ? static_cast<size_t>(br) * n + gc : 0;
     return inside;
   };
 
@@ -120,7 +136,7 @@ __global__ void __launch_bounds__(NT)
       const int q = wr * W + wc;
       const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
       T m[3];
-      rect_masks(r0 + wr, c0 + wc, c, rc, m);
+      rect_masks(g0 + wr, c0 + wc, c, rc, m);
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
         const int i = f * PS + q;
@@ -154,9 +170,15 @@ __global__ void __launch_bounds__(NT)
       const bool inside = cell(wr, wc, off);
       const int q = wr * W + wc;
       T m[3], y[3] = {T(0), T(0), T(0)};
-      rect_masks(r0 + wr, c0 + wc, c, rc, m);
+      rect_masks(g0 + wr, c0 + wc, c, rc, m);
       if (g.use_ka) apply_canvas(C, nn, off, inside, X, q, W, PS, y);
       const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
+      // u_prev is written on the tile's own interior cells (block mode: 0
+      // on the rows past the canvas, where u loaded as 0).
+      const bool store = kBlock ? (own && r0 + wr < int_hi && c0 + wc < n)
+                                : (own && inside);
+      const size_t soff = kBlock ? static_cast<size_t>(r0 + wr) * n + c0 + wc
+                                 : off;
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
         const T u = X[f * PS + q];
@@ -175,7 +197,7 @@ __global__ void __launch_bounds__(NT)
         if (up_in != nullptr) {
           const T up = inside ? up_in[f * nn + off] : T(0);
           guess = T(2) * u - up;
-          if (own && inside) up_out[f * nn + off] = u;
+          if (store) up_out[f * nn + soff] = u;
         }
         Dn[f * PS + q] = m[f] * guess;
       }
@@ -238,17 +260,19 @@ __global__ void __launch_bounds__(NT)
     Dn = t;
   }
 
-  // 5. The last iteration's x += d on the tile itself, written back.
+  // 5. The last iteration's x += d on the tile itself, written back (its
+  //    interior rows in block mode, 0 past the canvas).
   for_square<NT>(W, h, [&](int wr, int wc) {
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (gr >= n || gc >= n) return;
+    const int br = r0 + wr, gc = c0 + wc;
+    if (br >= int_hi || gc >= n) return;
+    const bool live = !kBlock || g0 + wr < n;
     const int q = wr * W + wc;
-    const size_t off = static_cast<size_t>(gr) * n + gc;
+    const size_t off = static_cast<size_t>(br) * n + gc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       const T x = kRaw ? X[f * TT + (wr - h) * g.tile + (wc - h)]
                        : X[f * PS + q];
-      u_out[f * nn + off] = x + Dc[f * PS + q];
+      u_out[f * nn + off] = live ? x + Dc[f * PS + q] : T(0);
     }
   });
 }
@@ -260,7 +284,8 @@ inline size_t raw_smem_bytes(int tile, int halo, size_t elem) {
   return (9 * w * w + 3 * t * t) * elem;
 }
 
-template <int NT, typename T, bool kLoad, bool kRaw = false>
+template <int NT, typename T, bool kLoad, bool kRaw = false,
+          bool kBlock = false>
 int launch_canvas_step_as(const T* C, const T* scal, const T* u_in,
                           const T* up_in, T* u_out, T* up_out,
                           const int* halt, const T* load, Geometry g,
@@ -268,29 +293,48 @@ int launch_canvas_step_as(const T* C, const T* scal, const T* u_in,
   const size_t smem = kRaw ? raw_smem_bytes(g.tile, g.halo, sizeof(T))
                            : smem_bytes(g.tile, g.halo, sizeof(T));
   static size_t smem_set = 0;
-  cudaError_t err =
-      ensure_smem(canvas_step_kernel<NT, T, kLoad, kRaw>, smem, &smem_set);
+  cudaError_t err = ensure_smem(canvas_step_kernel<NT, T, kLoad, kRaw, kBlock>,
+                                smem, &smem_set);
   if (err != cudaSuccess) return err;
-  canvas_step_kernel<NT, T, kLoad, kRaw>
-      <<<g.tiles_per_row * g.tiles_per_row, NT, smem,
+  canvas_step_kernel<NT, T, kLoad, kRaw, kBlock>
+      <<<g.tile_rows * g.tiles_per_row, NT, smem,
          static_cast<cudaStream_t>(stream)>>>(g, rc, C, scal, u_in, up_in,
                                               u_out, up_out, halt, load);
   return cudaGetLastError();
 }
 
-template <int NT, typename T>
+template <int NT, typename T, bool kBlock>
 int launch_canvas_step_nt(const T* C, const T* scal, const T* u_in,
                           const T* up_in, T* u_out, T* up_out,
                           const int* halt, const T* load, Geometry g,
                           Rect rc, void* stream) {
   if (load != nullptr) {
-    return launch_canvas_step_as<NT, T, true>(C, scal, u_in, up_in, u_out,
-                                              up_out, halt, load, g, rc,
-                                              stream);
+    return launch_canvas_step_as<NT, T, true, false, kBlock>(
+        C, scal, u_in, up_in, u_out, up_out, halt, load, g, rc, stream);
   }
-  return launch_canvas_step_as<NT, T, false>(C, scal, u_in, up_in, u_out,
-                                             up_out, halt, load, g, rc,
-                                             stream);
+  return launch_canvas_step_as<NT, T, false, false, kBlock>(
+      C, scal, u_in, up_in, u_out, up_out, halt, load, g, rc, stream);
+}
+
+template <typename T, bool kBlock>
+int launch_canvas_geometry(const T* C, const T* scal, const T* u_in,
+                           const T* up_in, T* u_out, T* up_out,
+                           const int* halt, const T* load, Geometry g,
+                           Rect rc, int threads, void* stream) {
+  if (g.n_iters < 1 || g.n_iters > kMaxIters) return cudaErrorInvalidValue;
+  if (g.halo < g.n_iters + (g.use_ka ? 1 : 0)) return cudaErrorInvalidValue;
+  if (kBlock && !block_fits(g)) return cudaErrorInvalidValue;
+  if (threads == 512) {
+    return launch_canvas_step_nt<512, T, kBlock>(
+        C, scal, u_in, up_in, u_out, up_out, halt, load, g, rc, stream);
+  }
+  if constexpr (!kBlock) {
+    if (threads == 256) {
+      return launch_canvas_step_nt<256, T, false>(
+          C, scal, u_in, up_in, u_out, up_out, halt, load, g, rc, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -300,25 +344,26 @@ int launch_canvas_step(const T* C, const T* scal, const T* u_in,
                        int n_iters, int use_ka,
                        int h_lo, int h_hi, int v_lo, int v_hi, int threads,
                        void* stream) {
-  if (n_iters < 1 || n_iters > kMaxIters) return cudaErrorInvalidValue;
-  if (halo < n_iters + (use_ka ? 1 : 0)) return cudaErrorInvalidValue;
-  Geometry g;
-  g.n = n;
-  g.tile = tile;
-  g.halo = halo;
-  g.tiles_per_row = (n + tile - 1) / tile;
-  g.n_iters = n_iters;
-  g.use_ka = use_ka;
-  Rect rc{h_lo, h_hi, v_lo, v_hi};
-  if (threads == 256) {
-    return launch_canvas_step_nt<256>(C, scal, u_in, up_in, u_out, up_out,
-                                      halt, load, g, rc, stream);
-  }
-  if (threads == 512) {
-    return launch_canvas_step_nt<512>(C, scal, u_in, up_in, u_out, up_out,
-                                      halt, load, g, rc, stream);
-  }
-  return cudaErrorInvalidValue;
+  return launch_canvas_geometry<T, false>(
+      C, scal, u_in, up_in, u_out, up_out, halt, load,
+      step_geometry(n, tile, halo, n_iters, use_ka),
+      Rect{h_lo, h_hi, v_lo, v_hi}, threads, stream);
+}
+
+// Kernel B9: C is the block's (21, rows, n) stack, the state and the load
+// (3, rows, n) blocks; the rectangle bounds are global.
+template <typename T>
+int launch_canvas_block_step(const T* C, const T* scal, const T* u_in,
+                             const T* up_in, T* u_out, T* up_out,
+                             const int* halt, const T* load, int n, int rows,
+                             int row0, int int_lo, int int_hi, int tile,
+                             int halo, int n_iters, int use_ka, int h_lo,
+                             int h_hi, int v_lo, int v_hi, void* stream) {
+  return launch_canvas_geometry<T, true>(
+      C, scal, u_in, up_in, u_out, up_out, halt, load,
+      block_geometry(n, rows, row0, int_lo, int_hi, tile, halo, n_iters,
+                     use_ka),
+      Rect{h_lo, h_hi, v_lo, v_hi}, kBlockThreads, stream);
 }
 
 // Raw mode: x_out = p(A) mask(b), (3, n, n) each; halo >= k - 1.
@@ -328,13 +373,7 @@ int launch_canvas_raw(const T* C, const T* scal, const T* b, T* x_out, int n,
                       int v_lo, int v_hi, int threads, void* stream) {
   if (n_iters < 1 || n_iters > kMaxIters) return cudaErrorInvalidValue;
   if (halo < n_iters - 1) return cudaErrorInvalidValue;
-  Geometry g;
-  g.n = n;
-  g.tile = tile;
-  g.halo = halo;
-  g.tiles_per_row = (n + tile - 1) / tile;
-  g.n_iters = n_iters;
-  g.use_ka = 0;
+  const Geometry g = step_geometry(n, tile, halo, n_iters, 0);
   Rect rc{h_lo, h_hi, v_lo, v_hi};
   if (threads == 256) {
     return launch_canvas_step_as<256, T, false, true>(
@@ -392,6 +431,30 @@ int crbe_canvas_step_f64(const double* C, const double* scal,
                                           up_out, halt, load, n, tile, halo,
                                           n_iters, use_ka, h_lo, h_hi, v_lo,
                                           v_hi, threads, stream);
+}
+
+int crbe_canvas_block_step_f32(const float* C, const float* scal,
+                               const float* u_in, const float* up_in,
+                               float* u_out, float* up_out, const int* halt,
+                               const float* load, int n, int rows, int row0,
+                               int int_lo, int int_hi, int tile, int halo,
+                               int n_iters, int use_ka, int h_lo, int h_hi,
+                               int v_lo, int v_hi, void* stream) {
+  return crbe::launch_canvas_block_step<float>(
+      C, scal, u_in, up_in, u_out, up_out, halt, load, n, rows, row0, int_lo,
+      int_hi, tile, halo, n_iters, use_ka, h_lo, h_hi, v_lo, v_hi, stream);
+}
+
+int crbe_canvas_block_step_f64(const double* C, const double* scal,
+                               const double* u_in, const double* up_in,
+                               double* u_out, double* up_out, const int* halt,
+                               const double* load, int n, int rows, int row0,
+                               int int_lo, int int_hi, int tile, int halo,
+                               int n_iters, int use_ka, int h_lo, int h_hi,
+                               int v_lo, int v_hi, void* stream) {
+  return crbe::launch_canvas_block_step<double>(
+      C, scal, u_in, up_in, u_out, up_out, halt, load, n, rows, row0, int_lo,
+      int_hi, tile, halo, n_iters, use_ka, h_lo, h_hi, v_lo, v_hi, stream);
 }
 
 const char* crbe_error_string(int err) {

@@ -1,7 +1,8 @@
 // Pieces of the per-DOF canvas step kernels: canvas_step.cu (one species,
-// kernel B4) and multispecies_step.cu (K species with in-kernel chemistry,
-// kernel B6). Both run tile_step.cuh's shrinking squares with the operator
-// read per DOF from a (21, n, n) stack:
+// kernel B4; its block mode B9) and multispecies_step.cu (K species with
+// in-kernel chemistry, kernel B6; its block mode B10). Both run
+// tile_step.cuh's shrinking squares with the operator read per DOF from a
+// (21, n, n) stack (block mode: the block's (21, rows, n) rows):
 //
 //   C[0..14]   the 15 stencil coefficients of the MASKED system
 //              (identity rows on Dirichlet and dead DOFs, zero outside each
@@ -77,25 +78,46 @@ inline cudaError_t ensure_smem(K kernel, size_t smem, size_t* smem_set) {
   return err;
 }
 
-// The window of one output tile: a (tile + 2 halo)^2 square of canvas
-// cells whose top-left cell is (r0, c0).
+// The window of one output tile: a (tile + 2 halo)^2 square of cells whose
+// top-left cell is (r0, c0) of the arrays and global canvas row g0. In
+// block mode (kBlock, tile_step.cuh) the arrays are an extended block of
+// `rows` rows starting at global row g.row0 and the tiles cover its
+// interior rows [g.int_lo, int_hi); otherwise array and canvas rows
+// coincide.
+template <bool kBlock = false>
 struct Window {
-  int n, c, h, W, PS, r0, c0;
+  int n, c, h, W, PS, rows, int_hi, r0, g0, c0;
   size_t nn;
 
   __device__ Window(const Geometry& g, int tile_id)
       : n(g.n), c(g.n - 1), h(g.halo), W(g.tile + 2 * g.halo),
         PS((g.tile + 2 * g.halo) * (g.tile + 2 * g.halo)),
-        r0((tile_id / g.tiles_per_row) * g.tile - g.halo),
+        rows(kBlock ? g.rows : g.n), int_hi(kBlock ? g.int_hi : g.n),
+        r0((kBlock ? g.int_lo : 0) + (tile_id / g.tiles_per_row) * g.tile -
+           g.halo),
+        g0((kBlock ? g.row0 : 0) + r0),
         c0((tile_id % g.tiles_per_row) * g.tile - g.halo),
-        nn(static_cast<size_t>(g.n) * g.n) {}
+        nn(static_cast<size_t>(rows) * g.n) {}
 
-  // Whether window cell (wr, wc) lies on the canvas, and its offset there.
+  // Whether window cell (wr, wc) holds a canvas cell of the arrays, and its
+  // offset there.
   __device__ __forceinline__ bool cell(int wr, int wc, size_t& off) const {
-    const int gr = r0 + wr, gc = c0 + wc;
-    const bool inside = gr >= 0 && gr < n && gc >= 0 && gc < n;
-    off = inside ? static_cast<size_t>(gr) * n + gc : 0;
+    const int br = r0 + wr, gr = g0 + wr, gc = c0 + wc;
+    const bool inside = (!kBlock || (br >= 0 && br < rows)) && gr >= 0 &&
+                        gr < n && gc >= 0 && gc < n;
+    off = inside ? static_cast<size_t>(br) * n + gc : 0;
     return inside;
+  }
+
+  // Whether window cell (wr, wc) is written back: an interior cell of the
+  // arrays; `off` its offset, `live` false on rows past the canvas (block
+  // mode), which are written as 0.
+  __device__ __forceinline__ bool store(int wr, int wc, size_t& off,
+                                        bool& live) const {
+    const int br = r0 + wr, gc = c0 + wc;
+    off = static_cast<size_t>(br) * n + gc;
+    live = !kBlock || g0 + wr < n;
+    return br < int_hi && gc < n;
   }
 };
 
@@ -107,8 +129,8 @@ struct Window {
 // cell smaller than the last. R, Da and Db are 3-plane scratch. Returns
 // the plane holding the last d, valid on the tile; X is valid there too.
 // `s` is the Chebyshev scalar block (kChebScal).
-template <int NT, bool kLoad, typename T>
-__device__ T* canvas_solve(const Geometry& g, const Window& w, const Rect& rc,
+template <int NT, bool kLoad, typename T, typename Win>
+__device__ T* canvas_solve(const Geometry& g, const Win& w, const Rect& rc,
                            const T* __restrict__ C, const T* s, T* X, T* R,
                            T* Da, T* Db, const T* load) {
   const int W = w.W, PS = w.PS;
@@ -125,7 +147,7 @@ __device__ T* canvas_solve(const Geometry& g, const Window& w, const Rect& rc,
     const bool inside = w.cell(wr, wc, off);
     const int q = wr * W + wc;
     T m[3], y[3] = {T(0), T(0), T(0)};
-    rect_masks(w.r0 + wr, w.c0 + wc, w.c, rc, m);
+    rect_masks(w.g0 + wr, w.c0 + wc, w.c, rc, m);
     if (g.use_ka) apply_canvas(C, nn, off, inside, X, q, W, PS, y);
 #pragma unroll
     for (int f = 0; f < 3; ++f) {

@@ -38,6 +38,16 @@
 // loads as a stack of (3, n, n) planes; species k reads plane
 // load_index[k] (-1: no source) once per cell, added to its RHS.
 //
+// Kernel B10 (entry points crbe_multispecies_block_step_*): the same step
+// on one row block of the canvas, the counterpart of the TPU kernel's
+// sharded-block mode that airpollution_tpu/parallel/hbm_shard.py launches
+// per device (build_multispecies_hbm_halo_solver). It is the kBlock
+// instantiation (tile_step.cuh's block mode): the coefficient stack, the
+// K species' states and the loads are extended blocks of rows = local +
+// 2 halo rows; the mixes are pointwise, so mixing the halo rows the caller
+// refreshed gives exactly what the neighbouring block computes there, and
+// K species share one exchange of their halo rows.
+//
 // What bounds it on an H100: device memory must see the coefficient stack
 // once and the K species states once each way per step, plus each load:
 // (21 + 6K) x n^2 x sizeof(T) + 3 n^2 sizeof(T) per sourced species,
@@ -78,7 +88,7 @@ __device__ __forceinline__ void mix(const T* E, int K,
   }
 }
 
-template <int NT, typename T, bool kLoad>
+template <int NT, typename T, bool kLoad, bool kBlock>
 __global__ void __launch_bounds__(NT)
     multispecies_step_kernel(Geometry g, Rect rc, Species sp,
                              const T* __restrict__ C, const T* scal,
@@ -94,7 +104,7 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
   const T* E = s + 1 + 2 * g.n_iters;
 
-  const Window w(g, blockIdx.x);
+  const Window<kBlock> w(g, blockIdx.x);
   const int PS = w.PS;
   T* U = reinterpret_cast<T*>(smem_raw);  // K x 3 species planes
   T* R = U + 3 * K * PS;
@@ -138,12 +148,13 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // the next species reuses R, d and d_next
   }
 
-  // 3. Second half-mix on the tile, written back.
+  // 3. Second half-mix on the tile, written back (its interior rows in
+  //    block mode, 0 past the canvas).
   for_square<NT>(w.W, w.h, [&](int wr, int wc) {
-    const int gr = w.r0 + wr, gc = w.c0 + wc;
-    if (gr >= w.n || gc >= w.n) return;
+    size_t off;
+    bool live;
+    if (!w.store(wr, wc, off, live)) return;
     const int q = wr * w.W + wc;
-    const size_t off = static_cast<size_t>(gr) * w.n + gc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       T v[kMaxSpecies], m[kMaxSpecies];
@@ -154,13 +165,13 @@ __global__ void __launch_bounds__(NT)
       mix(E, K, v, m);
 #pragma unroll
       for (int k = 0; k < kMaxSpecies; ++k) {
-        if (k < K) u_out[(3 * k + f) * w.nn + off] = m[k];
+        if (k < K) u_out[(3 * k + f) * w.nn + off] = live ? m[k] : T(0);
       }
     }
   });
 }
 
-template <int NT, typename T, bool kLoad>
+template <int NT, typename T, bool kLoad, bool kBlock>
 int launch_multispecies_as(const T* C, const T* scal, const T* u_in,
                            const T* loads, T* u_out, const int* halt,
                            Geometry g, Rect rc, const Species& sp,
@@ -169,38 +180,39 @@ int launch_multispecies_as(const T* C, const T* scal, const T* u_in,
   const size_t smem = (3 * sp.K + 9) * w * w * sizeof(T);
   static size_t smem_set = 0;
   cudaError_t err =
-      ensure_smem(multispecies_step_kernel<NT, T, kLoad>, smem, &smem_set);
+      ensure_smem(multispecies_step_kernel<NT, T, kLoad, kBlock>, smem,
+                  &smem_set);
   if (err != cudaSuccess) return err;
-  multispecies_step_kernel<NT, T, kLoad>
-      <<<g.tiles_per_row * g.tiles_per_row, NT, smem,
+  multispecies_step_kernel<NT, T, kLoad, kBlock>
+      <<<g.tile_rows * g.tiles_per_row, NT, smem,
          static_cast<cudaStream_t>(stream)>>>(g, rc, sp, C, scal, u_in,
                                               loads, u_out, halt);
   return cudaGetLastError();
 }
 
 // Source-free launches take the instantiation without the load test.
-template <int NT, typename T>
+template <int NT, typename T, bool kBlock>
 int launch_multispecies_nt(const T* C, const T* scal, const T* u_in,
                            const T* loads, T* u_out, const int* halt,
                            Geometry g, Rect rc, const Species& sp,
                            void* stream) {
   if (loads != nullptr) {
-    return launch_multispecies_as<NT, T, true>(C, scal, u_in, loads, u_out,
-                                               halt, g, rc, sp, stream);
+    return launch_multispecies_as<NT, T, true, kBlock>(
+        C, scal, u_in, loads, u_out, halt, g, rc, sp, stream);
   }
-  return launch_multispecies_as<NT, T, false>(C, scal, u_in, loads, u_out,
-                                              halt, g, rc, sp, stream);
+  return launch_multispecies_as<NT, T, false, kBlock>(
+      C, scal, u_in, loads, u_out, halt, g, rc, sp, stream);
 }
 
-template <typename T>
+template <typename T, bool kBlock>
 int launch_multispecies(const T* C, const T* scal, const T* u_in,
                         const T* loads, T* u_out, const int* halt,
-                        const int* load_index, int n_species, int n,
-                        int tile, int halo, int n_iters, int use_ka,
+                        const int* load_index, int n_species, Geometry g,
                         int h_lo, int h_hi, int v_lo, int v_hi, int threads,
                         void* stream) {
-  if (n_iters < 1 || n_iters > kMaxIters) return cudaErrorInvalidValue;
-  if (halo < n_iters + (use_ka ? 1 : 0)) return cudaErrorInvalidValue;
+  if (g.n_iters < 1 || g.n_iters > kMaxIters) return cudaErrorInvalidValue;
+  if (g.halo < g.n_iters + (g.use_ka ? 1 : 0)) return cudaErrorInvalidValue;
+  if (kBlock && !block_fits(g)) return cudaErrorInvalidValue;
   if (n_species < 1 || n_species > kMaxSpecies) return cudaErrorInvalidValue;
   Species sp;
   sp.K = n_species;
@@ -210,21 +222,17 @@ int launch_multispecies(const T* C, const T* scal, const T* u_in,
       return cudaErrorInvalidValue;
     }
   }
-  Geometry g;
-  g.n = n;
-  g.tile = tile;
-  g.halo = halo;
-  g.tiles_per_row = (n + tile - 1) / tile;
-  g.n_iters = n_iters;
-  g.use_ka = use_ka;
   Rect rc{h_lo, h_hi, v_lo, v_hi};
-  if (threads == 256) {
-    return launch_multispecies_nt<256>(C, scal, u_in, loads, u_out, halt, g,
-                                       rc, sp, stream);
-  }
   if (threads == 512) {
-    return launch_multispecies_nt<512>(C, scal, u_in, loads, u_out, halt, g,
-                                       rc, sp, stream);
+    return launch_multispecies_nt<512, T, kBlock>(C, scal, u_in, loads, u_out,
+                                                  halt, g, rc, sp, stream);
+  }
+  if constexpr (!kBlock) {
+    if (threads == 256) {
+      return launch_multispecies_nt<256, T, false>(C, scal, u_in, loads,
+                                                   u_out, halt, g, rc, sp,
+                                                   stream);
+    }
   }
   return cudaErrorInvalidValue;
 }
@@ -241,9 +249,10 @@ int crbe_multispecies_step_f32(const float* C, const float* scal,
                                int tile, int halo, int n_iters, int use_ka,
                                int h_lo, int h_hi, int v_lo, int v_hi,
                                int threads, void* stream) {
-  return crbe::launch_multispecies<float>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species, n, tile, halo,
-      n_iters, use_ka, h_lo, h_hi, v_lo, v_hi, threads, stream);
+  return crbe::launch_multispecies<float, false>(
+      C, scal, u_in, loads, u_out, halt, load_index, n_species,
+      crbe::step_geometry(n, tile, halo, n_iters, use_ka), h_lo, h_hi, v_lo,
+      v_hi, threads, stream);
 }
 
 int crbe_multispecies_step_f64(const double* C, const double* scal,
@@ -253,9 +262,39 @@ int crbe_multispecies_step_f64(const double* C, const double* scal,
                                int tile, int halo, int n_iters, int use_ka,
                                int h_lo, int h_hi, int v_lo, int v_hi,
                                int threads, void* stream) {
-  return crbe::launch_multispecies<double>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species, n, tile, halo,
-      n_iters, use_ka, h_lo, h_hi, v_lo, v_hi, threads, stream);
+  return crbe::launch_multispecies<double, false>(
+      C, scal, u_in, loads, u_out, halt, load_index, n_species,
+      crbe::step_geometry(n, tile, halo, n_iters, use_ka), h_lo, h_hi, v_lo,
+      v_hi, threads, stream);
+}
+
+// Kernel B10: C is the block's (21, rows, n) stack, u_in and u_out
+// (3 K, rows, n) blocks, loads (n_src, 3, rows, n); the rectangle bounds
+// are global.
+int crbe_multispecies_block_step_f32(
+    const float* C, const float* scal, const float* u_in, const float* loads,
+    float* u_out, const int* halt, const int* load_index, int n_species,
+    int n, int rows, int row0, int int_lo, int int_hi, int tile, int halo,
+    int n_iters, int use_ka, int h_lo, int h_hi, int v_lo, int v_hi,
+    void* stream) {
+  return crbe::launch_multispecies<float, true>(
+      C, scal, u_in, loads, u_out, halt, load_index, n_species,
+      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile, halo,
+                           n_iters, use_ka),
+      h_lo, h_hi, v_lo, v_hi, crbe::kBlockThreads, stream);
+}
+
+int crbe_multispecies_block_step_f64(
+    const double* C, const double* scal, const double* u_in,
+    const double* loads, double* u_out, const int* halt,
+    const int* load_index, int n_species, int n, int rows, int row0,
+    int int_lo, int int_hi, int tile, int halo, int n_iters, int use_ka,
+    int h_lo, int h_hi, int v_lo, int v_hi, void* stream) {
+  return crbe::launch_multispecies<double, true>(
+      C, scal, u_in, loads, u_out, halt, load_index, n_species,
+      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile, halo,
+                           n_iters, use_ka),
+      h_lo, h_hi, v_lo, v_hi, crbe::kBlockThreads, stream);
 }
 
 const char* crbe_error_string(int err) {

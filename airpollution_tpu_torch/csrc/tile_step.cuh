@@ -4,7 +4,8 @@
 // Shared by the whole-loop kernel (uniform_solver.cu, the counterpart of
 // airpollution_tpu/ops/pallas_solver.py::_uniform_solver_kernel) and the
 // one-step kernel (uniform_step.cu, the counterpart of
-// airpollution_tpu/ops/pallas_hbm.py::_step_kernel).
+// airpollution_tpu/ops/pallas_hbm.py::_step_kernel), whole canvas or one
+// row block of it (kBlock, below).
 //
 // The operator is the translation-invariant CR stencil in family layout:
 // three canvases H, V, D of shape (n, n) (H holds an (n, c) grid, V (c, n),
@@ -40,6 +41,21 @@
 // neighbour loads plus the pointwise x, r and d updates), times the halo's
 // redundancy; device memory sees one read and one write of the state per
 // step.
+//
+// Block mode (kBlock, the sharded-block kernels B8-B10 of
+// parallel/hbm_shard.py): the arrays hold an extended block of `rows`
+// canvas rows by n columns whose row 0 is the global canvas row `row0`
+// (negative for the first block), and the grid covers the tiles of the
+// interior rows [int_lo, int_hi) only. Every window then lies inside the
+// block when the block's halo int_lo (and rows - int_hi) is at least h;
+// cells past the block's rows load as zero and cannot reach a written row.
+// The rectangle masks are evaluated at the global row row0 + r, a cell
+// whose global row lies outside [0, n) (a chain-end halo row, or padding
+// when the blocks overrun the canvas) acts as zero, and only the interior
+// rows are written: 0 where the global row is past the canvas. The halo
+// rows of the output stay as they were, to be refreshed by the caller's
+// exchange before they are read. With kBlock false the geometry is the
+// whole canvas (rows = n, row0 = 0, interior [0, n)) and folds away.
 
 #pragma once
 
@@ -60,11 +76,59 @@ struct Geometry {
   int tiles_per_row;  // ceil(n / tile)
   int n_iters;        // k
   int use_ka;         // Crank-Nicolson RHS
+  int tile_rows = 0;  // tiles along the rows of the grid
+  // Block mode only: the block's rows, the global row of its row 0, and
+  // its interior rows [int_lo, int_hi).
+  int rows = 0;
+  int row0 = 0;
+  int int_lo = 0;
+  int int_hi = 0;
 };
+
+// The whole canvas.
+inline Geometry step_geometry(int n, int tile, int halo, int n_iters,
+                              int use_ka) {
+  Geometry g;
+  g.n = n;
+  g.tile = tile;
+  g.halo = halo;
+  g.tiles_per_row = (n + tile - 1) / tile;
+  g.tile_rows = g.tiles_per_row;
+  g.n_iters = n_iters;
+  g.use_ka = use_ka;
+  return g;
+}
+
+// The block of `rows` rows whose row 0 is global row row0, interior rows
+// [int_lo, int_hi).
+inline Geometry block_geometry(int n, int rows, int row0, int int_lo,
+                               int int_hi, int tile, int halo, int n_iters,
+                               int use_ka) {
+  Geometry g = step_geometry(n, tile, halo, n_iters, use_ka);
+  g.rows = rows;
+  g.row0 = row0;
+  g.int_lo = int_lo;
+  g.int_hi = int_hi;
+  g.tile_rows = (int_hi - int_lo + tile - 1) / tile;
+  return g;
+}
+
+// A block-mode geometry is valid when the interior is inside the block and
+// every window of an interior tile stays inside it: h <= int_lo and
+// int_hi + h <= rows. (Rows the last tile reaches past int_hi + h are
+// bounds-checked, and too far to reach a written row.)
+inline bool block_fits(const Geometry& g) {
+  return g.rows > 0 && g.int_lo >= g.halo && g.int_hi > g.int_lo &&
+         g.int_hi + g.halo <= g.rows && g.row0 + g.int_lo >= 0;
+}
+
+// The block mode is built for 512-thread blocks only (build time): its
+// entry points take no block size and launch with this one.
+constexpr int kBlockThreads = 512;
 
 template <typename T>
 struct StepIO {
-  const T* u_in;   // (3, n, n)
+  const T* u_in;   // (3, n, n); block mode (3, rows, n), as the others
   const T* up_in;  // nullptr without the extrapolated warm start
   T* u_out;
   T* up_out;
@@ -161,8 +225,9 @@ __device__ __forceinline__ void rect_masks(int gr, int gc, int c, T m[3]) {
 // the whole-loop kernel rewrites the state between grid barriers, and L1 is
 // not coherent across SMs. The load (a source load built by the caller,
 // ops/loads.EmissionLoads) is a template parameter, so that the load-free
-// step compiles exactly as it did before loads existed.
-template <int NT, typename T, bool kLoad = false>
+// step compiles exactly as it did before loads existed; so is the block
+// mode (see the top of this file).
+template <int NT, typename T, bool kLoad = false, bool kBlock = false>
 __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
                           int tile_id, T* smem) {
   const int n = g.n;
@@ -170,20 +235,32 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
   const int h = g.halo;
   const int W = g.tile + 2 * h;
   const int PS = W * W;
-  const int r0 = (tile_id / g.tiles_per_row) * g.tile - h;
+  const int rows = kBlock ? g.rows : n;
+  const int int_hi = kBlock ? g.int_hi : n;
+  // Array row and global row of window row 0.
+  const int r0 =
+      (kBlock ? g.int_lo : 0) + (tile_id / g.tiles_per_row) * g.tile - h;
+  const int g0 = (kBlock ? g.row0 : 0) + r0;
   const int c0 = (tile_id % g.tiles_per_row) * g.tile - h;
-  const size_t nn = static_cast<size_t>(n) * n;
+  const size_t nn = static_cast<size_t>(rows) * n;
   T* X = smem;
   T* R = X + 3 * PS;
   T* Dc = R + 3 * PS;
   T* Dn = Dc + 3 * PS;
   const Coefs<T> k = load_coefs(s);
 
+  // Whether window cell (wr, wc) holds a canvas cell of the arrays.
+  auto on_canvas = [&](int wr, int wc) {
+    const int br = r0 + wr, gr = g0 + wr, gc = c0 + wc;
+    return (!kBlock || (br >= 0 && br < rows)) && gr >= 0 && gr < n &&
+           gc >= 0 && gc < n;
+  };
+
   // 1. Load the state window; cells outside the canvas are zero.
   for_square<NT>(W, 0, [&](int wr, int wc) {
-    const int gr = r0 + wr, gc = c0 + wc;
-    const bool inside = gr >= 0 && gr < n && gc >= 0 && gc < n;
-    const size_t off = inside ? static_cast<size_t>(gr) * n + gc : 0;
+    const bool inside = on_canvas(wr, wc);
+    const size_t off =
+        inside ? static_cast<size_t>(r0 + wr) * n + (c0 + wc) : 0;
     const int q = wr * W + wc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
@@ -196,14 +273,17 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
   //    reads A u, so its square shrinks by one.
   int lo = g.use_ka ? 1 : 0;
   for_square<NT>(W, lo, [&](int wr, int wc) {
-    const int gr = r0 + wr, gc = c0 + wc;
+    const int br = r0 + wr, gc = c0 + wc;
     const int q = wr * W + wc;
     T m[3], y[3] = {T(0), T(0), T(0)};
-    rect_masks(gr, gc, c, m);
+    rect_masks(g0 + wr, gc, c, m);
     if (g.use_ka) apply3(k, X, q, W, PS, y);
-    const bool inside = gr >= 0 && gr < n && gc >= 0 && gc < n;
+    const bool inside = on_canvas(wr, wc);
     const bool own = wr >= h && wr < h + g.tile && wc >= h && wc < h + g.tile;
-    const size_t off = inside ? static_cast<size_t>(gr) * n + gc : 0;
+    // u_prev is written on the tile's own interior cells (block mode: 0
+    // on the rows past the canvas, where u loaded as 0).
+    const bool store = kBlock ? (own && br < int_hi && gc < n) : (own && inside);
+    const size_t off = static_cast<size_t>(br) * n + gc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
       const T u = X[f * PS + q];
@@ -217,7 +297,7 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
       if (io.up_in != nullptr) {
         const T up = inside ? __ldcg(io.up_in + f * nn + off) : T(0);
         guess = T(2) * u - up;
-        if (own && inside) io.up_out[f * nn + off] = u;
+        if (store) io.up_out[f * nn + off] = u;
       }
       Dn[f * PS + q] = m[f] * guess;
     }
@@ -229,7 +309,7 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
   for_square<NT>(W, lo, [&](int wr, int wc) {
     const int q = wr * W + wc;
     T m[3], y[3];
-    rect_masks(r0 + wr, c0 + wc, c, m);
+    rect_masks(g0 + wr, c0 + wc, c, m);
     apply3(k, Dn, q, W, PS, y);
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
@@ -251,7 +331,7 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
     for_square<NT>(W, lo, [&](int wr, int wc) {
       const int q = wr * W + wc;
       T m[3], y[3];
-      rect_masks(r0 + wr, c0 + wc, c, m);
+      rect_masks(g0 + wr, c0 + wc, c, m);
       apply3(k, Dc, q, W, PS, y);
 #pragma unroll
       for (int f = 0; f < 3; ++f) {
@@ -269,15 +349,17 @@ __device__ void tile_step(const Geometry& g, const T* s, const StepIO<T>& io,
     Dn = t;
   }
 
-  // 5. The last iteration's x += d on the tile itself, written back.
+  // 5. The last iteration's x += d on the tile itself, written back (its
+  //    interior rows in block mode).
   for_square<NT>(W, h, [&](int wr, int wc) {
-    const int gr = r0 + wr, gc = c0 + wc;
-    if (gr >= n || gc >= n) return;
+    const int br = r0 + wr, gc = c0 + wc;
+    if (br >= int_hi || gc >= n) return;
+    const bool live = !kBlock || g0 + wr < n;
     const int q = wr * W + wc;
-    const size_t off = static_cast<size_t>(gr) * n + gc;
+    const size_t off = static_cast<size_t>(br) * n + gc;
 #pragma unroll
     for (int f = 0; f < 3; ++f) {
-      io.u_out[f * nn + off] = X[f * PS + q] + Dc[f * PS + q];
+      io.u_out[f * nn + off] = live ? X[f * PS + q] + Dc[f * PS + q] : T(0);
     }
   });
   __syncthreads();

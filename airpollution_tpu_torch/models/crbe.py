@@ -25,7 +25,9 @@ Solve paths (``matvec_impl``):
   BiCGStab the whole loop in kernel B5 (ops/fused_solver.py). Sources and
   inhomogeneous Robin flux data reach B1, B2 and B4 as load planes
   (ops/loads.py); B5 is zero-source. ``snapshot_every`` runs one kernel
-  sweep per snapshot chunk.
+  sweep per snapshot chunk. ``assembly="patch"`` (and ``"auto"`` past 6M
+  DOFs) takes the uniform routes' 21 scalars from a congruent patch mesh
+  (ops/uniform.patch_constants) and assembles no global operator.
 
 Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
 solver that this package does not have yet raise ``NotImplementedError``
@@ -641,8 +643,6 @@ class CRBESolver:
             raise NotImplementedError(
                 "preconditioner='spectral' is not ported yet"
             )
-        if assembly == "patch":
-            raise NotImplementedError("assembly='patch' is not ported yet")
         self.domain = domain
         self.problem = problem
         self.mesh_data = mesh_data
@@ -670,7 +670,9 @@ class CRBESolver:
         self.solver_iterations = None
         self._ops = None
         self._pattern = None
+        self._patch_cache = None
         self._reset_operator_state()
+        self._use_patch()  # refuse an invalid assembly now
         if fused:
             self._fused_plan()  # refuse an invalid or unported route now
 
@@ -735,12 +737,59 @@ class CRBESolver:
             self._pattern = stencil_mod.get_pattern(self.mesh_data)
         return self._pattern
 
-    def _perm_tensors(self, pattern):
+    def _use_patch(self) -> bool:
+        """Patch assembly: the uniform operator's scalars from a congruent
+        patch mesh (ops/uniform.patch_constants) instead of the assembled
+        global operator. Needs the fused uniform routes (B1, B2); chosen by
+        ``assembly="auto"`` past 6M DOFs, where global assembly would not
+        fit the card. Raises ValueError for ``assembly="patch"`` on any
+        other route."""
+        if self.assembly == "full":
+            return False
+        md = self.mesh_data
+        eligible = (self.matvec_impl in ("fused", "fused_hbm")
+                    and md.structured_n is not None and md.structured_n >= 3
+                    and self.fused_operator != "canvas"
+                    and self.preconditioner != "spectral"
+                    and not self._variable_coefficients
+                    and not self._robin and not self._obstacles)
+        if self.assembly == "patch":
+            if not eligible:
+                raise ValueError(
+                    "assembly='patch' requires a structured mesh and the "
+                    "fused uniform operator (matvec_impl='fused' or "
+                    "'fused_hbm', fused_operator != 'canvas', constant "
+                    "coefficients, no Robin walls or obstacles)")
+            return True
+        return eligible and md.number_of_segments > 6_000_000
+
+    def _patch_pieces(self):
+        """``(spec_lite, sys_consts, ka_consts, mass_c, sys_diag_c)`` of the
+        patch route, on the solver's device, built once."""
+        if self._patch_cache is None:
+            md = self.mesh_data
+            # The cell size from the mesh's own coordinates: the Domain is
+            # a second, unchecked source of the same fact.
+            xs = md.points[:, 0]
+            half_width = float(xs.max() - xs.min()) / 2.0
+            consts = uniform_mod.patch_constants(
+                md.structured_n, half_width, self.problem, self.dt,
+                self.time_scheme_order, self.stiffness_convention,
+                dtype=md.midpoints.dtype, device=self.device)
+            self._patch_cache = (
+                uniform_mod.make_spec_lite(md.structured_n),) + consts
+        return self._patch_cache
+
+    def _family_perm_tensors(self):
+        """(perm, inv) of the family layout, the stencil pattern's when it
+        is built (the patch route never builds it)."""
+        perm, inv = stencil_mod.get_family_perm(self.mesh_data)
+
         def t(a):
             return torch.as_tensor(np.asarray(a, dtype=np.int64),
                                    device=self.device)
 
-        return t(pattern.perm), t(pattern.inv_perm)
+        return t(perm), t(inv)
 
     def _build_solve_fn(self, store_solutions: bool, collect_iters: bool):
         """A function ``(ops, u0) -> (solutions, bad)``; ``bad`` is the fused
@@ -778,7 +827,7 @@ class CRBESolver:
 
         # Stencil path: the whole loop in family layout, permuted back.
         pattern = self._stencil_pattern()
-        perm, inv = self._perm_tensors(pattern)
+        perm, inv = self._family_perm_tensors()
         _, dead = obstacle_masks(self.mesh_data, self.problem)
         fam_view = stencil_mod.family_view(self.mesh_data, pattern.perm,
                                            dead)
@@ -887,8 +936,9 @@ class CRBESolver:
                 "snapshot_every must divide nt-1 for the fused paths")
         uniform, kernel = self._fused_plan()
         self.fused_kernel = kernel
-        pattern = self._stencil_pattern()
-        perm, inv = self._perm_tensors(pattern)
+        patch = self._use_patch()
+        pattern = None if patch else self._stencil_pattern()
+        perm, inv = self._family_perm_tensors()
         use_ka = self.time_scheme_order == 2
         ext = self.extrapolate_warm_start
         dt = self.dt
@@ -902,7 +952,11 @@ class CRBESolver:
             dmask = dmask | dead
         lift_at = lifting.make_lift(problem, md.midpoints, dmask,
                                     zero_mask=dead)
-        spec = uniform_mod.build_uniform_spec(pattern) if uniform else None
+        spec = None
+        if patch:
+            spec = self._patch_pieces()[0]
+        elif uniform:
+            spec = uniform_mod.build_uniform_spec(pattern)
         rect = (fused_hbm.robin_rect_bounds(pattern.c, self._robin)
                 if self._robin else None)
         # Loads: the problem's hooks, evaluated in torch on the structured
@@ -927,10 +981,15 @@ class CRBESolver:
             this operator."""
             kw = dict(n_iters=n_iters, use_ka=use_ka, extrapolate=ext, **cheb)
             if uniform:
-                consts = uniform_mod.extract_constants(spec, ops.system.vals)
-                mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
-                inv_diag_c = 1.0 / uniform_mod.family_constants(
-                    spec, ops.system_diag)
+                if patch:  # no assembled operator: ops is None
+                    _, consts, _, mass_c, diag_c = self._patch_pieces()
+                    inv_diag_c = 1.0 / diag_c
+                else:
+                    consts = uniform_mod.extract_constants(spec,
+                                                           ops.system.vals)
+                    mass_c = uniform_mod.family_constants(spec, ops.mass_diag)
+                    inv_diag_c = 1.0 / uniform_mod.family_constants(
+                        spec, ops.system_diag)
                 args = (spec, consts, mass_c, inv_diag_c)
                 if kernel == "B2":
                     def run(u, steps, t0, guard):
@@ -1014,7 +1073,17 @@ class CRBESolver:
                 self._warn_cheb_factor()
             return
         md = self.mesh_data
-        if (self.matvec_impl in ("fused", "fused_hbm")
+        if ops is None:
+            # Patch route: the uniform matvec on the patch scalars, the
+            # diagonal built from its 3 family constants.
+            spec, consts, _, _, diag_c = self._patch_pieces()
+            perm, _ = self._family_perm_tensors()
+            diag = uniform_mod.family_diag_vector(spec, diag_c,
+                                                  md.boundary_mask[perm])
+            matvec = partial(uniform_mod.uniform_matvec, spec, consts)
+            scale = 1.0 / torch.sqrt(diag)
+            example = torch.zeros_like(diag)
+        elif (self.matvec_impl in ("fused", "fused_hbm")
                 and not self._variable_coefficients
                 and not self._robin and not self._obstacles
                 and md.structured_n >= 3):
@@ -1024,12 +1093,13 @@ class CRBESolver:
             spec = uniform_mod.build_uniform_spec(pattern)
             consts = uniform_mod.extract_constants(spec, ops.system.vals)
             matvec = partial(uniform_mod.uniform_matvec, spec, consts)
-            perm, _ = self._perm_tensors(pattern)
+            perm, _ = self._family_perm_tensors()
             scale = 1.0 / torch.sqrt(ops.system_diag[perm])
+            example = torch.zeros_like(ops.system_diag)
         else:
             matvec = partial(sparse.ell_matvec, ops.system)
             scale = 1.0 / torch.sqrt(ops.system_diag)
-        example = torch.zeros_like(ops.system_diag)
+            example = torch.zeros_like(ops.system_diag)
         if self._fixed_bounds is None:
             lo, hi = linalg.power_bounds(matvec, example, scale=scale)
             self._cheb_bounds = (float(lo), float(hi))
@@ -1123,7 +1193,7 @@ class CRBESolver:
     def solve(self, store_solutions: bool = True, collect_iters: bool = False):
         """Run the full time horizon; returns (nt, n_seg) solutions (or the
         (1, n_seg) final state when ``store_solutions=False``)."""
-        ops = self._require_ops()
+        ops = None if self._use_patch() else self._require_ops()
         if self.solver_method == "chebyshev":
             reroute = self.chebyshev_policy == "reroute"
             self._check_chebyshev_applicable(ops, warn=not reroute)

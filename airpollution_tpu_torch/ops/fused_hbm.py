@@ -22,6 +22,14 @@ and ``_guarded_scan``.
   start, one launch; over the transposed coefficients it is ``p(A^T)``.
   The primal and adjoint solve of the differentiable fused engine
   (diagnostics/inverse.py). ``csrc/canvas_step.cu`` (``kRaw``).
+- Kernels B8, B9, B10: the block modes of B2, B4 and B6, one step on one
+  row block of the canvas (:class:`BlockRows`: ``local`` interior rows and
+  ``halo`` rows of each neighbour's) with global-row masks, writing the
+  interior only; the steps of parallel/hbm_shard.py's block-sharded
+  solvers (:func:`block_kernel_step`, :func:`canvas_block_kernel_step`,
+  :func:`multispecies_block_kernel_step`; plain versions
+  :func:`plain_block_step`, :func:`plain_canvas_block_step`,
+  :func:`plain_multispecies_block_step`).
 
 Loads (ops/loads.py). The TPU kernels evaluate a problem's Python hooks
 inside the kernel, on coordinates rebuilt from iotas. A Python hook cannot
@@ -47,6 +55,7 @@ On a CPU tensor each step is the kernel's plain version
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -86,6 +95,34 @@ MULTISPECIES_KERNEL = _build.Kernel(
      torch.float64: "crbe_multispecies_step_f64"},
     [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
     + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+)
+# The block modes (B8, B9, B10): one row block per launch, with the block's
+# rows, global row offset and interior as five more ints, and no block size
+# (built for 512 threads only).
+BLOCK_KERNEL = _build.Kernel(
+    "uniform_block_step", "uniform_step.cu",
+    {torch.float32: "crbe_uniform_block_step_f32",
+     torch.float64: "crbe_uniform_block_step_f64"},
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+BLOCK_LOAD_KERNEL = _build.Kernel(
+    "uniform_block_step_load", "uniform_step.cu",
+    {torch.float32: "crbe_uniform_block_step_load_f32",
+     torch.float64: "crbe_uniform_block_step_load_f64"},
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+)
+CANVAS_BLOCK_KERNEL = _build.Kernel(
+    "canvas_block_step", "canvas_step.cu",
+    {torch.float32: "crbe_canvas_block_step_f32",
+     torch.float64: "crbe_canvas_block_step_f64"},
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+)
+MULTISPECIES_BLOCK_KERNEL = _build.Kernel(
+    "multispecies_block_step", "multispecies_step.cu",
+    {torch.float32: "crbe_multispecies_block_step_f32",
+     torch.float64: "crbe_multispecies_block_step_f64"},
+    [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 )
 
 #: Output tile edge, measured on an H100 (scripts/torch_port_tile_sweep.py):
@@ -398,7 +435,7 @@ def canvas_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam, dtype):
     ])
 
 
-def _canvas_live(pattern, dead_fam, dtype):
+def canvas_live(pattern, dead_fam, dtype):
     """(3, n, n) canvases, 0 on dead DOFs and 1 elsewhere, or None."""
     if dead_fam is None:
         return None
@@ -450,8 +487,8 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
     cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, device)
     u = fused_solver.to_canvases(pattern, u0_fam)
     masks = fused_solver.rect_masks(n, dtype, device, rect)
-    live = _canvas_live(pattern, dead_fam, dtype)
-    load_of_step = _load_planes(
+    live = canvas_live(pattern, dead_fam, dtype)
+    load_of_step = load_planes(
         EmissionLoads(
             (source_fn,), (source_steady,), grid=grid, dt=dt, t0=t0,
             use_ka=use_ka, lumped=source_lumped, mass3=C[15:18],
@@ -485,7 +522,7 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
     return (out, bad) if guard_every is not None else out
 
 
-def _load_planes(sources, walls, t0, dt, u):
+def load_planes(sources, walls, t0, dt, u):
     """``load_of_step()``: B4's load plane for the next step, or None. A
     Robin flux load is written on the wall lines of the source plane when
     that is rebuilt every step, else of a plane of its own over the steady
@@ -674,7 +711,7 @@ def fused_multispecies_canvas_hbm(pattern, coeffs, mass_masked_fam,
     loads = EmissionLoads(
         source_fns, source_steady, grid=grid, dt=dt, t0=t0, use_ka=use_ka,
         lumped=source_lumped, mass3=C[15:18], masks=masks,
-        live=_canvas_live(pattern, dead_fam, dtype),
+        live=canvas_live(pattern, dead_fam, dtype),
     ) if needs_t else None
 
     def next_loads():
@@ -721,3 +758,160 @@ def fused_multispecies_canvas_hbm(pattern, coeffs, mass_masked_fam,
         keep=None if snaps is None else (lambda U: snaps.append(to_fam(U))))
     out = to_fam(U) if snaps is None else torch.stack(snaps)
     return (out, bad) if guard_every is not None else out
+
+
+# --- the block modes: kernels B8 (B2's), B9 (B4's) and B10 (B6's) ---------
+
+
+class BlockRows(NamedTuple):
+    """One row block of an n x n canvas, as the block kernels take it:
+    ``local + 2 halo`` array rows whose row 0 is the global canvas row
+    ``row0`` (negative for the first block), interior rows
+    ``[halo, halo + local)``; rows past the canvas are padding."""
+
+    n: int
+    row0: int
+    halo: int
+    local: int
+
+    @property
+    def rows(self) -> int:
+        return self.local + 2 * self.halo
+
+    def kernel_args(self):
+        """n, rows, row0, int_lo, int_hi: the kernels' geometry ints."""
+        return (self.n, self.rows, self.row0, self.halo,
+                self.halo + self.local)
+
+
+def block_masks(block: BlockRows, dtype, device, rect=None):
+    """``(masks, on_canvas)`` of a row block: the (3, rows, n) interior
+    rectangles at the block's global rows, and the (rows, 1) indicator of
+    its rows that lie on the canvas."""
+    g = torch.arange(block.row0, block.row0 + block.rows, device=device)
+    on = ((g >= 0) & (g < block.n)).to(dtype)[:, None]
+    return (fused_solver.rect_masks(block.n, dtype, device, rect,
+                                    row0=block.row0, rows=block.rows), on)
+
+
+def _on_canvas(on, *planes):
+    """Each plane (or None) with its rows past the canvas set to 0, as the
+    block kernels read them."""
+    return tuple(None if p is None else p * on for p in planes)
+
+
+def plain_block_step(scal, n_iters, u, up, use_ka, masks, on_canvas,
+                     load=None):
+    """B8's plain version: :func:`fused_solver.plain_step` on a (3, rows, n)
+    block with its :func:`block_masks`; the block's rows past the canvas
+    act as 0 and come out 0. Returns ``(u_new, up_new)`` on every row of
+    the block: the interior is the kernel's result, the halo rows are not
+    (the kernel leaves them as they were)."""
+    u, up, load = _on_canvas(on_canvas, u, up, load)
+    x, up_new = fused_solver.plain_step(scal, n_iters, u, up, use_ka, masks,
+                                        load)
+    return x * on_canvas, up_new
+
+
+def plain_canvas_block_step(C, cheb, n_iters, u, up, use_ka, masks,
+                            on_canvas, load=None):
+    """B9's plain version: :func:`plain_canvas_step` on a row block, ``C``
+    the block's (21, rows, n) stack; result as :func:`plain_block_step`."""
+    u, up, load = _on_canvas(on_canvas, u, up, load)
+    x, up_new = plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks,
+                                  load)
+    return x * on_canvas, up_new
+
+
+def plain_multispecies_block_step(C, cheb, E, n_iters, U, use_ka, masks,
+                                  on_canvas, loads=None, load_index=None):
+    """B10's plain version: :func:`plain_multispecies_step` on a row block
+    of the (K, 3, rows, n) species stack; result as
+    :func:`plain_block_step`."""
+    U, loads = _on_canvas(on_canvas, U, loads)
+    return plain_multispecies_step(C, cheb, E, n_iters, U, use_ka, masks,
+                                   loads, load_index) * on_canvas
+
+
+def _check_block(block: BlockRows, n_iters, use_ka, shape):
+    if shape[-2:] != (block.rows, block.n):
+        raise ValueError(f"the block arrays must have {block.rows} rows of "
+                         f"{block.n}, got {tuple(shape)}")
+    if block.halo < fused_solver.halo_of(n_iters, use_ka):
+        raise ValueError("the block's halo is shallower than the step's "
+                         "window halo")
+
+
+def block_kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt,
+                      tile, block: BlockRows, load=None):
+    """One launch of B8 on a row block: (u, up) -> the interior rows of
+    (u_out, up_out), (3, rows, n) blocks; CUDA tensors only. ``load``: an
+    optional (3, rows, n) load block (B8's load entry point, counted in
+    :data:`BLOCK_LOAD_KERNEL`)."""
+    if not (u.is_cuda and u_out.is_cuda and scal.is_cuda):
+        raise ValueError("block_kernel_step needs CUDA tensors")
+    _check_block(block, n_iters, use_ka, u.shape)
+    if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
+        raise ValueError("load must be a (3, rows, n) block of u's dtype")
+    P = _build.pointer
+    head = (P(scal), P(u), P(up), P(u_out), P(up_out), P(halt))
+    tail = (*block.kernel_args(), tile, fused_solver.halo_of(n_iters, use_ka),
+            n_iters, int(use_ka), _build.current_stream())
+    if load is None:
+        BLOCK_KERNEL.launch(u.dtype, *head, *tail)
+    else:
+        BLOCK_LOAD_KERNEL.launch(u.dtype, *head, P(load), *tail)
+
+
+def canvas_block_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka,
+                             rect, halt, tile, block: BlockRows, load=None):
+    """One launch of B9 on a row block: ``C`` the block's (21, rows, n)
+    stack, (u, up) -> the interior rows of (u_out, up_out); ``rect`` the
+    global rectangle bounds; CUDA tensors only."""
+    if not (u.is_cuda and u_out.is_cuda and C.is_cuda and cheb.is_cuda):
+        raise ValueError("canvas_block_kernel_step needs CUDA tensors")
+    _check_block(block, n_iters, use_ka, u.shape)
+    if C.shape != (21, block.rows, block.n) or C.dtype != u.dtype \
+            or cheb.dtype != u.dtype:
+        raise ValueError("C must be the block's (21, rows, n) stack, C and "
+                         "cheb of u's dtype")
+    if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
+        raise ValueError("load must be a (3, rows, n) block of u's dtype")
+    P = _build.pointer
+    CANVAS_BLOCK_KERNEL.launch(
+        u.dtype, P(C), P(cheb), P(u), P(up), P(u_out), P(up_out), P(halt),
+        P(load), *block.kernel_args(), tile,
+        fused_solver.halo_of(n_iters, use_ka), n_iters, int(use_ka), *rect,
+        _build.current_stream())
+
+
+def multispecies_block_kernel_step(C, scal, n_iters, U, U_out, use_ka, rect,
+                                   halt, tile, block: BlockRows, loads=None,
+                                   load_index=None):
+    """One launch of B10 on a row block: the (K, 3, rows, n) species block
+    U -> the interior rows of U_out; ``C`` the block's (21, rows, n) stack,
+    ``scal`` as :func:`multispecies_kernel_step`'s, ``loads``
+    (n_src, 3, rows, n); CUDA tensors only."""
+    K = U.shape[0]
+    if not (U.is_cuda and U_out.is_cuda and C.is_cuda and scal.is_cuda):
+        raise ValueError("multispecies_block_kernel_step needs CUDA tensors")
+    _check_block(block, n_iters, use_ka, U.shape)
+    if C.shape != (21, block.rows, block.n) or C.dtype != U.dtype \
+            or scal.dtype != U.dtype:
+        raise ValueError("C must be the block's (21, rows, n) stack, C and "
+                         "scal of U's dtype")
+    if scal.numel() != 1 + 2 * n_iters + K * K:
+        raise ValueError("scal must hold the Chebyshev scalars and E_half")
+    if not 1 <= K <= MAX_SPECIES:
+        raise ValueError(f"kernel B10 takes 1 to {MAX_SPECIES} species")
+    index = list(load_index) if load_index is not None else [-1] * K
+    if any(i >= 0 for i in index) and (
+            loads is None or loads.dtype != U.dtype
+            or loads.shape[1:] != U.shape[1:] or max(index) >= len(loads)):
+        raise ValueError("loads must be (n_src, 3, rows, n) of U's dtype")
+    P = _build.pointer
+    MULTISPECIES_BLOCK_KERNEL.launch(
+        U.dtype, P(C), P(scal), P(U), P(loads), P(U_out), P(halt),
+        (ctypes.c_int * K)(*index), K, *block.kernel_args(), tile,
+        fused_solver.halo_of(n_iters, use_ka), n_iters, int(use_ka), *rect,
+        _build.current_stream())

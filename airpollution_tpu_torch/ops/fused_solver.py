@@ -182,18 +182,23 @@ def choose_tile(halo: int, dtype, preferred: int, planes: int = 12) -> int:
     raise ValueError(f"halo {halo} too deep for the shared-memory budget")
 
 
-def rect_masks(n: int, dtype, device, rect=None):
+def rect_masks(n: int, dtype, device, rect=None, row0: int = 0,
+               rows: int | None = None):
     """(3, n, n) interior rectangles: H rows [h_lo, h_hi) x cols [0, c),
     V rows [0, c) x cols [v_lo, v_hi), D rows [0, c) x cols [0, c).
     ``rect = (h_lo, h_hi, v_lo, v_hi)`` defaults to the all-Dirichlet
-    ``(1, c, 1, c)``; Robin walls widen it (fused_hbm.robin_rect_bounds)."""
+    ``(1, c, 1, c)``; Robin walls widen it (fused_hbm.robin_rect_bounds).
+    ``rows``: the (3, rows, n) masks of a row block instead, whose row 0 is
+    the global canvas row ``row0`` (the bounds stay global)."""
     c = n - 1
     h_lo, h_hi, v_lo, v_hi = rect if rect is not None else (1, c, 1, c)
     i = torch.arange(n, device=device)
+    r = i if rows is None else torch.arange(row0, row0 + rows, device=device)
     lt = i < c
-    rows = torch.stack([(i >= h_lo) & (i < h_hi), lt, lt])[:, :, None]
+    r_in = (r >= 0) & (r < c)
+    rows_in = torch.stack([(r >= h_lo) & (r < h_hi), r_in, r_in])[:, :, None]
     cols = torch.stack([lt, (i >= v_lo) & (i < v_hi), lt])[:, None, :]
-    return (rows & cols).to(dtype)
+    return (rows_in & cols).to(dtype)
 
 
 def _shift(x, dr=0, dc=0):

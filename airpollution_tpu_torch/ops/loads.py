@@ -26,18 +26,25 @@ import torch
 FAMILY_OFFSETS = ((0.5, 0.0), (0.0, 0.5), (0.5, 0.5))
 
 
-def family_coordinates(n: int, grid, dtype, device):
+def family_coordinates(n: int, grid, dtype, device, row0: int = 0,
+                       rows: int | None = None):
     """(X, Y): the (3, n, n) canvases of each family's DOF coordinates,
     ``x = xmin + (col + ox) h`` and ``y = ymin + (row + oy) h`` with the
     offsets of :data:`FAMILY_OFFSETS`, the coordinates the TPU kernels
     rebuild from iotas; ``grid = (xmin, ymin, h)``
     (mesh.data.structured_grid). Cells outside a family's grid get
-    coordinates too; every load is masked to zero there."""
+    coordinates too; every load is masked to zero there. ``rows``: the
+    (3, rows, n) coordinates of a row block whose row 0 is the global row
+    ``row0`` (the counterpart of the TPU kernel's global iotas in its
+    sharded-block mode), equal to the whole canvas's on every global row."""
     xmin, ymin, h = (float(g) for g in grid)
     idx = torch.arange(n, dtype=dtype, device=device)
-    X = torch.stack([(xmin + (idx + ox) * h).expand(n, n)
+    r = idx if rows is None else torch.arange(row0, row0 + rows, dtype=dtype,
+                                              device=device)
+    shape = (r.shape[0], n)
+    X = torch.stack([(xmin + (idx + ox) * h).expand(shape)
                      for ox, _ in FAMILY_OFFSETS])
-    Y = torch.stack([(ymin + (idx + oy) * h)[:, None].expand(n, n)
+    Y = torch.stack([(ymin + (r + oy) * h)[:, None].expand(shape)
                      for _, oy in FAMILY_OFFSETS])
     return X, Y
 
@@ -57,16 +64,18 @@ class EmissionLoads:
     t - dt. A steady species' plane is built once (its trapezoid 0.5 (a +
     a) is a exactly); :meth:`advance` rebuilds the others for the next
     step, in place, before that step's launches. Step j (counted from 1)
-    ends at ``t0 + dt j``.
+    ends at ``t0 + dt j``. ``mass3``, ``masks`` and ``live`` may be the
+    (3, rows, n) rows of a row block whose row 0 is the global row
+    ``row0``: the planes are then that block's (family_coordinates).
     """
 
     def __init__(self, source_fns, steady, *, grid, dt, t0, use_ka,
-                 lumped, mass3, masks, live=None):
+                 lumped, mass3, masks, live=None, row0=0):
         self.index = []
         self._fns = []
-        n = masks.shape[-1]
-        self._X, self._Y = family_coordinates(n, grid, masks.dtype,
-                                              masks.device)
+        self._X, self._Y = family_coordinates(
+            masks.shape[-1], grid, masks.dtype, masks.device, row0=row0,
+            rows=masks.shape[-2])
         self._dt, self._t0, self._use_ka = float(dt), float(t0), use_ka
         self._lumped, self._mass3, self._masks = lumped, mass3, masks
         self._live = live
@@ -130,29 +139,36 @@ class RobinFluxLoads:
     obstacle dead DOFs, as the scan path masks its load). Backward Euler
     samples t; Crank-Nicolson always takes the trapezoid of t and t - dt
     (g may depend on t). Only the O(n) wall lines are built per step.
+    ``masks`` and ``live`` may be the (3, rows, n) rows of a row block
+    whose row 0 is the global row ``row0``: the walls are then the block's
+    part of them, at global coordinates.
     """
 
-    def __init__(self, g_fn, sides, *, grid, dt, use_ka, masks, live=None):
-        n = masks.shape[-1]
+    def __init__(self, g_fn, sides, *, grid, dt, use_ka, masks, live=None,
+                 row0=0):
+        n, rows = masks.shape[-1], masks.shape[-2]
         c = n - 1
         xmin, ymin, h = (float(g) for g in grid)
         dtype, device = masks.dtype, masks.device
         self._g_fn, self._dt, self._h = g_fn, float(dt), h
         self._use_ka = use_ka
         idx = torch.arange(n, dtype=dtype, device=device)
+        r = torch.arange(row0, row0 + rows, dtype=dtype, device=device)
         self._walls = []
         for side, fam, line in WALL_LINES:
             if side not in sides:
                 continue
             line = c if line is None else line
             if fam == 0:  # H: y fixed on the wall, x varies along the row
-                sel = (0, line, slice(None))
+                if not 0 <= line - row0 < rows:
+                    continue  # the wall row lies outside the block
+                sel = (0, line - row0, slice(None))
                 x = xmin + (idx + 0.5) * h
                 y = torch.full_like(idx, ymin + line * h)
             else:  # V: x fixed on the wall, y varies along the column
                 sel = (1, slice(None), line)
-                x = torch.full_like(idx, xmin + line * h)
-                y = ymin + (idx + 0.5) * h
+                x = torch.full_like(r, xmin + line * h)
+                y = ymin + (r + 0.5) * h
             m = masks[sel] if live is None else masks[sel] * live[sel]
             self._walls.append((side, sel, x, y, m))
 

@@ -6,7 +6,9 @@ congruent, so each of the 15 stencil terms carries one scalar over its
 whole validity region, Dirichlet rows are identity rows, and within each
 edge family the validity regions collapse to one interior rectangle. The
 operator is 15 scalars plus the per-family mass and diagonal constants:
-the 21 scalars the fused kernels take.
+the 21 scalars the fused kernels take. Patch assembly
+(:func:`patch_constants`) takes them from a tiny congruent mesh instead of
+the assembled global operator, for meshes too large to assemble.
 """
 
 from __future__ import annotations
@@ -73,15 +75,74 @@ def build_uniform_spec(pattern: StencilPattern) -> UniformSpec:
     )
 
 
+def make_spec_lite(n: int) -> UniformSpec:
+    """A UniformSpec with the grid geometry (n, c) only, for the constants
+    of :func:`patch_constants`: the matvec, the canvas embedding and the
+    fused kernels read only ``n`` and ``c``. Its sample indices are -1, so
+    that :func:`extract_constants` and :func:`family_constants` refuse it
+    instead of gathering slot 0."""
+    if n < 3:
+        raise ValueError("uniform operator requires n_points_per_axis >= 3")
+    return UniformSpec(n=n, c=n - 1,
+                       center_slots=np.full(15, -1, dtype=np.int64),
+                       center_dofs=np.full(3, -1, dtype=np.int64))
+
+
 def extract_constants(spec: UniformSpec, ell_vals) -> torch.Tensor:
     """The 15 scalar stencil coefficients."""
+    if np.any(spec.center_slots < 0):
+        raise ValueError(
+            "spec carries no center-sample slots (make_spec_lite); use "
+            "patch_constants to obtain coefficients for a lite spec")
     idx = torch.as_tensor(spec.center_slots, device=ell_vals.device)
     return ell_vals.reshape(-1)[idx]
 
 
 def family_constants(spec: UniformSpec, vec) -> torch.Tensor:
     """Per-family (H, V, D) interior constants of a global DOF vector."""
+    if np.any(spec.center_dofs < 0):
+        raise ValueError(
+            "spec carries no center-sample DOFs (make_spec_lite); use "
+            "patch_constants to obtain per-family constants")
     return vec[torch.as_tensor(spec.center_dofs, device=vec.device)]
+
+
+def patch_constants(n: int, domain_size: float, problem, dt: float,
+                    order: int, stiffness_convention: str = "correct", *,
+                    patch_n: int = 9, dtype=None, device="cpu"):
+    """The uniform operator's scalars without assembling the global
+    operator: ``(sys_consts (15,), ka_consts (15,), mass_c (3,),
+    sys_diag_c (3,))``, ka_consts the raw K + A stencil scalars.
+
+    With constant (v, D) every cell of a structured mesh is congruent, so
+    the scalars of the n x n mesh of half-width ``domain_size`` (cell size
+    h = 2 domain_size / (n - 1)) are those of a ``patch_n`` x ``patch_n``
+    mesh of the same h, assembled by :func:`models.crbe.assemble` at
+    O(patch_n^2) cost; they match the full extraction up to the rounding
+    of the patch's coordinates. Variable coefficients are refused: the
+    patch sits at its own coordinates and would sample them in the wrong
+    place."""
+    from airpollution_tpu_torch.mesh import MeshData, create_mesh
+    from airpollution_tpu_torch.models import crbe
+    from airpollution_tpu_torch.ops.stencil import get_pattern
+    from airpollution_tpu_torch.problems import Domain
+
+    if getattr(problem, "variable_coefficients", False):
+        raise ValueError(
+            "patch_constants requires constant (v, D): spatially varying "
+            "coefficients are not translation-invariant")
+    h = 2.0 * domain_size / (n - 1)
+    patch_L = h * (patch_n - 1) / 2.0
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    md = MeshData(create_mesh(patch_n, patch_L),
+                  Domain(Lx=patch_L, Ly=patch_L, T=1.0), nt=2,
+                  device=device, **kwargs)
+    ops = crbe.assemble(md, problem, dt, order, stiffness_convention)
+    spec = build_uniform_spec(get_pattern(md))
+    return (extract_constants(spec, ops.system.vals),
+            extract_constants(spec, ops.ka.vals),
+            family_constants(spec, ops.mass_diag),
+            family_constants(spec, ops.system_diag))
 
 
 def family_const_vector(spec: UniformSpec, c3):

@@ -63,7 +63,17 @@ Phases, each printing one JSON line:
     posterior at 129^2 unstructured (f64), B7 against plain; the mirrored
     257^2 grid written and read as a .msh file, its flip-solve-flip on B3
     against the general-ELL solve of the raw triangulation on B7;
-11. the kernels line (launches on each path, errors, times, bounds).
+12. slice 7, the block-sharded solvers (parallel/hbm_shard.py) on 4
+    blocks of one card: kernels B8, B9 and B10 (the block modes of B2, B4
+    and B6), each with and without a load, against their plain versions
+    at 257^2 and 513^2 on 2 and 4 blocks (f64, f32, 3 steps with the
+    exchange between them) and at their main paths' shapes (f32), their
+    times beside one block step and one whole-canvas launch; B8 on scripts/tpu_hbm_check.py's 2049^2 row
+    (patch assembly, BE, and one CN and one sourced solve) against the
+    whole-canvas B2 solve; B9 on C1 against C1's B4 solve, and C3 on 2
+    blocks with strided rows (dead DOFs exactly 0); B10 on M1's chain
+    against M1's B6 solve;
+13. the kernels line (launches on each path, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -120,6 +130,18 @@ KERNELS = {
     "B7b": ("ell_gather (entry ell_matvec_vmem_roll)",
             "airpollution_tpu_torch/csrc/ell_gather.cu",
             "airpollution_tpu/ops/pallas_gather.py:86"),
+    "B8": ("uniform_block_step (B2's block mode)",
+           "airpollution_tpu_torch/csrc/uniform_step.cu",
+           "airpollution_tpu/parallel/hbm_shard.py:221"),
+    "B8-load": ("uniform_block_step (source load)",
+                "airpollution_tpu_torch/csrc/uniform_step.cu",
+                "airpollution_tpu/parallel/hbm_shard.py:221"),
+    "B9": ("canvas_block_step (B4's block mode)",
+           "airpollution_tpu_torch/csrc/canvas_step.cu",
+           "airpollution_tpu/parallel/hbm_shard.py:570"),
+    "B10": ("multispecies_block_step (B6's block mode)",
+            "airpollution_tpu_torch/csrc/multispecies_step.cu",
+            "airpollution_tpu/parallel/hbm_shard.py:945"),
 }
 
 # C1's Chebyshev iterations. The configuration of
@@ -306,7 +328,11 @@ def kernel_objects():
             "B2-load": fused_hbm.LOAD_KERNEL,
             "B4-load": fused_hbm.CANVAS_KERNEL,
             "B4-raw": fused_hbm.CANVAS_RAW_KERNEL,
-            "B7a": gather.KERNEL, "B7b": gather.KERNEL}
+            "B7a": gather.KERNEL, "B7b": gather.KERNEL,
+            "B8": fused_hbm.BLOCK_KERNEL,
+            "B8-load": fused_hbm.BLOCK_LOAD_KERNEL,
+            "B9": fused_hbm.CANVAS_BLOCK_KERNEL,
+            "B10": fused_hbm.MULTISPECIES_BLOCK_KERNEL}
 
 
 def reset_counts():
@@ -784,6 +810,7 @@ def phase_canvas_1025(md, problem, domain):
     out = {"phase": "main_canvas_1025", "ms": 1025, "nt": md.nt,
            "dofs": md.number_of_segments}
     total = 0
+    be = None
     for order in (1, 2):
         tag = "be" if order == 1 else "cn"
         kw = dict(time_scheme_order=order, solver_method="chebyshev",
@@ -795,7 +822,7 @@ def phase_canvas_1025(md, problem, domain):
         check(s.fused_kernel == "B4" and per_solve == md.nt - 1,
               f"C1 {tag}: {per_solve} B4 launches in one solve, not "
               f"{md.nt - 1}")
-        times = timed_solves(s, 2)
+        times = timed_solves(s, 2, warm_up=False)
         total += launches_of("B4")
         rel, _, _ = s.compute_errors(problem.analytical_solution)
         scan = CRBESolver(domain, problem, md, matvec_impl="stencil",
@@ -815,9 +842,12 @@ def phase_canvas_1025(md, problem, domain):
         })
         check(diff <= 1e-4, f"C1 {tag}: max|fused - scan| {diff:.3e} > 1e-4")
         check(rel < 0.05, f"C1 {tag}: rel_l2 {rel} against the closed form")
+        if order == 1:
+            be = (s, {k: out[f"be_{k}"] for k in (
+                "steps_per_s_best", "steps_per_s_median", "rel_l2")})
     out["b4_launches"] = total
     emit(out)
-    return total
+    return total, be
 
 
 def phase_canvas_257_bicgstab(md, problem, domain):
@@ -1263,7 +1293,8 @@ def phase_m1(md, domain):
     Strang on B6. Warm steps/s, 4,000 B6 launches per solve, chain masses
     against the f64 oracle, k-vs-2k, and the fuse_chemistry=False path (K
     B4 launches per step) against it. Returns the B6 launches of the path's
-    run (counts zeroed just before it)."""
+    run (counts zeroed just before it), the solver and its warm steps/s
+    (B10's block solve is held against this solve)."""
     import torch
 
     problem = demo_problem(3)
@@ -1316,7 +1347,7 @@ def phase_m1(md, domain):
     check(out["fuse_rel_maxdiff"] < 1e-4,
           f"M1 fuse A/B {out['fuse_rel_maxdiff']:.3e} >= 1e-4")
     emit(out)
-    return launches
+    return launches, s, out["steps_per_s_best"]
 
 
 def phase_m2(md, domain):
@@ -2687,7 +2718,7 @@ def phase_u1(md, domain):
         s = cheb if tag == "chebyshev_be" else CRBESolver(
             domain, problem, md, matvec_impl="auto", **kw)
         reset_counts()
-        times = timed_solves(s, 3, warm_up=False)
+        times = timed_solves(s, 2, warm_up=False)
         check(s.solver_method == kw.get("solver_method", "bicgstab"),
               f"U1 {tag}: rerouted to {s.solver_method}")
         launches = launches_of("B7a")
@@ -2893,6 +2924,604 @@ def phase_msh(domain, n=257):
           f"{out['pallas_max_abs_vs_ell']:.3e} > 1e-9")
 
 
+# --- slice 7: the block-sharded solvers, kernels B8-B10 ---------------------
+
+
+# Tolerance of a block solve against the whole-canvas solve of the same
+# kernel family (max|block - whole| / max|whole|, f32): the same per-cell
+# arithmetic in another tiling.
+BLOCK_TOL = 1e-6
+B8_ITERS = 10  # scripts/tpu_hbm_check.py's 2049^2 row (Chebyshev-10)
+# Its CN solve takes C1's k=14: with k=10 it diverges near step 550 on the
+# H100 in float32, whole canvas and blocks alike (PERF.md, section 6).
+B8_CN_ITERS = C1_ITERS
+BLOCK_MESH = {"mp": 4}
+
+
+def block_rows(n, n_blocks, k, use_ka):
+    from airpollution_tpu_torch.parallel import hbm_shard
+
+    return hbm_shard.RowBlocks(n, n_blocks, hbm_shard.halo_rows(k, use_ka))
+
+
+def block_case_run(kid, blocks, dtype, steps, kernel, plain, state):
+    """Hold a block kernel against its plain version for ``steps`` steps on
+    ``state`` (n_blocks, ...): each step an exchange, then for every block
+    the kernel ``kernel(d, src, dst)`` and ``plain(d, src) -> dst rows``
+    from the same input, their interiors compared; the kernel's output
+    goes on. Returns (max abs, max rel) over steps and blocks."""
+    import torch
+
+    from airpollution_tpu_torch.parallel import hbm_shard
+
+    other = torch.empty_like(state)
+    worst_abs = worst_rel = 0.0
+    sl = slice(blocks.halo, blocks.halo + blocks.local)
+    for _ in range(steps):
+        hbm_shard.exchange(state, blocks.local, blocks.halo)
+        for d in range(blocks.n_blocks):
+            kernel(d, state[d], other[d])
+            ref = plain(d, state[d])
+            torch.cuda.synchronize()
+            abs_e, rel, _ = rel_err(other[d][..., sl, :], ref[..., sl, :])
+            worst_abs, worst_rel = max(worst_abs, abs_e), max(worst_rel, rel)
+        state, other = other, state
+    check(worst_rel <= TOL[str(dtype).split(".")[-1]],
+          f"{kid}: block kernel vs plain rel err {worst_rel:.3e}")
+    return worst_abs, worst_rel
+
+
+def phase_block_vs_plain(meshes, problem, problems, cache):
+    """Kernels B8, B9 and B10, each with and without a load, against their
+    plain versions at 257^2 and 513^2 on 2 and 4 blocks, f64 and f32, for
+    3 steps with the exchange between them: B8 on the plume (BE,
+    extrapolated, k=8; load: S1's emitter), B9 on C3's Robin walls and
+    block (CN, extrapolated, k=8; load: the walled emitter), B10 on the
+    K=3 demo chain (CN, k=8; load: its emitter on species 0)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    worst = {}
+    rows = []
+    k = 8
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (257, 513):
+            md = meshes[(ms, name)]
+            n = md.structured_n
+            scal, u3 = uniform_inputs(md, problem, 1, k, dtype)
+            plane = uniform_load(md, scal, 1, s_source(), 1, dtype)
+            for nb in (2, 4):
+                # B8: uniform, BE, extrapolated (two carried states).
+                blocks = block_rows(n, nb, k, False)
+                masks = [fused_hbm.block_masks(b, dtype, u3.device)
+                         for b in blocks.blocks]
+                for kid, load in (("B8", None),
+                                  ("B8-load", blocks.split(plane))):
+                    tile = fused_solver.choose_tile(k, dtype, fused_hbm.TILE)
+                    state = torch.stack([blocks.split(u3),
+                                         blocks.split(0.8 * u3)], dim=1)
+
+                    def kernel(d, src, dst, load=load):
+                        fused_hbm.block_kernel_step(
+                            scal, k, src[0], src[1], dst[0], dst[1], False,
+                            None, tile, blocks.blocks[d],
+                            load=None if load is None else load[d])
+
+                    def plain(d, src, load=load):
+                        x, up = fused_hbm.plain_block_step(
+                            scal, k, src[0], src[1], False, *masks[d],
+                            None if load is None else load[d])
+                        return torch.stack([x, up])
+
+                    abs_e, rel = block_case_run(kid, blocks, dtype, 3, kernel,
+                                                plain, state)
+                    rows.append({"kernel": kid, "ms": ms, "blocks": nb,
+                                 "dtype": name, "rel_err": rel})
+                    if name == "float32":
+                        worst[kid] = max(worst.get(kid, 0.0), abs_e)
+                # B9: C3's operator, CN, extrapolated.
+                inp = canvas_inputs(md, problems["C3"], 2, dtype, cache)
+                C, cheb, u0, cmasks = canvas_step_inputs(inp, k, dtype)
+                blocks = block_rows(n, nb, k, True)
+                rect = inp["rect"]
+                bm = [fused_hbm.block_masks(b, dtype, u0.device, rect)
+                      for b in blocks.blocks]
+                Cb = blocks.split(C)
+                (flux,), _ = step_loads(inp, md, walled_source(), 1, True, C,
+                                        cmasks, False, dtype)
+                tile = fused_solver.choose_tile(k + 1, dtype,
+                                                fused_hbm.CANVAS_TILE)
+                for load in (None, blocks.split(flux)):
+                    state = torch.stack([blocks.split(u0),
+                                         blocks.split(0.8 * u0)], dim=1)
+
+                    def kernel(d, src, dst, load=load):
+                        fused_hbm.canvas_block_kernel_step(
+                            Cb[d], cheb, k, src[0], src[1], dst[0], dst[1],
+                            True, rect, None, tile, blocks.blocks[d],
+                            load=None if load is None else load[d])
+
+                    def plain(d, src, load=load):
+                        x, up = fused_hbm.plain_canvas_block_step(
+                            Cb[d], cheb, k, src[0], src[1], True, *bm[d],
+                            None if load is None else load[d])
+                        return torch.stack([x, up])
+
+                    abs_e, rel = block_case_run("B9", blocks, dtype, 3,
+                                                kernel, plain, state)
+                    rows.append({"kernel": "B9", "ms": ms, "blocks": nb,
+                                 "dtype": name, "load": load is not None,
+                                 "rel_err": rel})
+                    if name == "float32":
+                        worst["B9"] = max(worst.get("B9", 0.0), abs_e)
+                # B10: the demo chain, K=3, CN.
+                inp = canvas_inputs(md, problems["demo"], 2, dtype, cache)
+                for source in (None, demo_species(1)[0]):
+                    case = b6_case(inp, md, 3, k, 2, dtype, source, True)
+                    Cb = blocks.split(case["C"])
+                    bm = [fused_hbm.block_masks(b, dtype, Cb.device,
+                                                inp["rect"])
+                          for b in blocks.blocks]
+                    loads = (None if case["loads"] is None
+                             else blocks.split(case["loads"]))
+                    tile = case["tile"]
+                    state = blocks.split(case["U"].reshape(9, n, n))
+
+                    def species(x):
+                        return x.view(3, 3, blocks.rows, n)
+
+                    def kernel(d, src, dst, loads=loads, case=case):
+                        fused_hbm.multispecies_block_kernel_step(
+                            Cb[d], case["scal"], k, species(src),
+                            species(dst), True, inp["rect"], None, tile,
+                            blocks.blocks[d],
+                            None if loads is None else loads[d],
+                            case["index"])
+
+                    def plain(d, src, loads=loads, case=case):
+                        return fused_hbm.plain_multispecies_block_step(
+                            Cb[d], case["cheb"], case["E"], k, species(src),
+                            True, *bm[d],
+                            None if loads is None else loads[d],
+                            case["index"]).reshape(9, blocks.rows, n)
+
+                    abs_e, rel = block_case_run("B10", blocks, dtype, 3,
+                                                kernel, plain, state)
+                    rows.append({"kernel": "B10", "ms": ms, "blocks": nb,
+                                 "dtype": name, "load": source is not None,
+                                 "rel_err": rel})
+                    if name == "float32":
+                        worst["B10"] = max(worst.get("B10", 0.0), abs_e)
+    emit({"phase": "block_vs_plain", "card": card_line(), "cases": rows})
+    return worst
+
+
+def block_solve_times(solve, reps):
+    """Host seconds of ``reps`` calls of ``solve()``, each ending in a
+    device synchronisation; returns (last result, times)."""
+    import torch
+
+    times = []
+    out = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def max_rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def phase_b8_2049(domain):
+    """B8 on scripts/tpu_hbm_check.py's 2049^2 row: Problem(sigma=1),
+    nt=1001, Chebyshev-10, extrapolated, BE, assembly="patch", f32, on 4
+    blocks, against CRBESolver(matvec_impl="fused_hbm", assembly="patch")
+    on B2; one CN solve (Chebyshev-14, B8_CN_ITERS) and one sourced solve
+    (S1's emitter, B8's load entry) against theirs. Returns (launches,
+    md)."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+    from airpollution_tpu_torch.parallel import (build_hbm_halo_solver,
+                                                 make_mesh)
+
+    t0 = time.perf_counter()
+    md = apt.MeshData(apt.create_mesh(2049, 20.0), domain, nt=1001)
+    out = {"phase": "b8_block_2049", "card": card_line(), "ms": 2049,
+           "nt": md.nt, "dofs": md.number_of_segments, "k": B8_ITERS,
+           "blocks": BLOCK_MESH["mp"], "mesh_setup_s":
+           time.perf_counter() - t0}
+    n_steps = md.nt - 1
+    mesh = make_mesh(BLOCK_MESH)
+    launches = {"B8": 0, "B8-load": 0}
+    # The BE case times one warm solve each way (the script's time budget).
+    cases = (("be", apt.Problem(sigma=1.0), 1, B8_ITERS, 1),
+             ("cn", apt.Problem(sigma=1.0), 2, B8_CN_ITERS, 0),
+             ("sourced", apt.GaussianSourceProblem(**S_SOURCE), 1, B8_ITERS,
+              0))
+    for tag, problem, order, k, reps in cases:
+        whole = CRBESolver(domain, problem, md, time_scheme_order=order,
+                           matvec_impl="fused_hbm", assembly="patch",
+                           solver_method="chebyshev", chebyshev_iters=k,
+                           extrapolate_warm_start=True)
+        first, wtimes = timed_phase(whole, reps)
+        check(whole.fused_kernel == "B2", f"B8 {tag}: whole route")
+        u0 = whole.set_initial_condition()
+        solver = build_hbm_halo_solver(mesh, md, problem, whole.dt,
+                                       order=order, iters=k,
+                                       extrapolate=True, assembly="patch")
+        reset_counts()
+        got = solver(None, u0)
+        torch.cuda.synchronize()
+        kid = "B8-load" if tag == "sourced" else "B8"
+        per_solve = launches_of(kid)
+        check(per_solve == BLOCK_MESH["mp"] * n_steps
+              and launches_of("B2") == 0,
+              f"B8 {tag}: {per_solve} {kid} launches in one block solve")
+        launches[kid] += per_solve
+        _, btimes = block_solve_times(lambda: solver(None, u0), reps)
+        ref = whole.solutions
+        diff = max_rel(got, ref)
+        out.update({
+            f"{tag}_max_block_minus_whole_rel": diff,
+            f"{tag}_bitwise_equal": bool(torch.equal(got, ref)),
+            f"{tag}_launches_per_solve": per_solve, f"{tag}_k": k,
+            f"{tag}_whole_first_solve_s": first})
+        if reps:
+            rates(out, f"{tag}_whole_", n_steps, wtimes)
+            rates(out, f"{tag}_block_", n_steps, btimes)
+        if tag != "sourced":
+            out[f"{tag}_rel_l2_block"] = rel_l2_of(whole, got, problem)
+            out[f"{tag}_rel_l2_whole"] = whole.compute_errors(
+                problem.analytical_solution)[0]
+        check(bool(torch.isfinite(got).all()), f"B8 {tag}: non-finite")
+        check(diff <= BLOCK_TOL, f"B8 {tag}: max|block - whole| {diff:.3e}")
+    emit(out)
+    return launches, md
+
+
+def rel_l2_of(solver, u, problem):
+    """rel_l2 of a final state ``u`` against the closed form at T, as
+    CRBESolver.compute_errors computes it."""
+    import torch
+
+    exact = solver._exact_at_T(problem.analytical_solution)
+    return float(torch.sqrt(torch.sum((u[-1] - exact) ** 2))
+                 / torch.sqrt(torch.sum(exact ** 2)))
+
+
+def phase_b9_blocks(c1, md_257, problems, domain):
+    """B9 on C1's configuration (1025^2, nt=1001, Chebyshev-14, BE,
+    extrapolated) on 4 blocks against C1's whole-canvas B4 solve, which
+    the C1 phase ran; then C3's Robin walls and block at 257^2 (CN,
+    Chebyshev-8, a snapshot every 100 steps) on 2 blocks against the
+    strided B4 solve, dead DOFs exactly 0.0."""
+    import torch
+
+    from airpollution_tpu_torch.models import crbe
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+    from airpollution_tpu_torch.parallel import (build_canvas_hbm_halo_solver,
+                                                 make_mesh)
+
+    whole, whole_rates = c1
+    md = whole.mesh_data
+    n_steps = md.nt - 1
+    out = {"phase": "b9_block_c1_c3", "card": card_line(), "ms": 1025,
+           "nt": md.nt, "k": C1_ITERS, "blocks": BLOCK_MESH["mp"]}
+    out.update({f"c1_whole_{k}": v for k, v in whole_rates.items()})
+    solver = build_canvas_hbm_halo_solver(
+        make_mesh(BLOCK_MESH), md, problems["C1"], whole.dt, order=1,
+        iters=C1_ITERS, extrapolate=True)
+    u0 = whole.set_initial_condition()
+    ops = whole._require_ops()
+    reset_counts()
+    got = solver(ops, u0)
+    torch.cuda.synchronize()
+    per_solve = launches_of("B9")
+    check(per_solve == BLOCK_MESH["mp"] * n_steps and launches_of("B4") == 0,
+          f"C1 block: {per_solve} B9 launches in one solve")
+    total = per_solve
+    _, btimes = block_solve_times(lambda: solver(ops, u0), 2)
+    rates(out, "c1_block_", n_steps, btimes)
+    diff = max_rel(got, whole.solutions)
+    out.update({"c1_launches_per_solve": per_solve,
+                "c1_max_block_minus_whole_rel": diff,
+                "c1_bitwise_equal": bool(torch.equal(got, whole.solutions)),
+                "c1_rel_l2_block": rel_l2_of(whole, got, problems["C1"])})
+    check(diff <= BLOCK_TOL, f"C1 block: max|block - whole| {diff:.3e}")
+    # C3 on 2 blocks, strided, against the strided B4 solve.
+    p3 = problems["C3"]
+    s3 = CRBESolver(domain, p3, md_257, time_scheme_order=2,
+                    matvec_impl="fused_hbm", solver_method="chebyshev",
+                    chebyshev_iters=8, snapshot_every=100)
+    ref = s3.solve(store_solutions=True)
+    solver = build_canvas_hbm_halo_solver(
+        make_mesh({"mp": 2}), md_257, p3, s3.dt, order=2, iters=8,
+        snapshot_every=100)
+    reset_counts()
+    traj = solver(s3._require_ops(), s3.set_initial_condition())
+    total += launches_of("B9")
+    _, dead = crbe.obstacle_masks(md_257, p3)
+    dead_max = float(traj[:, dead].abs().max())
+    diff = max_rel(traj, ref)
+    out.update({"c3_rows": traj.shape[0], "c3_b9_launches": launches_of("B9"),
+                "c3_max_block_minus_whole_rel": diff,
+                "c3_dead_dofs": int(dead.sum()), "c3_dead_max_abs": dead_max})
+    check(traj.shape == ref.shape and diff <= BLOCK_TOL,
+          f"C3 block: max|block - whole| {diff:.3e}")
+    check(dead_max == 0.0, f"C3 block: |u| on dead DOFs reaches {dead_max}")
+    out["b9_launches"] = total
+    emit(out)
+    return total
+
+
+def phase_b10_m1(m1, domain):
+    """B10 on M1's configuration (the K=3 chain at 1025^2, nt=4001, CN,
+    Chebyshev-8) on 4 blocks against M1's whole-canvas B6 solve, which the
+    M1 phase ran: ``m1`` is (its solver, its warm steps/s). One block
+    solve, counted and timed."""
+    import torch
+
+    from airpollution_tpu_torch.parallel import (
+        build_multispecies_hbm_halo_solver, make_mesh)
+
+    whole, whole_rate = m1
+    md = whole.mesh_data
+    k = DEMO_ITERS[1025]
+    n_steps = md.nt - 1
+    out = {"phase": "b10_block_m1", "card": card_line(), "ms": 1025,
+           "nt": md.nt, "K": 3, "k": k, "blocks": BLOCK_MESH["mp"],
+           "whole_steps_per_s_best": whole_rate}
+    solver = build_multispecies_hbm_halo_solver(
+        make_mesh(BLOCK_MESH), md, whole.problem, whole.dt, order=2,
+        iters=k)
+    ops, C0 = whole._require_ops(), whole.set_initial_condition()
+    reset_counts()
+    got, times = block_solve_times(lambda: solver(ops, C0), 1)
+    per_solve = launches_of("B10")
+    check(per_solve == BLOCK_MESH["mp"] * n_steps and launches_of("B6") == 0,
+          f"M1 block: {per_solve} B10 launches in one solve")
+    rates(out, "block_", n_steps, times)
+    ref = whole.solutions
+    diff = max_rel(got, ref)
+    masses = [float(m) for m in (got[-1].double()
+                                 * ops.mass_diag.double()).sum(-1)]
+    out.update({"launches_per_solve": per_solve,
+                "max_block_minus_whole_rel": diff,
+                "bitwise_equal": bool(torch.equal(got, ref)),
+                "masses_block": masses, "masses_whole": chain_masses(whole)})
+    check(diff <= BLOCK_TOL, f"M1 block: max|block - whole| {diff:.3e}")
+    emit(out)
+    return per_solve
+
+
+def interior_err(kid, got, ref, block):
+    """max|got - ref| over the interior rows of a block kernel's output
+    ``got`` (the last launch's, read after a synchronisation) and its plain
+    version's ``ref``; fails past TOL["float32"] of max|ref|."""
+    import torch
+
+    torch.cuda.synchronize()
+    sl = slice(block.halo, block.halo + block.local)
+    abs_e, rel, _ = rel_err(got[..., sl, :], ref[..., sl, :])
+    check(rel <= TOL["float32"],
+          f"{kid} at its main path's shape: kernel vs plain rel err {rel:.3e}")
+    return abs_e
+
+
+def per_step_ms(state, blocks, launch_all):
+    """Device ms of one block step: the exchange, then ``launch_all()``."""
+    from airpollution_tpu_torch.parallel import hbm_shard
+
+    def run():
+        hbm_shard.exchange(state, blocks.local, blocks.halo)
+        launch_all()
+
+    return cuda_ms(run, 20)
+
+
+def b8_kernel_times(md):
+    """B8 per launch at its main path's shape (2049^2, k=10, BE,
+    extrapolated, the patch scalars, f32; one interior block of 4), with
+    and without a load, held against its plain version at that shape
+    (the interior rows, TOL["float32"]) and timed with it, its bound by
+    bytes (each input block read once, the interior written once), and one
+    step of 4 blocks with the exchange against one whole-canvas launch of
+    B2."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+    from airpollution_tpu_torch.parallel import hbm_shard
+
+    f32 = torch.float32
+    nb = BLOCK_MESH["mp"]
+    extra = {"phase": "b8_kernel_times", "card": card_line(), "blocks": nb}
+    times = {}
+    k = B8_ITERS
+    scal, u = patch_inputs(md, k, f32)
+    blocks = block_rows(md.structured_n, nb, k, False)
+    state = torch.stack([blocks.split(u)] * 2, dim=1)
+    out = torch.empty_like(state)
+    tile = fused_solver.choose_tile(k, f32, fused_hbm.TILE)
+    b = blocks.blocks[1]
+    m, on = fused_hbm.block_masks(b, f32, u.device)
+    plane = blocks.split(uniform_load(md, scal, 1, s_source(), 1, f32))
+    cells = 3 * b.local * b.n
+    for kid, load in (("B8", None), ("B8-load", plane)):
+        def launch(d, load=load):
+            fused_hbm.block_kernel_step(
+                scal, k, state[d][0], state[d][1], out[d][0], out[d][1],
+                False, None, tile, blocks.blocks[d],
+                load=None if load is None else load[d])
+
+        def plain_step(load=load):
+            return torch.stack(fused_hbm.plain_block_step(
+                scal, k, state[1][0], state[1][1], False, m, on,
+                None if load is None else load[1]))
+
+        ms_k = cuda_ms(lambda: launch(1), 50)
+        plain = cuda_ms(plain_step, 3)
+        abs_e = interior_err(kid, out[1], plain_step(), b)
+        planes_in = 6 if load is None else 9  # u, up (and the load)
+        b_ms, by = bound((planes_in * b.rows + 6 * b.local) * b.n * 4,
+                         cells * (step_flops_per_dof(k, False, True)
+                                  + (load is not None)))
+        times[kid] = (ms_k, plain, b_ms, by, abs_e, None)
+        extra[f"{kid}_max_abs_err_vs_plain"] = abs_e
+        extra[f"{kid}_ms"] = ms_k
+        extra[f"{kid}_step_4_blocks_ms"] = per_step_ms(
+            state, blocks, lambda: [launch(d) for d in range(nb)])
+    halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+    whole_out = (torch.empty_like(u), torch.empty_like(u))
+    extra["B2_2049_ms"] = cuda_ms(lambda: fused_hbm.kernel_step(
+        scal, k, u, u, *whole_out, False, halt, tile), 20)
+    extra["exchange_ms"] = cuda_ms(
+        lambda: hbm_shard.exchange(state, blocks.local, blocks.halo), 50)
+    emit(extra)
+    return times
+
+
+def block_kernel_times(meshes, problems, cache):
+    """B9 and B10 per launch at their main paths' shapes (f32; one
+    interior block of 4): B9 at C1's step (1025^2, k=14, BE, extrapolated),
+    B10 at M1's (1025^2, K=3, k=8, CN, one load); each held against its
+    plain version at that shape (the interior rows, TOL["float32"]) and
+    timed with it; their bounds by bytes (each input block read once, the
+    interior written once), and one step of 4 blocks with the exchange
+    against one whole-canvas launch of B4 and B6."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+    from airpollution_tpu_torch.parallel import hbm_shard
+
+    f32 = torch.float32
+    nb = BLOCK_MESH["mp"]
+    extra = {"phase": "block_kernel_times", "card": card_line(),
+             "blocks": nb}
+    times = {}
+    md = meshes[(1025, "float32")]
+    n = md.structured_n
+    # B9: C1's operator.
+    k = C1_ITERS
+    inp = canvas_inputs(md, problems["C1"], 1, f32, cache)
+    C, cheb, u, _ = canvas_step_inputs(inp, k, f32)
+    rect = inp["rect"]
+    blocks = block_rows(n, nb, k, False)
+    Cb = blocks.split(C)
+    state = torch.stack([blocks.split(u)] * 2, dim=1)
+    out = torch.empty_like(state)
+    tile = fused_solver.choose_tile(k, f32, fused_hbm.CANVAS_TILE)
+    b = blocks.blocks[1]
+    m, on = fused_hbm.block_masks(b, f32, u.device, rect)
+
+    def b9(d):
+        fused_hbm.canvas_block_kernel_step(
+            Cb[d], cheb, k, state[d][0], state[d][1], out[d][0], out[d][1],
+            False, rect, None, tile, blocks.blocks[d])
+
+    def plain_b9():
+        return torch.stack(fused_hbm.plain_canvas_block_step(
+            Cb[1], cheb, k, state[1][0], state[1][1], False, m, on))
+
+    ms_k = cuda_ms(lambda: b9(1), 50)
+    plain = cuda_ms(plain_b9, 3)
+    abs_e = interior_err("B9", out[1], plain_b9(), b)
+    cells = 3 * b.local * n
+    b_ms, by = bound(((21 + 2 * 3) * b.rows * n + 2 * cells) * 4,
+                     cells * canvas_step_flops_per_dof(k, False, True))
+    times["B9"] = (ms_k, plain, b_ms, by, abs_e, None)
+    extra["B9_max_abs_err_vs_plain"] = abs_e
+    extra["B9_step_4_blocks_ms"] = per_step_ms(
+        state, blocks, lambda: [b9(d) for d in range(nb)])
+    halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+    whole_out = (torch.empty_like(u), torch.empty_like(u))
+    extra["B4_1025_ms"] = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
+        C, cheb, k, u, u, *whole_out, False, rect, halt, tile), 20)
+    del state, out, Cb, whole_out
+    # B10: M1's step.
+    k, K = DEMO_ITERS[1025], 3
+    inp = canvas_inputs(md, problems["demo"], 2, f32, cache)
+    case = b6_case(inp, md, K, k, 2, f32, demo_species(1)[0], True)
+    rect = inp["rect"]
+    blocks = block_rows(n, nb, k, True)
+    Cb = blocks.split(case["C"])
+    loads = blocks.split(case["loads"])
+    state = blocks.split(case["U"].reshape(3 * K, n, n))
+    out = torch.empty_like(state)
+    b = blocks.blocks[1]
+    m, on = fused_hbm.block_masks(b, f32, u.device, rect)
+
+    def b10(d):
+        fused_hbm.multispecies_block_kernel_step(
+            Cb[d], case["scal"], k, state[d].view(K, 3, b.rows, n),
+            out[d].view(K, 3, b.rows, n), True, rect, None, case["tile"],
+            blocks.blocks[d], loads[d], case["index"])
+
+    def plain_b10():
+        return fused_hbm.plain_multispecies_block_step(
+            Cb[1], case["cheb"], case["E"], k,
+            state[1].view(K, 3, b.rows, n), True, m, on, loads[1],
+            case["index"])
+
+    ms_k = cuda_ms(lambda: b10(1), 30)
+    plain = cuda_ms(plain_b10, 3)
+    abs_e = interior_err("B10", out[1].view(K, 3, b.rows, n), plain_b10(), b)
+    cells = 3 * b.local * n
+    b_ms, by = bound(((21 + 3 * K + 3) * b.rows * n + K * cells) * 4,
+                     K * cells * canvas_step_flops_per_dof(k, True, False)
+                     + 2 * cells * K * (2 * K - 1))
+    times["B10"] = (ms_k, plain, b_ms, by, abs_e, None)
+    extra["B10_max_abs_err_vs_plain"] = abs_e
+    extra["B10_step_4_blocks_ms"] = per_step_ms(
+        state, blocks, lambda: [b10(d) for d in range(nb)])
+    wout = torch.empty_like(case["U"])
+    extra["B6_1025_ms"] = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
+        case["C"], case["scal"], k, case["U"], wout, True, rect, halt,
+        case["tile"], case["loads"], case["index"]), 20)
+    extra["exchange_ms_b10_state"] = cuda_ms(
+        lambda: hbm_shard.exchange(state, blocks.local, blocks.halo), 50)
+    extra.update({f"{kid}_ms": times[kid][0] for kid in ("B9", "B10")})
+    emit(extra)
+    return times
+
+
+def patch_inputs(md, k, dtype):
+    """B8's scalar block from the patch scalars (as the block builder
+    takes them) and the initial canvas of Problem(sigma=1)."""
+    import torch
+    from functools import partial
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.ops import fused_solver, linalg, stencil
+    from airpollution_tpu_torch.ops import uniform
+
+    problem = apt.Problem(sigma=1.0)
+    n = md.structured_n
+    spec = uniform.make_spec_lite(n)
+    dt = md.domain.T / (md.nt - 1)
+    xs = md.points[:, 0]
+    sys_c, _, mass_c, diag_c = uniform.patch_constants(
+        n, float(xs.max() - xs.min()) / 2.0, problem, dt, 1,
+        dtype=md.midpoints.dtype, device=md.device)
+    perm = torch.as_tensor(stencil.get_family_perm(md)[0].astype("int64"),
+                           device=md.device)
+    diag = uniform.family_diag_vector(spec, diag_c, md.boundary_mask[perm])
+    lo, hi = linalg.power_bounds(
+        partial(uniform.uniform_matvec, spec, sys_c), torch.zeros_like(diag),
+        scale=1.0 / torch.sqrt(diag))
+    scal = fused_solver.step_scalars(sys_c, mass_c, 1.0 / diag_c,
+                                     (float(lo), float(hi)), k, dtype)
+    u0 = problem.initial_condition_fn(md.midpoints)[perm]
+    return scal, fused_solver.to_canvases(spec, u0).to(dtype)
+
+
 def main() -> int:
     import torch
 
@@ -2945,20 +3574,27 @@ def main() -> int:
     times.update(multispecies_kernel_times(meshes, problems, cache))
     times.update(slice4_kernel_times(meshes, cache, meshes[(257, "float32")],
                                      meshes[(513, "float32")]))
+    # Slice 7: the block kernels against their plain versions, their times.
+    meshes[(513, "float64")] = meshes[(513, "float32")]
+    worst.update(phase_block_vs_plain(meshes, problem, problems, cache))
+    times.update(block_kernel_times(meshes, problems, cache))
 
     launches = {
         "B1": phase_main_257(meshes[(257, "float32")], problem, domain),
         "B2": phase_main_1025(meshes[(1025, "float32")], problem, domain),
-        "B4": phase_canvas_1025(meshes[(1025, "float32")], problems["C1"],
-                                domain),
-        "B5": phase_canvas_257_bicgstab(meshes[(257, "float32")],
-                                        problems["C1"], domain),
     }
+    launches["B4"], c1_be = phase_canvas_1025(meshes[(1025, "float32")],
+                                              problems["C1"], domain)
+    launches["B5"] = phase_canvas_257_bicgstab(meshes[(257, "float32")],
+                                               problems["C1"], domain)
     launches["B3"], _ = phase_robin_obstacle(
         meshes[(257, "float32")], md_257_65, problems["C3"], domain)
     cache.clear()
     md_m1 = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=4001)
-    launches["B6"] = phase_m1(md_m1, domain)
+    launches["B6"], *m1 = phase_m1(md_m1, domain)
+    # Slice 7: B10 on M1's chain, against M1's solve.
+    launches["B10"] = phase_b10_m1(m1, domain)
+    del m1
     phase_m2(meshes[(257, "float32")], domain)
     del md_m1
     launches["B1-load"], s1 = phase_s1(meshes[(257, "float32")], domain)
@@ -3001,6 +3637,13 @@ def main() -> int:
     launches["B7a"] = phase_u1(md_u257["float32"], domain)
     phase_g1(unstructured_md(129, 33, "float64"))
     phase_msh(domain)
+    # Slice 7: the block-sharded solvers on B8, B9 and B10.
+    b8_launches, md_2049 = phase_b8_2049(domain)
+    launches.update(b8_launches)
+    times.update(b8_kernel_times(md_2049))
+    del md_2049
+    launches["B9"] = phase_b9_blocks(c1_be, meshes[(257, "float32")],
+                                     problems, domain)
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library = times[kid]

@@ -47,6 +47,9 @@ PORT_MODULES = [
     "airpollution_tpu_torch.ops.sparse",
     "airpollution_tpu_torch.ops.stencil",
     "airpollution_tpu_torch.ops.uniform",
+    "airpollution_tpu_torch.parallel",
+    "airpollution_tpu_torch.parallel.device_mesh",
+    "airpollution_tpu_torch.parallel.hbm_shard",
 ]
 
 
@@ -96,7 +99,10 @@ def test_kernel_modules_import_without_nvcc():
                    fused_solver.BICGSTAB_KERNEL, fused_solver.CANVAS_KERNEL,
                    fused_hbm.KERNEL, fused_hbm.LOAD_KERNEL,
                    fused_hbm.CANVAS_KERNEL, fused_hbm.CANVAS_RAW_KERNEL,
-                   fused_hbm.MULTISPECIES_KERNEL, fused_stencil.KERNEL)
+                   fused_hbm.MULTISPECIES_KERNEL, fused_stencil.KERNEL,
+                   fused_hbm.BLOCK_KERNEL, fused_hbm.BLOCK_LOAD_KERNEL,
+                   fused_hbm.CANVAS_BLOCK_KERNEL,
+                   fused_hbm.MULTISPECIES_BLOCK_KERNEL)
         assert all(k._lib is None for k in kernels)
     """, env=env)
     assert out.returncode == 0, out.stderr
@@ -186,7 +192,7 @@ FUSED_CHEB = dict(matvec_impl="fused", solver_method="chebyshev")
     (dict(problem=_Variable(), fused_operator="uniform", **FUSED_CHEB),
      ValueError),
     (dict(problem=_TimeVarying()), ValueError),
-    (dict(assembly="patch", **FUSED_CHEB), NotImplementedError),
+    (dict(assembly="patch", matvec_impl="stencil"), ValueError),
     (dict(preconditioner="spectral", matvec_impl="stencil"),
      NotImplementedError),
     (dict(matvec_impl="uniform"), NotImplementedError),
@@ -232,9 +238,13 @@ def _emitter():
     (dict(problem=_RobinFlux(), matvec_impl="fused_hbm",
           solver_method="chebyshev"), "B4"),
     (dict(snapshot_every=4, store=True, **FUSED_CHEB), "B1"),
+    (dict(assembly="patch", **FUSED_CHEB), "B1"),
+    (dict(assembly="patch", matvec_impl="fused_hbm",
+          solver_method="chebyshev"), "B2"),
 ], ids=["canvas", "robin", "obstacles", "variable-coefficients", "pallas",
         "assemble-robin", "fused-bicgstab", "fused-sourced",
-        "fused_hbm-sourced", "robin_g_xy-fused", "snapshot_every"])
+        "fused_hbm-sourced", "robin_g_xy-fused", "snapshot_every",
+        "patch-fused", "patch-fused_hbm"])
 def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
     from airpollution_tpu_torch.models import crbe
 
@@ -274,7 +284,7 @@ def test_other_entry_points_raise_on_unported_input():
                        device="cpu")
     with pytest.raises(NotImplementedError):
         crbe.assemble(md, _TimeVarying(), 0.1, 1)
-    with pytest.raises(NotImplementedError, match="patch"):
+    with pytest.raises(ValueError, match="patch"):
         CRBESolver(tapt.Domain(), tapt.Problem(), md, assembly="patch",
                    device="cpu")
 

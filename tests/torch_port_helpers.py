@@ -4,6 +4,7 @@ operator carried across as numpy arrays."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 import airpollution_tpu as japt
@@ -39,3 +40,14 @@ def rel_diff(a, b):
     a = a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
     b = np.asarray(b)
     return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One intra-op torch thread for the tests of a module that imports
+    this fixture: their loops run many small ops, and several test workers
+    on the CPU would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
