@@ -89,7 +89,10 @@ class Kernel:
 
     ``launches`` counts the launches that returned no error; callers that
     want to see whether a run went through the kernel set it to 0 before
-    the run and read it after.
+    the run and read it after. Each dtype's C function is resolved once,
+    on its first launch, with its ``argtypes`` set, so that a launch is
+    one ctypes call on plain ints (pointers from :func:`pointer`, the
+    stream from :func:`current_stream`).
     """
 
     def __init__(self, name: str, source: str, symbols: dict, argtypes):
@@ -99,6 +102,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._lib = None
+        self._entry = {}  # torch dtype -> resolved C function
 
     def _library(self):
         if self._lib is None:
@@ -106,33 +110,45 @@ class Kernel:
             self._lib = ctypes.CDLL(str(library_path(self.source)))
             self._lib.crbe_error_string.argtypes = [ctypes.c_int]
             self._lib.crbe_error_string.restype = ctypes.c_char_p
-            for sym in self.symbols.values():
-                fn = getattr(self._lib, sym)
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
         return self._lib
+
+    def _resolve(self, dtype):
+        if dtype not in self.symbols:
+            raise TypeError(f"{self.name}: no kernel for {dtype}")
+        fn = getattr(self._library(), self.symbols[dtype])
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self._entry[dtype] = fn
+        return fn
 
     def launch(self, dtype, *args):
         """Call the entry point for ``dtype`` on the current stream; raise
         on a launch error."""
-        if dtype not in self.symbols:
-            raise TypeError(f"{self.name}: no kernel for {dtype}")
-        lib = self._library()
-        err = getattr(lib, self.symbols[dtype])(*args)
+        fn = self._entry.get(dtype)
+        if fn is None:
+            fn = self._resolve(dtype)
+        err = fn(*args)
         if err != 0:
-            msg = lib.crbe_error_string(err).decode()
+            msg = self._lib.crbe_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({err})")
         self.launches += 1
 
 
-def pointer(t: torch.Tensor | None) -> ctypes.c_void_p:
-    """Device pointer of a contiguous tensor, or NULL for None."""
+def pointer(t: torch.Tensor | None) -> int | None:
+    """Device pointer of a contiguous tensor as an int (a ``c_void_p``
+    argument), or None (NULL) for None."""
     if t is None:
-        return ctypes.c_void_p(None)
+        return None
     if not t.is_contiguous():
         raise ValueError("kernel arguments must be contiguous")
-    return ctypes.c_void_p(t.data_ptr())
+    return t.data_ptr()
 
 
-def current_stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def current_stream() -> int:
+    """The current CUDA stream of the current device, as an int; read
+    anew on every call, so that a caller's stream and CUDA-graph capture
+    are honoured. The raw handle skips the ``torch.cuda.Stream`` object
+    that ``torch.cuda.current_stream()`` builds: 0.34-0.78 µs a read
+    against 4.2-7.6 µs on the hosts of an NVIDIA H100 80GB HBM3 (700 W),
+    scripts/torch_port_b3_b7_ab.py."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

@@ -25,10 +25,28 @@
 // (B, n) contiguous. vals and cols advance by op_stride elements per batch
 // entry: 0 for one operator shared by the batch, n * width for a stack of
 // B operators (the per-species stacks of the multispecies solve).
+//
+// The launch: what does not change between products (the columns, n,
+// width and op_stride) is a host struct built once per index
+// (ops/gather.KernelIndex) and passed by pointer, so a product passes six
+// arguments. Blocks of kThreads threads, at most kMaxBlocks of them (16
+// on each of the H100's 132 SMs); larger operators take the grid-stride
+// loop.
 
 #include <cuda_runtime.h>
 
 namespace crbe {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 16;
+
+// The host-side index (ctypes structure ops/gather._Index).
+struct EllIndex {
+  const int* cols;
+  int n;
+  int width;
+  long long op_stride;
+};
 
 template <typename T>
 __global__ void ell_gather_kernel(const T* __restrict__ vals,
@@ -53,18 +71,18 @@ __global__ void ell_gather_kernel(const T* __restrict__ vals,
 }
 
 template <typename T>
-int launch_ell_gather(const T* vals, const int* cols, const T* x, T* y, int n,
-                      int width, int batch, long long op_stride, int threads,
-                      int max_blocks, void* stream) {
-  if (n < 1 || width < 1 || batch < 1 || batch > 65535 || threads < 32 ||
-      threads > 1024 || max_blocks < 1 || op_stride < 0) {
+int launch_ell_gather(const EllIndex* ix, const T* vals, const T* x, T* y,
+                      int batch, void* stream) {
+  if (ix == nullptr || ix->n < 1 || ix->width < 1 || batch < 1 ||
+      batch > 65535 || ix->op_stride < 0) {
     return cudaErrorInvalidValue;
   }
-  long long blocks = (static_cast<long long>(n) + threads - 1) / threads;
-  if (blocks > max_blocks) blocks = max_blocks;
+  long long blocks = (static_cast<long long>(ix->n) + kThreads - 1) / kThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  ell_gather_kernel<T><<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vals, cols, x, y, n, width, op_stride);
+  ell_gather_kernel<T>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          vals, ix->cols, x, y, ix->n, ix->width, ix->op_stride);
   return cudaGetLastError();
 }
 
@@ -72,22 +90,15 @@ int launch_ell_gather(const T* vals, const int* cols, const T* x, T* y, int n,
 
 extern "C" {
 
-int crbe_ell_gather_f32(const float* vals, const int* cols, const float* x,
-                        float* y, int n, int width, int batch,
-                        long long op_stride, int threads, int max_blocks,
-                        void* stream) {
-  return crbe::launch_ell_gather<float>(vals, cols, x, y, n, width, batch,
-                                        op_stride, threads, max_blocks,
-                                        stream);
+int crbe_ell_gather_f32(const crbe::EllIndex* ix, const float* vals,
+                        const float* x, float* y, int batch, void* stream) {
+  return crbe::launch_ell_gather<float>(ix, vals, x, y, batch, stream);
 }
 
-int crbe_ell_gather_f64(const double* vals, const int* cols, const double* x,
-                        double* y, int n, int width, int batch,
-                        long long op_stride, int threads, int max_blocks,
+int crbe_ell_gather_f64(const crbe::EllIndex* ix, const double* vals,
+                        const double* x, double* y, int batch,
                         void* stream) {
-  return crbe::launch_ell_gather<double>(vals, cols, x, y, n, width, batch,
-                                         op_stride, threads, max_blocks,
-                                         stream);
+  return crbe::launch_ell_gather<double>(ix, vals, x, y, batch, stream);
 }
 
 const char* crbe_error_string(int err) {

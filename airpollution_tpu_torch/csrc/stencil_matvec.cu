@@ -1,5 +1,5 @@
 // y = A x in family layout with per-DOF coefficients: the structured CR
-// stencil matvec of the scan path (matvec_impl="pallas").
+// stencil matvec of the scan path (matvec_impl="pallas"), kernel B3.
 //
 // Replaces airpollution_tpu/ops/pallas_stencil.py::_stencil_kernel, which
 // holds all 15 coefficient grids and x, y in one TPU core's VMEM and forms
@@ -14,17 +14,37 @@
 // writes 1 value; x is read by up to 5 neighbours but neighbouring threads
 // share cache lines, so device memory sees each coefficient and x once:
 // (15 coefficient grids + x + y) x ~n^2 x sizeof(T), 5.5 MB at 257^2 in
-// f32. Consecutive threads take consecutive DOFs of one family row, so
-// every coefficient and x load is coalesced.
+// f32, which the 50 MB L2 holds across the launches of a solve.
+// Consecutive threads take consecutive DOFs of one family row, so every
+// coefficient and x load is coalesced.
+//
+// Design. A 1-D grid of kThreads-thread blocks over the DOFs of the three
+// family grids in turn: no thread or block is idle but the last block's
+// tail. The operator (15 coefficient pointers and n) is a host struct
+// built once per operator (ops/fused_stencil.StencilOperator) and passed
+// by pointer; the launcher copies it into the kernel's parameters, so a
+// launch takes four arguments. A 2-D variant (32 x 8 tiles, one per
+// block, no per-thread division) measured 10-13% slower at 257^2 on an
+// NVIDIA H100 80GB HBM3 at 700 W: at n = 2^k + 1 its partial and empty
+// tiles launch 13% more threads than there are DOFs (PERF.md).
 
 #include <cuda_runtime.h>
 
 namespace crbe {
 
+constexpr int kThreads = 256;
+
+// The host-side operator, built once per coefficient tuple (ctypes
+// structure ops/fused_stencil._Operator).
+struct StencilOperator {
+  const void* coefs[15];  // cHH cHVu cHDu cHVd cHDd  cVV cVDl cVHl cVHr cVDr
+                          // cDD cDVr cDHd cDHu cDVl (ops/stencil.py order)
+  int n;
+};
+
 template <typename T>
 struct StencilCoefs {
-  const T* c[15];  // cHH cHVu cHDu cHVd cHDd  cVV cVDl cVHl cVHr cVDr
-                   // cDD cDVr cDHd cDHu cDVl (ops/stencil.py order)
+  const T* c[15];
 };
 
 // 32-bit index arithmetic (the launch refuses a canvas past 2^31 DOFs):
@@ -77,18 +97,17 @@ __global__ void stencil_matvec_kernel(StencilCoefs<T> k, const T* __restrict__ x
 }
 
 template <typename T>
-int launch_matvec(const T* const* coefs, const T* x, T* y, int n, int threads,
-                  void* stream) {
-  const long c = n - 1;
-  const long total = 2 * static_cast<long>(n) * c + c * c;
-  if (n < 2 || threads < 32 || threads > 1024 || total >= (1L << 31)) {
-    return cudaErrorInvalidValue;
-  }
+int launch_matvec(const StencilOperator* op, const T* x, T* y, void* stream) {
+  if (op == nullptr) return cudaErrorInvalidValue;
+  const long n = op->n, c = n - 1;
+  const long total = 2 * n * c + c * c;
+  if (n < 2 || total >= (1L << 31)) return cudaErrorInvalidValue;
   StencilCoefs<T> k;
-  for (int t = 0; t < 15; ++t) k.c[t] = coefs[t];
-  const long blocks = (total + threads - 1) / threads;
-  stencil_matvec_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(k, x, y, n);
+  for (int t = 0; t < 15; ++t) k.c[t] = static_cast<const T*>(op->coefs[t]);
+  const long blocks = (total + kThreads - 1) / kThreads;
+  stencil_matvec_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(k, x, y,
+                                                                  op->n);
   return cudaGetLastError();
 }
 
@@ -96,19 +115,15 @@ int launch_matvec(const T* const* coefs, const T* x, T* y, int n, int threads,
 
 extern "C" {
 
-#define CRBE_STENCIL_ENTRY(NAME, T)                                          \
-  int NAME(const T* c0, const T* c1, const T* c2, const T* c3, const T* c4,  \
-           const T* c5, const T* c6, const T* c7, const T* c8, const T* c9,  \
-           const T* c10, const T* c11, const T* c12, const T* c13,           \
-           const T* c14, const T* x, T* y, int n, int threads,               \
-           void* stream) {                                                   \
-    const T* coefs[15] = {c0, c1, c2,  c3,  c4,  c5,  c6, c7,                \
-                          c8, c9, c10, c11, c12, c13, c14};                  \
-    return crbe::launch_matvec<T>(coefs, x, y, n, threads, stream);          \
-  }
+int crbe_stencil_matvec_f32(const crbe::StencilOperator* op, const float* x,
+                            float* y, void* stream) {
+  return crbe::launch_matvec<float>(op, x, y, stream);
+}
 
-CRBE_STENCIL_ENTRY(crbe_stencil_matvec_f32, float)
-CRBE_STENCIL_ENTRY(crbe_stencil_matvec_f64, double)
+int crbe_stencil_matvec_f64(const crbe::StencilOperator* op, const double* x,
+                            double* y, void* stream) {
+  return crbe::launch_matvec<double>(op, x, y, stream);
+}
 
 const char* crbe_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -831,8 +831,8 @@ class CRBESolver:
         _, dead = obstacle_masks(self.mesh_data, self.problem)
         fam_view = stencil_mod.family_view(self.mesh_data, pattern.perm,
                                            dead)
-        matvec_fn = None
-        if self.matvec_impl == "pallas":
+        kernel = self.matvec_impl == "pallas"
+        if kernel:
             from airpollution_tpu_torch.ops import fused_stencil
 
             if not fused_stencil.fits_vmem(pattern):
@@ -841,11 +841,10 @@ class CRBESolver:
                     "keeps the JAX package's VMEM budget); use "
                     "matvec_impl='stencil'"
                 )
-            matvec_fn = fused_stencil.stencil_matvec_fused
 
         def solve_stencil(ops, u0):
             ops_fam, matvec, ka_matvec = stencil_mod.family_operators(
-                pattern, ops, self.time_scheme_order, matvec_fn
+                pattern, ops, self.time_scheme_order, kernel
             )
             sols_fam, iters = run_time_loop(
                 ops_fam, u0[perm], mesh_data=fam_view, matvec=matvec,

@@ -3,11 +3,13 @@
 
 ``y[r] = sum_k vals[r, k] * x[cols[r, k]]``: one thread per output row
 reads its row's values and int32 columns and gathers x through the
-read-only cache (``csrc/ell_gather.cu``). A second grid dimension runs a
-batch of right-hand sides, over one shared operator or over a stack of
+read-only cache (``csrc/ell_gather.cu``). A second grid dimension runs
+a batch of right-hand sides, over one shared operator or over a stack of
 operators. It is the matvec of every general-mesh (ELL) solve, reached
 through ``ops/sparse.ell_matvec`` and ``ell_matvec_stacked``, whose
-backward runs it again over the transposed values.
+backward runs it again over the transposed values. The int32 columns are
+checked once, when the operator's index is built (:class:`KernelIndex`),
+so a product checks x and the values and makes one six-argument launch.
 
 On a CPU tensor every entry point runs the plain version,
 :func:`plain_matvec` (one torch gather, multiply and row sum).
@@ -21,17 +23,22 @@ import torch
 
 from airpollution_tpu_torch import _build
 
+
+class _Index(ctypes.Structure):
+    """``crbe::EllIndex``: the int32 columns and what a product's launch
+    takes from them."""
+
+    _fields_ = [("cols", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("width", ctypes.c_int), ("op_stride", ctypes.c_longlong)]
+
+
 KERNEL = _build.Kernel(
     "ell_gather", "ell_gather.cu",
     {torch.float32: "crbe_ell_gather_f32",
      torch.float64: "crbe_ell_gather_f64"},
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    [ctypes.POINTER(_Index)] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int, ctypes.c_void_p],
 )
-THREADS = 256
-# 16 blocks of 256 threads on each of the H100's 132 SMs; larger
-# operators take the grid-stride loop.
-MAX_BLOCKS = 132 * 16
 
 
 def fits_vmem(n: int, dtype_bytes: int = 4,
@@ -57,47 +64,74 @@ def plain_matvec(vals, cols, x):
     return torch.sum(vals * gather_cols(x, cols), dim=-1)
 
 
-def kernel_matvec(vals, cols32, x):
-    """One launch of B7 (CUDA tensors only): ``vals`` and int32 ``cols32``
-    (n, w) with x (..., n), or a stack (B, n, w) with x (B, n)."""
+class KernelIndex:
+    """Kernel B7's view of one operator's int32 columns, (n, w) or a stack
+    (B, n, w): checked once, with the launch structure built from them
+    (their pointer, n, w and the per-operator stride). It keeps the
+    columns, so the pointer stays valid while it lives; a copy or a
+    pickle binds the copied columns anew. ``sparse.ell_index``,
+    ``stack_ell`` and ``unstack_ell`` build one per index."""
+
+    def __init__(self, cols32):
+        if cols32.dtype != torch.int32:
+            raise ValueError("kernel B7 takes int32 columns")
+        if cols32.dim() not in (2, 3) or not cols32.is_contiguous():
+            raise ValueError("kernel B7's columns must be a contiguous "
+                             "(n, w) or (B, n, w) tensor")
+        n, width = cols32.shape[-2:]
+        self.cols32 = cols32
+        self.shape = cols32.shape
+        self.device = cols32.get_device()
+        self.struct = ctypes.pointer(_Index(
+            cols=cols32.data_ptr(), n=n, width=width,
+            op_stride=0 if cols32.dim() == 2 else n * width))
+
+    def __reduce__(self):
+        return KernelIndex, (self.cols32,)
+
+
+def kernel_matvec(vals, index, x):
+    """One launch of B7 (CUDA tensors only): ``vals`` on the columns of
+    ``index`` (a :class:`KernelIndex`), (n, w) with x (..., n), or a
+    stack (B, n, w) with x (B, n). The columns were checked when the index
+    was built; a product checks x and vals."""
     if not x.is_cuda:
         raise ValueError("kernel_matvec needs CUDA tensors")
-    if vals.dim() not in (2, 3) or cols32.shape != vals.shape:
-        raise ValueError("vals and cols must be (n, w) or (B, n, w) alike")
-    if cols32.dtype != torch.int32:
-        raise ValueError("kernel B7 takes int32 columns")
-    if (vals.dtype != x.dtype or vals.device != x.device
-            or cols32.device != x.device):
+    shape, device = index.shape, index.device
+    if vals.shape != shape:
+        raise ValueError(f"vals {tuple(vals.shape)} and cols "
+                         f"{tuple(shape)} differ")
+    if (vals.dtype != x.dtype or vals.get_device() != device
+            or x.get_device() != device):
         raise ValueError("vals, cols and x must share x's device, and vals "
                          "x's dtype")
-    n, width = vals.shape[-2:]
+    n = shape[-2]
     if x.shape[-1] != n:
         raise ValueError(f"x has {x.shape[-1]} rows, the operator {n}")
-    if vals.dim() == 2:
-        op_stride = 0
-        xb = x.reshape(-1, n).contiguous()
+    if len(shape) == 2:
+        batch = x.numel() // n  # x (..., n) is a (batch, n) block
     else:
-        if x.shape != vals.shape[:2]:
+        if x.shape != shape[:2]:
             raise ValueError("a stack of B operators takes x of shape (B, n)")
-        op_stride = n * width
-        xb = x.contiguous()
+        batch = shape[0]
+    xb = x.contiguous()
     y = torch.empty_like(xb)
-    P = _build.pointer
-    KERNEL.launch(x.dtype, P(vals), P(cols32), P(xb), P(y), n, width,
-                  xb.shape[0], op_stride, THREADS, MAX_BLOCKS,
+    KERNEL.launch(x.dtype, index.struct, _build.pointer(vals),
+                  xb.data_ptr(), y.data_ptr(), batch,
                   _build.current_stream())
-    return y.reshape(x.shape)
+    return y
 
 
-def matvec(vals, cols, cols32, x):
-    """B7 on a CUDA tensor, the plain version on a CPU one."""
+def matvec(vals, cols, index, x):
+    """B7 on a CUDA tensor (on the columns of ``index``, a
+    :class:`KernelIndex`), the plain version on a CPU one."""
     if x.is_cuda:
-        if cols32 is None:
+        if index is None:
             raise ValueError(
                 "kernel B7 needs the operator's int32 columns: build the "
                 "operator on an index from sparse.ell_index or "
                 "MeshData.ell_index")
-        return kernel_matvec(vals, cols32, x)
+        return kernel_matvec(vals, index, x)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return plain_matvec(vals, cols, x)
@@ -109,11 +143,11 @@ def ell_matvec_vmem(A, x, *, block_rows: int = 2048):
     is checked as the JAX function checks it; B7's blocks are its own."""
     if block_rows % 128:
         raise ValueError("block_rows must be a multiple of 128")
-    return matvec(A.vals, A.cols, A.cols32, x)
+    return matvec(A.vals, A.cols, A.b7, x)
 
 
 def ell_matvec_vmem_roll(A, x):
     """``y = A @ x``, the entry point of the JAX package's roll+gather
     kernel: the same kernel B7 (a CUDA thread gathers any address, so the
     TPU's lane rolls have no counterpart)."""
-    return matvec(A.vals, A.cols, A.cols32, x)
+    return matvec(A.vals, A.cols, A.b7, x)

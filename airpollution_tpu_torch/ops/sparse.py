@@ -10,8 +10,10 @@ on a CUDA tensor, its plain torch gather on a CPU one, with a gradient on
 both. The CR pattern is structurally symmetric (rows i and j couple iff
 their edges share a triangle), so ``A^T`` has the same columns and the
 values ``vals.flatten()[tslot]``; the backward runs B7 over those. The
-operator carries the kernel's int32 columns and ``tslot``, built once per
-pattern (:func:`ell_index`), so that no product casts or transposes.
+operator carries the kernel's int32 columns, checked once and bound to its
+launch structure (``gather.KernelIndex``), and ``tslot``, built once per
+pattern (:func:`ell_index`), so that no product casts, checks the
+columns or transposes.
 """
 
 from __future__ import annotations
@@ -30,19 +32,21 @@ class EllIndex(NamedTuple):
     cols: torch.Tensor  # (n_rows, width) int64, for torch's gathers
     cols32: torch.Tensor  # the same, int32, for kernel B7
     tslot: torch.Tensor  # (n_rows * width,) int64, see transpose_slots
+    b7: gather.KernelIndex  # cols32, checked once, with B7's launch struct
 
 
 class EllMatrix(NamedTuple):
     """Fixed-width sparse matrix: ``A[r, cols[r, k]] += vals[r, k]``.
 
-    ``cols32`` and ``tslot`` (:class:`EllIndex`) are what kernel B7 and
-    the backward need; an operator without them still multiplies on the
-    CPU, and raises where they are needed."""
+    ``cols32``, ``tslot`` and ``b7`` (:class:`EllIndex`) are what kernel
+    B7 and the backward need; an operator without them still multiplies
+    on the CPU, and raises where they are needed."""
 
     vals: torch.Tensor  # (n_rows, width)
     cols: torch.Tensor  # (n_rows, width) int64
     cols32: Optional[torch.Tensor] = None
     tslot: Optional[torch.Tensor] = None
+    b7: Optional[gather.KernelIndex] = None
 
     @property
     def n_rows(self) -> int:
@@ -97,9 +101,11 @@ def ell_index(cols, device, tslot=None) -> EllIndex:
     if tslot is None:
         tslot = transpose_slots(cols)
     c64 = torch.as_tensor(cols.astype(np.int64), device=device)
-    return EllIndex(cols=c64, cols32=c64.to(torch.int32),
+    c32 = c64.to(torch.int32)
+    return EllIndex(cols=c64, cols32=c32,
                     tslot=torch.as_tensor(np.asarray(tslot, dtype=np.int64),
-                                          device=device))
+                                          device=device),
+                    b7=gather.KernelIndex(c32))
 
 
 def _transposed_vals(vals, tslot):
@@ -126,16 +132,16 @@ class EllMatvec(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, vals, x, cols, cols32, tslot):
-        ctx.index = (cols, cols32, tslot)
+    def forward(ctx, vals, x, cols, b7, tslot):
+        ctx.index = (cols, b7, tslot)
         ctx.save_for_backward(vals, x)
         ctx.save_for_forward(vals, x)
-        return gather.matvec(vals, cols, cols32, x)
+        return gather.matvec(vals, cols, b7, x)
 
     @staticmethod
     def backward(ctx, y_bar):
         vals, x = ctx.saved_tensors
-        cols, cols32, tslot = ctx.index
+        cols, b7, tslot = ctx.index
         x_bar = vals_bar = None
         if ctx.needs_input_grad[1]:
             if tslot is None:
@@ -144,7 +150,7 @@ class EllMatvec(torch.autograd.Function):
                     "map: build the operator on an index from "
                     "sparse.ell_index or MeshData.ell_index")
             x_bar = EllMatvec.apply(_transposed_vals(vals, tslot), y_bar,
-                                    cols, cols32, tslot)
+                                    cols, b7, tslot)
         if ctx.needs_input_grad[0]:
             vals_bar = y_bar[..., None] * gather.gather_cols(x, cols)
             if cols.dim() == 2 and vals_bar.dim() > 2:
@@ -154,12 +160,12 @@ class EllMatvec(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, vals_dot, x_dot, *_):
         vals, x = ctx.saved_tensors
-        cols, cols32, _ = ctx.index
+        cols, b7, _ = ctx.index
         y_dot = None
         if vals_dot is not None:
-            y_dot = gather.matvec(vals_dot, cols, cols32, x)
+            y_dot = gather.matvec(vals_dot, cols, b7, x)
         if x_dot is not None:
-            ax = gather.matvec(vals, cols, cols32, x_dot)
+            ax = gather.matvec(vals, cols, b7, x_dot)
             y_dot = ax if y_dot is None else y_dot + ax
         return y_dot
 
@@ -167,19 +173,20 @@ class EllMatvec(torch.autograd.Function):
 def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x; ``x`` is (n,) or (..., n) (one operator applied to every
     row, e.g. every species)."""
-    return EllMatvec.apply(A.vals, x, A.cols, A.cols32, A.tslot)
+    return EllMatvec.apply(A.vals, x, A.cols, A.b7, A.tslot)
 
 
 def ell_matvec_stacked(A: EllMatrix, X: torch.Tensor) -> torch.Tensor:
     """Y[k] = A_k @ X[k] for a stack of operators with (K, n, width)
     values and columns, and a (K, n) X."""
-    return EllMatvec.apply(A.vals, X, A.cols, A.cols32, A.tslot)
+    return EllMatvec.apply(A.vals, X, A.cols, A.b7, A.tslot)
 
 
 def stack_ell(mats) -> EllMatrix:
     """A stack of operators on one pattern: values, int64 and int32
     columns stacked along a new leading axis (kernel B7 steps through
-    both per operator), one transposition map for all."""
+    both per operator, on a launch index of its own), one transposition
+    map for all."""
     def stack(name):
         parts = [getattr(m, name) for m in mats]
         return None if parts[0] is None else torch.stack(parts)
@@ -189,13 +196,16 @@ def stack_ell(mats) -> EllMatrix:
             m.tslot is not None and torch.equal(m.tslot, tslot)
             for m in mats[1:]):
         raise ValueError("stacked operators must share one pattern")
-    return EllMatrix(stack("vals"), stack("cols"), stack("cols32"), tslot)
+    cols32 = stack("cols32")
+    return EllMatrix(stack("vals"), stack("cols"), cols32, tslot,
+                     None if cols32 is None else gather.KernelIndex(cols32))
 
 
 def unstack_ell(A: EllMatrix, k: int) -> EllMatrix:
-    """Operator ``k`` of a stack."""
-    return EllMatrix(A.vals[k], A.cols[k],
-                     None if A.cols32 is None else A.cols32[k], A.tslot)
+    """Operator ``k`` of a stack, on a launch index of its own."""
+    cols32 = None if A.cols32 is None else A.cols32[k]
+    return EllMatrix(A.vals[k], A.cols[k], cols32, A.tslot,
+                     None if cols32 is None else gather.KernelIndex(cols32))
 
 
 def ell_from_entries(entry_vals, entry_to_slot, index: EllIndex) -> EllMatrix:

@@ -295,22 +295,32 @@ def family_view(mesh_data, perm, dead_mask=None) -> FamilyView:
 
 
 def family_operators(pattern: StencilPattern, ops, order: int,
-                     matvec_fn=None):
+                     kernel: bool = False):
     """Permuted diagonal operators plus stencil matvec closures (system,
     and K+A for Crank-Nicolson) for a family-layout time loop; the system
     matvec is a linalg.BoundMatvec over the 15 coefficient grids, so that
     a differentiable loop can take the operator's gradient through them.
-    ``matvec_fn`` defaults to :func:`stencil_matvec` (pass kernel B3's
-    wrapper, ops/fused_stencil.stencil_matvec_fused, to use the kernel)."""
-    mv = matvec_fn or stencil_matvec
+    With ``kernel`` the matvecs run kernel B3, bound once here to each
+    coefficient tuple (ops/fused_stencil.StencilOperator); else the plain
+    :func:`stencil_matvec`."""
     perm = torch.as_tensor(pattern.perm.astype(np.int64),
                            device=ops.mass_diag.device)
     coeffs = extract_coefficients(pattern, ops.system.vals)
-    matvec = BoundMatvec(lambda x, *cs: mv(pattern, cs, x), *coeffs)
+    ka_coeffs = (extract_coefficients(pattern, ops.ka.vals) if order == 2
+                 else None)
     ka_matvec = None
-    if order == 2:
-        ka_coeffs = extract_coefficients(pattern, ops.ka.vals)
-        ka_matvec = functools.partial(mv, pattern, ka_coeffs)
+    if kernel:
+        from airpollution_tpu_torch.ops.fused_stencil import StencilOperator
+
+        matvec = BoundMatvec(StencilOperator(pattern, coeffs).matvec,
+                             *coeffs)
+        if ka_coeffs is not None:
+            ka_matvec = StencilOperator(pattern, ka_coeffs)
+    else:
+        matvec = BoundMatvec(lambda x, *cs: stencil_matvec(pattern, cs, x),
+                             *coeffs)
+        if ka_coeffs is not None:
+            ka_matvec = functools.partial(stencil_matvec, pattern, ka_coeffs)
     ops_fam = ops._replace(mass_diag=ops.mass_diag[perm],
                            system_diag=ops.system_diag[perm])
     return ops_fam, matvec, ka_matvec

@@ -21,7 +21,8 @@ Phases, each printing one JSON line:
 5. the canvas operator (per-DOF coefficients): C1, a rotating wind at
    1025^2 on B4 (Chebyshev-14, BE and CN); C2, the same problem at 257^2 on
    B5 (BiCGStab-5); C3, Robin walls and an obstacle at 257^2 on B4 (CN,
-   Chebyshev-8) and on the scan path through B3;
+   Chebyshev-8) and on the scan path through B3 (with its steps/s beside
+   the plain stencil's);
 6. kernel B6 (multispecies step with in-kernel chemistry) and B4 with an
    emission load against their plain versions, f64 and f32;
 7. the multispecies chemistry-transport path (MultiSpeciesSolver, Strang,
@@ -73,7 +74,9 @@ Phases, each printing one JSON line:
     whole-canvas B2 solve; B9 on C1 against C1's B4 solve, and C3 on 2
     blocks with strided rows (dead DOFs exactly 0); B10 on M1's chain
     against M1's B6 solve;
-13. the kernels line (launches on each path, errors, times, bounds).
+13. the kernels line (launches on each path, errors, times, bounds; for
+    B3 and B7 also the host's time to enqueue one launch and the device
+    time alone, from a CUDA graph of 200 launches replayed).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -211,6 +214,68 @@ def cuda_ms(fn, reps):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_ms(fn, reps=200, batches=3):
+    """Host ms to enqueue one call of ``fn``, the card not awaited (the
+    median of ``batches`` runs of ``reps`` calls): where it is as long as
+    the call's time on the card, the launch path and not the card sets the
+    pace."""
+    import torch
+
+    times = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        times.append((time.perf_counter() - t0) / reps * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps=200):
+    """(device ms per call of ``fn``, how): ``reps`` calls captured in one
+    CUDA graph and replayed, timed with CUDA events, so that no host work
+    sits between the launches ("graph"); where capture is refused, the
+    mean kernel time per call from torch.profiler ("profiler")."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    except RuntimeError:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages())
+        return total / 1e3 / reps, "profiler"
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * reps)
+    del graph
+    return ms, "graph"
 
 
 def step_flops_per_dof(k, use_ka, extrapolate):
@@ -655,7 +720,8 @@ def phase_b3(meshes, problems, cache):
             md.number_of_segments), dtype=dtype, device=md.device)
         for pname in ("C1", "C3"):
             inp = canvas_inputs(md, problems[pname], 1, dtype, cache)
-            got = fused_stencil.kernel_matvec(inp["pattern"], inp["coeffs"], x)
+            got = fused_stencil.StencilOperator(inp["pattern"],
+                                                inp["coeffs"])(x)
             ref = stencil.stencil_matvec(inp["pattern"], inp["coeffs"], x)
             torch.cuda.synchronize()
             abs_e, rel, diff = rel_err(got, ref)
@@ -934,6 +1000,11 @@ def phase_robin_obstacle(md, md65, problem, domain):
     ref.solve(store_solutions=False)
     out.update({"b3_launches": b3, "b3_max_pallas_minus_stencil":
                 max_diff(pal, ref)})
+    # C3b's speed: warm solves of each (the first ones above built the
+    # operators and warmed every kernel).
+    for tag, solver in (("pallas", pal), ("stencil", ref)):
+        rates(out, f"b3_{tag}_", md65.nt - 1,
+              timed_solves(solver, 2, warm_up=False))
     check(b3 > 0, "C3b: the scan path did not launch kernel B3")
     check(out["b3_max_pallas_minus_stencil"] <= 1e-4,
           f"C3b: max|pallas - stencil| "
@@ -960,10 +1031,13 @@ def canvas_kernel_times(meshes, problems, cache):
     pattern, coeffs = inp["pattern"], inp["coeffs"]
     x = torch.tensor(np.random.default_rng(1).standard_normal(
         md.number_of_segments), dtype=f32, device=md.device)
-    abs_e, rel, _ = rel_err(fused_stencil.kernel_matvec(pattern, coeffs, x),
-                            stencil.stencil_matvec(pattern, coeffs, x))
+    op = fused_stencil.StencilOperator(pattern, coeffs)  # as a solve binds
+    abs_e, rel, _ = rel_err(op(x), stencil.stencil_matvec(pattern, coeffs, x))
     check(rel <= TOL["float32"], f"B3 257^2: rel err {rel:.3e}")
-    ms = cuda_ms(lambda: fused_stencil.kernel_matvec(pattern, coeffs, x), 200)
+    ms = cuda_ms(lambda: op(x), 200)
+    device, how = graph_ms(lambda: op(x))
+    extra = {"enqueue_ms": enqueue_ms(lambda: op(x)), "device_ms": device,
+             "device_timed_by": how}
     plain = cuda_ms(lambda: stencil.stencil_matvec(pattern, coeffs, x), 50)
     # The same function as one library call: the masked system in CSR, in
     # global DOF order (a permutation of the family layout).
@@ -978,7 +1052,9 @@ def canvas_kernel_times(meshes, problems, cache):
     library = cuda_ms(lambda: csr @ xg, 200)
     n_bytes = (sum(g.numel() for g in coeffs) + 2 * x.numel()) * 4
     b_ms, by = bound(n_bytes, 9 * x.numel())
-    out["B3"] = (ms, plain, b_ms, by, abs_e, library)
+    out["B3"] = (ms, plain, b_ms, by, abs_e, library, extra)
+    emit({"phase": "b3_kernel_times", "card": card_line(), "ms": ms,
+          **extra, "plain_ms": plain, "csr_ms": library, "bound_ms": b_ms})
     # B4: one step at 1025^2 on C1's operator, BE, extrapolated.
     k = C1_ITERS
     inp = canvas_inputs(meshes[(1025, "float32")], problems["C1"], 1, f32,
@@ -2476,7 +2552,7 @@ def plain_gather():
     from airpollution_tpu_torch.ops import gather
 
     kernel = gather.matvec
-    gather.matvec = lambda vals, cols, cols32, x: gather.plain_matvec(
+    gather.matvec = lambda vals, cols, index, x: gather.plain_matvec(
         vals, cols, x)
     try:
         yield
@@ -2551,7 +2627,7 @@ def phase_b7(cases):
                                        "stacked3": (stack, X, G)}.items():
             v = op.vals.clone().requires_grad_(True)
             xr = vec.clone().requires_grad_(True)
-            y = sparse.EllMatvec.apply(v, xr, op.cols, op.cols32, op.tslot)
+            y = sparse.EllMatvec.apply(v, xr, op.cols, op.b7, op.tslot)
             gv, gx = torch.autograd.grad(y, (v, xr), ybar)
             checks[f"{label}_grad_x"] = (gx, plain_transpose(op, ybar))
             checks[f"{label}_grad_vals"] = (
@@ -2639,18 +2715,12 @@ def b7_kernel_times(md_257, md_1025, setup):
                            ("B7b", gather.ell_matvec_vmem_roll)):
             ms_k = cuda_ms(lambda: entry(A, x), 200)
             out[f"{kid}_{ms}_ms"] = ms_k
-            # The host's time to enqueue one product, card not awaited:
-            # where it is as long as ms_k, the launch path and not the card
-            # sets the pace.
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(200):
-                entry(A, x)
-            out[f"{kid}_{ms}_host_enqueue_ms"] = (
-                time.perf_counter() - t0) / 200 * 1e3
-            torch.cuda.synchronize()
+            extra = {"enqueue_ms": enqueue_ms(lambda: entry(A, x))}
+            extra["device_ms"], extra["device_timed_by"] = graph_ms(
+                lambda: entry(A, x))
+            out.update({f"{kid}_{ms}_{key}": v for key, v in extra.items()})
             if ms == 257:
-                times[kid] = [ms_k, plain, b_ms, by, 0.0, library]
+                times[kid] = [ms_k, plain, b_ms, by, 0.0, library, extra]
         out[f"dofs_{ms}"] = n
         out[f"plain_{ms}_ms"] = plain
         out[f"csr_{ms}_ms"] = library
@@ -3646,13 +3716,14 @@ def main() -> int:
                                      problems, domain)
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
-        ms, plain, b_ms, by, abs_e, library = times[kid]
+        ms, plain, b_ms, by, abs_e, library, *extra = times[kid]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[kid],
             "max_abs_err": max(worst[kid], abs_e), "ms": ms,
             "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library,
+            **(extra[0] if extra else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -13,7 +13,8 @@ launch against the kernel's plain PyTorch version:
 - B4 (``csrc/canvas_step.cu``: one 1025^2 step of the rotating-wind
   canvas operator, Chebyshev-14 as C1 runs it, extrapolated, BE and CN)
   likewise;
-- B3 (``csrc/stencil_matvec.cu``: one 257^2 matvec) and B5
+- B3 (``csrc/stencil_matvec.cu``: one 257^2 matvec at its one block
+  size, through the bound operator) and B5
   (``csrc/canvas_solver.cu``: the whole 257^2, nt=1001 BiCGStab-5 solve)
   at each block size.
 
@@ -142,14 +143,11 @@ def sweep_b3_b5(md, problem):
     x = torch.tensor(np.random.default_rng(0).standard_normal(
         md.number_of_segments), dtype=torch.float32, device=md.device)
     ref = stencil.stencil_matvec(inp["pattern"], inp["coeffs"], x)
-    for threads in (128, 256, 512):
-        def run():
-            return fused_stencil.kernel_matvec(inp["pattern"], inp["coeffs"],
-                                               x, threads)
-        err = float((run() - ref).abs().max())
-        print(json.dumps({"kernel": "B3", "ms_mesh": 257, "threads": threads,
-                          "ms": cs.cuda_ms(run, 200), "max_abs_err": err}),
-              flush=True)
+    op = fused_stencil.StencilOperator(inp["pattern"], inp["coeffs"])
+    err = float((op(x) - ref).abs().max())
+    print(json.dumps({"kernel": "B3", "ms_mesh": 257,
+                      "ms": cs.cuda_ms(lambda: op(x), 200),
+                      "max_abs_err": err}), flush=True)
     C, u3 = cs.bicgstab_inputs(inp, torch.float32)
     kw = dict(n_steps=md.nt - 1, n_iters=5, use_ka=False, extrapolate=True)
     for threads in fused_solver.BLOCK_THREADS:
