@@ -18,19 +18,23 @@
 // Every species shares one transport operator (the coefficient stack of
 // canvas_tile.cuh); only the state and the loads are per species.
 //
-// Shape: canvas_step.cu's shrinking squares with the halo h = k (+1
-// Crank-Nicolson). The first mix is pointwise in space, so applied to the
-// whole window it needs no extra halo. A block loads the K species'
+// Design (canvas_tile.cuh): each thread owns a fixed set of window cells
+// and reads their 18 operator values into registers once per launch, for
+// all K species and all their phases; x and r of the species being solved
+// stay in registers too. The first mix is pointwise in space, so applied
+// to the whole window it needs no extra halo: a block loads the K species'
 // windows, mixes them in registers and keeps the K x 3 mixed planes in
-// shared memory; it then solves the species one after another, each in
-// its own planes (x starts as the mixed state, which CN's S u reads
-// unmasked) with three shared r, d and d_next planes; it mixes the solved
-// states again on the tile only and writes K x 3 T^2 values. Shared
-// memory: (3K + 9) planes of (T + 2h)^2 cells, 180 KB at K=3, k=8, CN,
-// T=32 in f32 (T=16 in f64: 166 KB); ops/fused_hbm picks T per (K, k,
-// dtype). Dead DOFs stay exactly 0: the mix of zeros is zero, and a dead
-// row of the masked operator is an identity row with zero mass and zero
-// columns; the loads are zero there (ops/loads.EmissionLoads).
+// shared memory (Crank-Nicolson's S u reads them across threads); it then
+// solves the species one after another through canvas_tile.cuh's phases,
+// d and d_next in 6 shared planes, each species' last x += d landing in its
+// own mixed planes on the tile; it mixes the solved states again on the
+// tile only and writes K x 3 T^2 values. Shared memory: (3K + 6) planes of
+// (T + 2h)^2 cells; ops/fused_hbm.multispecies_plan picks T and the depth
+// per (K, k, dtype). A deep step is split over `depth` launches as in B4,
+// x, r and d of every species through a (K, 9, n, n) work buffer (two from
+// depth 3 on). Dead DOFs stay exactly 0: the mix of zeros is zero, and a
+// dead row of the masked operator is an identity row with zero mass and
+// zero columns; the loads are zero there (ops/loads.EmissionLoads).
 //
 // Emission loads: the TPU kernel evaluates each species' Python source
 // hook inside the kernel. A hook cannot be compiled into this kernel, so
@@ -43,19 +47,18 @@
 // sharded-block mode that airpollution_tpu/parallel/hbm_shard.py launches
 // per device (build_multispecies_hbm_halo_solver). It is the kBlock
 // instantiation (tile_step.cuh's block mode): the coefficient stack, the
-// K species' states and the loads are extended blocks of rows = local +
-// 2 halo rows; the mixes are pointwise, so mixing the halo rows the caller
-// refreshed gives exactly what the neighbouring block computes there, and
-// K species share one exchange of their halo rows.
+// K species' states, the loads and the work buffers are extended blocks of
+// rows = local + 2 halo rows; the mixes are pointwise, so mixing the halo
+// rows the caller refreshed gives exactly what the neighbouring block
+// computes there, and K species share one exchange of their halo rows.
 //
 // What bounds it on an H100: device memory must see the coefficient stack
 // once and the K species states once each way per step, plus each load:
 // (21 + 6K) x n^2 x sizeof(T) + 3 n^2 sizeof(T) per sourced species,
 // 176 MB at 1025^2, K=3, one load, in f32: 0.053 ms at 3.35 TB/s. Its
-// ~1.5 GFLOP take 0.023 ms at 67 TFLOP/s. As in B4, each cell reads its
-// coefficients through __ldg in every phase, now K times per step, so
-// L1 / L2 traffic, not device memory, is the likely limit of this simple
-// design.
+// ~1.5 GFLOP take 0.023 ms at 67 TFLOP/s. Each launch reads its windows'
+// coefficients once for all K species ((T + 2h)^2 / T^2 times the stack);
+// the parent design read them K (k + 2) times.
 
 #include <cuda_runtime.h>
 
@@ -88,69 +91,89 @@ __device__ __forceinline__ void mix(const T* E, int K,
   }
 }
 
-template <int NT, typename T, bool kLoad, bool kBlock>
-__global__ void __launch_bounds__(NT)
-    multispecies_step_kernel(Geometry g, Rect rc, Species sp,
+template <typename T, bool kLoad, bool kBlock>
+__global__ void __launch_bounds__(Shape<T>::kThreads, 1)
+    multispecies_step_kernel(Geometry g, Rect rc, Span span, Species sp,
                              const T* __restrict__ C, const T* scal,
                              const T* u_in, const T* loads, T* u_out,
-                             const int* halt) {
+                             const int* halt, const T* work_in,
+                             T* work_out) {
   if (halt != nullptr && *halt >= 0) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // Chebyshev scalars, then E_half (K x K, row-major).
   __shared__ T s[kChebScal + kMaxSpecies * kMaxSpecies];
   const int K = sp.K;
   const int n_scal = 1 + 2 * g.n_iters + K * K;
-  for (int i = threadIdx.x; i < n_scal; i += NT) s[i] = scal[i];
-  __syncthreads();
+  for (int i = threadIdx.x; i < n_scal; i += blockDim.x) s[i] = scal[i];
   const T* E = s + 1 + 2 * g.n_iters;
 
   const Window<kBlock> w(g, blockIdx.x);
   const int PS = w.PS;
-  T* U = reinterpret_cast<T*>(smem_raw);  // K x 3 species planes
-  T* R = U + 3 * K * PS;
+  T* const D0 = reinterpret_cast<T*>(smem_raw);
+  T* const D1 = D0 + 3 * PS;
+  T* const U = D1 + 3 * PS;  // K x 3 species planes
+  Cells<T, kBlock> cells(w, C);
+  __syncthreads();  // the scalars
 
-  // 1. Load the K species windows (zero outside the canvas) and apply the
-  //    first half-mix on the whole window.
-  for_square<NT>(w.W, 0, [&](int wr, int wc) {
-    size_t off;
-    const bool inside = w.cell(wr, wc, off);
-    const int q = wr * w.W + wc;
-#pragma unroll
-    for (int f = 0; f < 3; ++f) {
-      T v[kMaxSpecies], m[kMaxSpecies];
-#pragma unroll
-      for (int j = 0; j < kMaxSpecies; ++j) {
-        v[j] = (j < K && inside) ? u_in[(3 * j + f) * w.nn + off] : T(0);
-      }
-      mix(E, K, v, m);
-#pragma unroll
-      for (int k = 0; k < kMaxSpecies; ++k) {
-        if (k < K) U[(3 * k + f) * PS + q] = m[k];
-      }
-    }
-  });
-  __syncthreads();
-
-  // 2. Solve the species one after another, each in its own planes; the
-  //    last x += d lands on the tile in place.
-  for (int k = 0; k < K; ++k) {
-    T* X = U + 3 * k * PS;
-    const int li = sp.load_index[k];
-    const T* load = li >= 0 ? loads + static_cast<size_t>(li) * 3 * w.nn
-                            : nullptr;
-    const T* Dc = canvas_solve<NT, kLoad>(g, w, rc, C, s, X, R, R + 3 * PS,
-                                          R + 6 * PS, load);
-    for_square<NT>(w.W, w.h, [&](int wr, int wc) {
+  // 1. First span: load the K species windows (zero outside the canvas)
+  //    and apply the first half-mix on the whole window.
+  if (span.first) {
+    cells.each(0, [&](int, int wr, int wc) {
+      size_t off;
+      const bool inside = w.cell(wr, wc, off);
       const int q = wr * w.W + wc;
 #pragma unroll
-      for (int f = 0; f < 3; ++f) X[f * PS + q] += Dc[f * PS + q];
+      for (int f = 0; f < 3; ++f) {
+        T v[kMaxSpecies], m[kMaxSpecies];
+#pragma unroll
+        for (int j = 0; j < kMaxSpecies; ++j) {
+          v[j] = (j < K && inside) ? u_in[(3 * j + f) * w.nn + off] : T(0);
+        }
+        mix(E, K, v, m);
+#pragma unroll
+        for (int k = 0; k < kMaxSpecies; ++k) {
+          if (k < K) U[(3 * k + f) * PS + q] = m[k];
+        }
+      }
     });
-    __syncthreads();  // the next species reuses R, d and d_next
+    __syncthreads();
   }
+
+  // 2. The species one after another, each from its mixed planes (first
+  //    span) or its work planes (later spans); the last span's x += d lands
+  //    in its mixed planes on the tile. Every cell a thread reads or writes
+  //    outside a matvec is its own, so the phases' barriers are the only
+  //    ones needed between species.
+  const size_t work_stride = 9 * w.nn;
+  for (int k = 0; k < K; ++k) {
+    T* X = U + 3 * k * PS;
+    int lo = 0;
+    if (span.first) {
+      const int li = sp.load_index[k];
+      const T* load = li >= 0 ? loads + static_cast<size_t>(li) * 3 * w.nn
+                              : nullptr;
+      cells.template rhs<kLoad>(g, rc, C, X, load, nullptr, nullptr, 0, D1);
+      __syncthreads();
+      lo = g.use_ka ? 2 : 1;
+      cells.initial(lo, s[0], D1, D0);
+    } else {
+      cells.resume(work_in + k * work_stride, D0);
+    }
+    __syncthreads();
+    const T* D = cells.iterate(s, g.n_iters, span.it0, span.it1, lo, D0, D1);
+    if (span.last) {
+      cells.finish(D, [&](int, int wr, int wc, int f, T v) {
+        X[f * PS + wr * w.W + wc] = v;
+      });
+    } else {
+      cells.suspend(D, work_out + k * work_stride);
+    }
+  }
+  if (!span.last) return;
 
   // 3. Second half-mix on the tile, written back (its interior rows in
   //    block mode, 0 past the canvas).
-  for_square<NT>(w.W, w.h, [&](int wr, int wc) {
+  cells.each(w.h, [&](int, int wr, int wc) {
     size_t off;
     bool live;
     if (!w.store(wr, wc, off, live)) return;
@@ -171,47 +194,55 @@ __global__ void __launch_bounds__(NT)
   });
 }
 
-template <int NT, typename T, bool kLoad, bool kBlock>
-int launch_multispecies_as(const T* C, const T* scal, const T* u_in,
-                           const T* loads, T* u_out, const int* halt,
-                           Geometry g, Rect rc, const Species& sp,
-                           void* stream) {
-  const size_t w = static_cast<size_t>(g.tile + 2 * g.halo);
-  const size_t smem = (3 * sp.K + 9) * w * w * sizeof(T);
-  static size_t smem_set = 0;
-  cudaError_t err =
-      ensure_smem(multispecies_step_kernel<NT, T, kLoad, kBlock>, smem,
-                  &smem_set);
-  if (err != cudaSuccess) return err;
-  multispecies_step_kernel<NT, T, kLoad, kBlock>
-      <<<g.tile_rows * g.tiles_per_row, NT, smem,
-         static_cast<cudaStream_t>(stream)>>>(g, rc, sp, C, scal, u_in,
-                                              loads, u_out, halt);
-  return cudaGetLastError();
+inline size_t multispecies_smem_bytes(int tile, int halo, int K,
+                                      size_t elem) {
+  const size_t w = static_cast<size_t>(tile + 2 * halo);
+  return (3 * static_cast<size_t>(K) + 6) * w * w * elem;
 }
 
-// Source-free launches take the instantiation without the load test.
-template <int NT, typename T, bool kBlock>
-int launch_multispecies_nt(const T* C, const T* scal, const T* u_in,
-                           const T* loads, T* u_out, const int* halt,
-                           Geometry g, Rect rc, const Species& sp,
-                           void* stream) {
-  if (loads != nullptr) {
-    return launch_multispecies_as<NT, T, true, kBlock>(
-        C, scal, u_in, loads, u_out, halt, g, rc, sp, stream);
+template <typename T, bool kLoad, bool kBlock>
+int launch_multispecies_spans(const T* C, const T* scal, const T* u_in,
+                              const T* loads, T* u_out, const int* halt,
+                              T* work, Geometry g, Rect rc, const Species& sp,
+                              int depth, void* stream) {
+  if (depth > 1 && work == nullptr) return cudaErrorInvalidValue;
+  auto kernel = multispecies_step_kernel<T, kLoad, kBlock>;
+  static size_t smem_set = 0;
+  const size_t per = 9 * static_cast<size_t>(sp.K) *
+                     (kBlock ? g.rows : g.n) * g.n;
+  T* bufs[2] = {work, work == nullptr ? nullptr : work + per};
+  for (int j = 0; j < depth; ++j) {
+    int halo;
+    const Span span = make_span(g.n_iters, g.use_ka, false, depth, j, &halo);
+    if (!window_fits<T>(g.tile, halo)) return cudaErrorInvalidValue;
+    const Geometry gj = span_geometry<kBlock>(g, halo, span);
+    const size_t smem = multispecies_smem_bytes(g.tile, halo, sp.K,
+                                                sizeof(T));
+    cudaError_t err = ensure_smem(kernel, smem, &smem_set);
+    if (err != cudaSuccess) return err;
+    kernel<<<gj.tile_rows * gj.tiles_per_row, Shape<T>::kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        gj, rc, span, sp, C, scal, u_in, loads, u_out, halt,
+        j > 0 ? bufs[(j - 1) & 1] : nullptr,
+        span.last ? nullptr : bufs[j & 1]);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
   }
-  return launch_multispecies_as<NT, T, false, kBlock>(
-      C, scal, u_in, loads, u_out, halt, g, rc, sp, stream);
+  return cudaSuccess;
 }
 
 template <typename T, bool kBlock>
 int launch_multispecies(const T* C, const T* scal, const T* u_in,
-                        const T* loads, T* u_out, const int* halt,
+                        const T* loads, T* u_out, const int* halt, T* work,
                         const int* load_index, int n_species, Geometry g,
-                        int h_lo, int h_hi, int v_lo, int v_hi, int threads,
+                        int h_lo, int h_hi, int v_lo, int v_hi, int depth,
                         void* stream) {
-  if (g.n_iters < 1 || g.n_iters > kMaxIters) return cudaErrorInvalidValue;
-  if (g.halo < g.n_iters + (g.use_ka ? 1 : 0)) return cudaErrorInvalidValue;
+  if (g.n_iters < 1 || g.n_iters > kMaxIters || g.tile < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (!depth_fits(g.n_iters, g.use_ka, false, depth)) {
+    return cudaErrorInvalidValue;
+  }
   if (kBlock && !block_fits(g)) return cudaErrorInvalidValue;
   if (n_species < 1 || n_species > kMaxSpecies) return cudaErrorInvalidValue;
   Species sp;
@@ -223,78 +254,74 @@ int launch_multispecies(const T* C, const T* scal, const T* u_in,
     }
   }
   Rect rc{h_lo, h_hi, v_lo, v_hi};
-  if (threads == 512) {
-    return launch_multispecies_nt<512, T, kBlock>(C, scal, u_in, loads, u_out,
-                                                  halt, g, rc, sp, stream);
+  if (loads != nullptr) {
+    return launch_multispecies_spans<T, true, kBlock>(
+        C, scal, u_in, loads, u_out, halt, work, g, rc, sp, depth, stream);
   }
-  if constexpr (!kBlock) {
-    if (threads == 256) {
-      return launch_multispecies_nt<256, T, false>(C, scal, u_in, loads,
-                                                   u_out, halt, g, rc, sp,
-                                                   stream);
-    }
-  }
-  return cudaErrorInvalidValue;
+  return launch_multispecies_spans<T, false, kBlock>(
+      C, scal, u_in, loads, u_out, halt, work, g, rc, sp, depth, stream);
 }
 
 }  // namespace crbe
 
 extern "C" {
 
-// load_index: a host array of n_species ints.
+// load_index: a host array of n_species ints; work: 9 K n^2 values at
+// depth 2, twice that from depth 3 (null at depth 1).
 int crbe_multispecies_step_f32(const float* C, const float* scal,
                                const float* u_in, const float* loads,
-                               float* u_out, const int* halt,
+                               float* u_out, const int* halt, float* work,
                                const int* load_index, int n_species, int n,
-                               int tile, int halo, int n_iters, int use_ka,
+                               int tile, int depth, int n_iters, int use_ka,
                                int h_lo, int h_hi, int v_lo, int v_hi,
-                               int threads, void* stream) {
+                               void* stream) {
   return crbe::launch_multispecies<float, false>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species,
-      crbe::step_geometry(n, tile, halo, n_iters, use_ka), h_lo, h_hi, v_lo,
-      v_hi, threads, stream);
+      C, scal, u_in, loads, u_out, halt, work, load_index, n_species,
+      crbe::step_geometry(n, tile, 0, n_iters, use_ka), h_lo, h_hi, v_lo,
+      v_hi, depth, stream);
 }
 
 int crbe_multispecies_step_f64(const double* C, const double* scal,
                                const double* u_in, const double* loads,
-                               double* u_out, const int* halt,
+                               double* u_out, const int* halt, double* work,
                                const int* load_index, int n_species, int n,
-                               int tile, int halo, int n_iters, int use_ka,
+                               int tile, int depth, int n_iters, int use_ka,
                                int h_lo, int h_hi, int v_lo, int v_hi,
-                               int threads, void* stream) {
+                               void* stream) {
   return crbe::launch_multispecies<double, false>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species,
-      crbe::step_geometry(n, tile, halo, n_iters, use_ka), h_lo, h_hi, v_lo,
-      v_hi, threads, stream);
+      C, scal, u_in, loads, u_out, halt, work, load_index, n_species,
+      crbe::step_geometry(n, tile, 0, n_iters, use_ka), h_lo, h_hi, v_lo,
+      v_hi, depth, stream);
 }
 
 // Kernel B10: C is the block's (21, rows, n) stack, u_in and u_out
-// (3 K, rows, n) blocks, loads (n_src, 3, rows, n); the rectangle bounds
-// are global.
+// (3 K, rows, n) blocks, loads (n_src, 3, rows, n), each work buffer
+// (K, 9, rows, n); the rectangle bounds are global. The block's halo
+// (int_lo) must cover the whole step's halo, k + use_ka.
 int crbe_multispecies_block_step_f32(
     const float* C, const float* scal, const float* u_in, const float* loads,
-    float* u_out, const int* halt, const int* load_index, int n_species,
-    int n, int rows, int row0, int int_lo, int int_hi, int tile, int halo,
-    int n_iters, int use_ka, int h_lo, int h_hi, int v_lo, int v_hi,
-    void* stream) {
+    float* u_out, const int* halt, float* work, const int* load_index,
+    int n_species, int n, int rows, int row0, int int_lo, int int_hi,
+    int tile, int depth, int n_iters, int use_ka, int h_lo, int h_hi,
+    int v_lo, int v_hi, void* stream) {
   return crbe::launch_multispecies<float, true>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species,
-      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile, halo,
-                           n_iters, use_ka),
-      h_lo, h_hi, v_lo, v_hi, crbe::kBlockThreads, stream);
+      C, scal, u_in, loads, u_out, halt, work, load_index, n_species,
+      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile,
+                           n_iters + use_ka, n_iters, use_ka),
+      h_lo, h_hi, v_lo, v_hi, depth, stream);
 }
 
 int crbe_multispecies_block_step_f64(
     const double* C, const double* scal, const double* u_in,
-    const double* loads, double* u_out, const int* halt,
+    const double* loads, double* u_out, const int* halt, double* work,
     const int* load_index, int n_species, int n, int rows, int row0,
-    int int_lo, int int_hi, int tile, int halo, int n_iters, int use_ka,
+    int int_lo, int int_hi, int tile, int depth, int n_iters, int use_ka,
     int h_lo, int h_hi, int v_lo, int v_hi, void* stream) {
   return crbe::launch_multispecies<double, true>(
-      C, scal, u_in, loads, u_out, halt, load_index, n_species,
-      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile, halo,
-                           n_iters, use_ka),
-      h_lo, h_hi, v_lo, v_hi, crbe::kBlockThreads, stream);
+      C, scal, u_in, loads, u_out, halt, work, load_index, n_species,
+      crbe::block_geometry(n, rows, row0, int_lo, int_hi, tile,
+                           n_iters + use_ka, n_iters, use_ka),
+      h_lo, h_hi, v_lo, v_hi, depth, stream);
 }
 
 const char* crbe_error_string(int err) {

@@ -40,9 +40,13 @@ sourced species. A steady source's load is built once per solve, any
 other's before every launch; a Robin flux load rewrites only the wall
 lines, before every launch.
 
-Each step is one launch: one block per 2-D output tile runs the whole
-step (RHS, warm start, k Chebyshev iterations) on a window with a halo in
-both directions, reading the state once and writing it once. The host
+Each step is one call of a kernel's entry point: one block per 2-D output
+tile runs the step (RHS, warm start, k Chebyshev iterations) on a window
+with a halo in both directions, reading the state once and writing it
+once. B4 and B6 (and their raw and block modes) hold each window's
+operator in registers, so a step too deep for them runs as 2-4 launches
+of a part of its iterations each (:func:`canvas_plan`), x, r and d passed
+on through a work buffer (:func:`work_buffer`). The host
 loops over steps in chunks of ``guard_every``; after each chunk a
 divergence flag is updated on the device, never read there, and read once
 by the caller. Once the flag is set, later launches return at once.
@@ -55,6 +59,7 @@ On a CPU tensor each step is the kernel's plain version
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -77,24 +82,26 @@ LOAD_KERNEL = _build.Kernel(
      torch.float64: "crbe_uniform_step_load_f64"},
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
+# The canvas kernels (B4, its raw mode, B6) take a plan's tile and depth
+# and a work buffer (null at depth 1) instead of a halo and a block size.
 CANVAS_KERNEL = _build.Kernel(
     "canvas_step", "canvas_step.cu",
     {torch.float32: "crbe_canvas_step_f32",
      torch.float64: "crbe_canvas_step_f64"},
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 )
 CANVAS_RAW_KERNEL = _build.Kernel(
     "canvas_step_raw", "canvas_step.cu",
     {torch.float32: "crbe_canvas_step_raw_f32",
      torch.float64: "crbe_canvas_step_raw_f64"},
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 )
 MULTISPECIES_KERNEL = _build.Kernel(
     "multispecies_step", "multispecies_step.cu",
     {torch.float32: "crbe_multispecies_step_f32",
      torch.float64: "crbe_multispecies_step_f64"},
-    [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
-    + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 # The block modes (B8, B9, B10): one row block per launch, with the block's
 # rows, global row offset and interior as five more ints, and no block size
@@ -115,26 +122,19 @@ CANVAS_BLOCK_KERNEL = _build.Kernel(
     "canvas_block_step", "canvas_step.cu",
     {torch.float32: "crbe_canvas_block_step_f32",
      torch.float64: "crbe_canvas_block_step_f64"},
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 )
 MULTISPECIES_BLOCK_KERNEL = _build.Kernel(
     "multispecies_block_step", "multispecies_step.cu",
     {torch.float32: "crbe_multispecies_block_step_f32",
      torch.float64: "crbe_multispecies_block_step_f64"},
-    [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)]
     + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 )
 
 #: Output tile edge, measured on an H100 (scripts/torch_port_tile_sweep.py):
 #: fastest at 1025^2 with Chebyshev-8, 1,089 blocks of 512 threads.
 TILE = 32
-#: B4's output tile edge and block size (scripts/torch_port_tile_sweep.py).
-CANVAS_TILE = 32
-CANVAS_THREADS = 512
-#: B6's largest output tile edge and block size; the tile shrinks with K,
-#: k and the dtype until the window planes fit (multispecies_tile).
-MULTISPECIES_TILE = 32
-MULTISPECIES_THREADS = 512
 MAX_SPECIES = 8  # csrc/multispecies_step.cu kMaxSpecies
 
 
@@ -161,6 +161,160 @@ def robin_rect_bounds(c, robin_sides):
             c + 1 if "right" in sides else c)
 
 
+# --- the canvas kernels' plan (B4, B4's raw mode, B6 and their block modes)
+
+#: The canvas kernels' (B4's and B6's) compiled launch shape per dtype,
+#: threads per block and window cells per thread (csrc/canvas_tile.cuh
+#: CANVAS_THREADS_* / CANVAS_CELLS_*): a window holds at most their product
+#: of cells, each thread keeping its cells' 18 operator values, x and r in
+#: registers. Measured on an H100 (scripts/torch_port_b4_b6_ab.py --sweep).
+CANVAS_SHAPE = {torch.float32: (512, 4), torch.float64: (256, 4)}
+#: The most launches one step is split into (csrc/canvas_tile.cuh
+#: kMaxDepth), and the output tiles the planner tries.
+MAX_DEPTH = 4
+PLAN_TILES = (64, 56, 48, 44, 40, 36, 32, 30, 28, 26, 24, 22, 20, 18, 16,
+              14, 12, 10, 8)
+#: Plans measured on an H100 (scripts/torch_port_b4_b6_ab.py --sweep) for the
+#: main paths' shapes, keyed by (mode, k, use_ka, K, dtype); every other
+#: shape takes the cost model of :func:`canvas_plan`.
+MEASURED_PLANS = {("raw", 12, False, 1, torch.float32): (28, 2)}
+
+
+class CanvasPlan(NamedTuple):
+    """How a canvas step is launched: the output tile edge and the number
+    of launches (spans) the step's phases are split over."""
+
+    tile: int
+    depth: int = 1
+
+
+def step_halo(n_iters: int, use_ka: bool, raw: bool = False) -> int:
+    """The phases of one step that shrink the window's square: B4's and
+    B6's halo k + use_ka (fused_solver.halo_of), raw mode's k - 1 (x0 = 0,
+    so its first matvec is skipped)."""
+    return n_iters - 1 if raw else n_iters + int(use_ka)
+
+
+class Span(NamedTuple):
+    """One launch of a split step (csrc/canvas_tile.cuh make_span): its
+    halo, the Chebyshev iterations [it0, it1) it runs (those with a matvec,
+    0 .. k - 2), and ``ext``, the halos of the spans after it."""
+
+    halo: int
+    it0: int
+    it1: int
+    first: bool
+    last: bool
+    ext: int
+
+
+def depth_fits(n_iters: int, use_ka: bool, raw: bool, depth: int) -> bool:
+    """Whether ``depth`` spans split the step: each later span runs at
+    least one iteration, the first holds the right-hand side and the
+    initial residual (raw mode: at least one iteration)."""
+    H = step_halo(n_iters, use_ka, raw)
+    if not 1 <= depth <= MAX_DEPTH:
+        return False
+    lead = 1 if raw else int(use_ka) + 1
+    return depth == 1 or (depth <= H and H // depth
+                          + (1 if H % depth else 0) >= lead)
+
+
+def canvas_spans(n_iters: int, use_ka: bool, raw: bool, depth: int):
+    """The spans of a step split over ``depth`` launches: the H shrinking
+    phases dealt as evenly as possible, the earlier spans taking the
+    remainder, as the kernels deal them."""
+    if not depth_fits(n_iters, use_ka, raw, depth):
+        raise ValueError(f"depth {depth} does not split a step of "
+                         f"chebyshev_iters={n_iters}")
+    H = step_halo(n_iters, use_ka, raw)
+    halos = [H // depth + (1 if j < H % depth else 0) for j in range(depth)]
+    lead = 0 if raw else int(use_ka) + 1
+    spans, before = [], 0
+    for j, h in enumerate(halos):
+        spans.append(Span(h, 0 if j == 0 else before - lead,
+                          before + h - lead, j == 0, j == depth - 1,
+                          sum(halos[j + 1:])))
+        before += h
+    return tuple(spans)
+
+
+def _elem(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+def plan_fits(plan: CanvasPlan, n_iters: int, use_ka: bool, dtype, *,
+              raw: bool = False, n_species: int | None = None,
+              shape=None) -> bool:
+    """Whether every span's window fits the compiled shape's registers
+    (W^2 <= threads x cells; ``shape`` another (threads, cells) than
+    :data:`CANVAS_SHAPE`'s) and its planes shared memory: 6 (d and d_next)
+    for B4, 3K + 6 for B6."""
+    if not depth_fits(n_iters, use_ka, raw, plan.depth):
+        return False
+    w = plan.tile + 2 * canvas_spans(n_iters, use_ka, raw,
+                                     plan.depth)[0].halo
+    threads, cells = shape or CANVAS_SHAPE[dtype]
+    planes = 6 if n_species is None else 3 * n_species + 6
+    return (w * w <= threads * cells
+            and planes * w * w * _elem(dtype) <= fused_solver.SMEM_BUDGET)
+
+
+def plan_cost(plan: CanvasPlan, n_iters: int, use_ka: bool, *,
+              raw: bool = False, n_species: int = 1) -> float:
+    """The cost model behind :func:`canvas_plan`, per output cell, in units
+    of one cell's matvec phase: each span reads its window's values (the 18
+    operator values; the first span the mass and the K states, a later one
+    r and d of the K species), ~0.4 each, writes 3K values per tile cell
+    (9K when another span follows), and runs its phases, each costing its
+    square's rows times the window's width (the cells are dealt to warps
+    in row-major order)."""
+    K = n_species
+    cost = 0.0
+    for sp in canvas_spans(n_iters, use_ka, raw, plan.depth):
+        w = plan.tile + 2 * sp.halo
+        reads = 18 + (3 + 3 * K if sp.first else 6 * K)
+        cost += 0.4 * (reads * w * w
+                       + (3 if sp.last else 9) * K * plan.tile ** 2)
+        cost += K * sum((w - 2 * lo) * w for lo in range(sp.halo + 1))
+    return cost / plan.tile ** 2
+
+
+@functools.lru_cache(maxsize=None)
+def canvas_plan(n_iters: int, use_ka: bool, dtype, *, raw: bool = False,
+                n_species: int | None = None) -> CanvasPlan:
+    """The launch plan of a canvas step (B4 and B9; ``raw``: B4's raw
+    mode; ``n_species``: B6 and B10): the measured plan of the shape where
+    there is one (:data:`MEASURED_PLANS`), else the fitting (tile, depth)
+    of least :func:`plan_cost` (cached: the differentiable engine asks once
+    per solve). Raises ValueError when nothing fits."""
+    mode = "raw" if raw else ("multispecies" if n_species else "step")
+    key = (mode, n_iters, bool(use_ka), n_species or 1, dtype)
+    if key in MEASURED_PLANS:
+        return CanvasPlan(*MEASURED_PLANS[key])
+    fits = [CanvasPlan(t, d) for d in range(1, MAX_DEPTH + 1)
+            for t in PLAN_TILES
+            if plan_fits(CanvasPlan(t, d), n_iters, use_ka, dtype, raw=raw,
+                         n_species=n_species)]
+    if not fits:
+        halo = step_halo(n_iters, use_ka, raw)
+        raise ValueError(f"halo {halo} too deep for the shared-memory budget")
+    return min(fits, key=lambda p: (plan_cost(p, n_iters, use_ka, raw=raw,
+                                              n_species=n_species or 1),
+                                    -p.tile))
+
+
+def work_buffer(plan: CanvasPlan, like: torch.Tensor, n_species: int = 1):
+    """The work planes of a split step (x, r and d of every species, 9 K
+    planes the shape of one of ``like``'s (rows, n) planes; two sets from
+    depth 3 on), or None at depth 1."""
+    if plan.depth == 1:
+        return None
+    sets = 1 if plan.depth == 2 else 2
+    return torch.empty((sets * 9 * n_species,) + tuple(like.shape[-2:]),
+                       dtype=like.dtype, device=like.device)
+
+
 def kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt, tile,
                 threads=fused_solver.THREADS, load=None):
     """One launch of B2: (u, up) -> (u_out, up_out); CUDA tensors only.
@@ -182,7 +336,18 @@ def kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt, tile,
         LOAD_KERNEL.launch(u.dtype, *head, P(load), *tail)
 
 
-def plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks, load=None):
+def _iterate(S, idg, cheb, n_iters, x, r, d, it0, it1):
+    """Chebyshev iterations [it0, it1) of the canvas kernels on the full
+    canvas: x += d; r -= S d; d = a d + b (id r)."""
+    for k in range(it0, it1):
+        x = x + d
+        r = r - fused_solver.stencil_terms(S, d)
+        d = cheb[1 + k] * d + cheb[1 + n_iters + k] * (idg * r)
+    return x, r, d
+
+
+def plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks, load=None,
+                      depth=1):
     """B4's plain version: one full-canvas step with the (21, n, n) canvas
     operator ``C`` and the Chebyshev scalars ``cheb``
     (fused_solver.cheb_scalars); ``masks`` the (widened) interior
@@ -190,7 +355,9 @@ def plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks, load=None):
     right-hand side. Returns ``(u_new, up_new)`` (``up_new`` None without
     ``up``). The coefficients of the masked system vanish outside each
     family's rows, so the matvec needs no mask; the masks enter through
-    the warm start and Crank-Nicolson's ``(1 - mask) u`` term."""
+    the warm start and Crank-Nicolson's ``(1 - mask) u`` term. ``depth``
+    runs the iterations in the kernel's spans (:func:`canvas_spans`); the
+    result is the same."""
     S, m, idg = C[:15], C[15:18], C[18:21]
     if use_ka:
         r = 2.0 * m * u + (1.0 - masks) * u - fused_solver.stencil_terms(S, u)
@@ -204,18 +371,18 @@ def plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks, load=None):
         x, up_new = masks * (2.0 * u - up), u
     r = r - fused_solver.stencil_terms(S, x)
     d = cheb[0] * (idg * r)
-    for k in range(n_iters):
-        x = x + d
-        r = r - fused_solver.stencil_terms(S, d)
-        d = cheb[1 + k] * d + cheb[1 + n_iters + k] * (idg * r)
-    return x, up_new
+    for sp in canvas_spans(n_iters, use_ka, False, depth):
+        x, r, d = _iterate(S, idg, cheb, n_iters, x, r, d, sp.it0, sp.it1)
+    return x + d, up_new
 
 
 def canvas_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect,
-                       halt, tile, threads=CANVAS_THREADS, load=None):
-    """One launch of B4: (u, up) -> (u_out, up_out); CUDA tensors only.
-    ``rect``: the interior-rectangle bounds (robin_rect_bounds); ``load``
-    an optional (3, n, n) emission load."""
+                       halt, plan: CanvasPlan, load=None, work=None):
+    """One launch of B4 (``plan.depth`` kernel launches): (u, up) ->
+    (u_out, up_out); CUDA tensors only. ``rect``: the interior-rectangle
+    bounds (robin_rect_bounds); ``load`` an optional (3, n, n) emission
+    load; ``work`` the split step's :func:`work_buffer` (made here when
+    None)."""
     n = u.shape[-1]
     if not (u.is_cuda and u_out.is_cuda and C.is_cuda and cheb.is_cuda):
         raise ValueError("canvas_kernel_step needs CUDA tensors")
@@ -224,11 +391,12 @@ def canvas_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect,
                          "C and cheb of u's dtype")
     if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
         raise ValueError("load must be a (3, n, n) plane of u's dtype")
-    halo = fused_solver.halo_of(n_iters, use_ka)
+    if work is None:
+        work = work_buffer(plan, u)
     P = _build.pointer
     CANVAS_KERNEL.launch(u.dtype, P(C), P(cheb), P(u), P(up), P(u_out),
-                         P(up_out), P(halt), P(load), n, tile, halo, n_iters,
-                         int(use_ka), *rect, threads,
+                         P(up_out), P(halt), P(load), P(work), n, plan.tile,
+                         plan.depth, n_iters, int(use_ka), *rect,
                          _build.current_stream())
 
 
@@ -240,28 +408,28 @@ def raw_operator(pattern, coeffs, inv_diag_fam, dtype):
                            inv_diag_fam, dtype)
 
 
-def plain_canvas_raw(C, cheb, n_iters, b, masks):
+def plain_canvas_raw(C, cheb, n_iters, b, masks, depth=1):
     """B4's raw mode, plain version: ``p(A) mask(b)`` on the full canvas
     from a zero start, with the (21, n, n) stack ``C`` and the Chebyshev
     scalars ``cheb`` (fused_solver.cheb_scalars). Only the input is masked
     (see csrc/canvas_step.cu); the last iteration's matvec, whose r and d
-    are never read, is skipped as the kernel skips it."""
+    are never read, is skipped as the kernel skips it. ``depth`` as in
+    :func:`plain_canvas_step`."""
     S, idg = C[:15], C[18:21]
     r = masks * b
     x = torch.zeros_like(b)
     d = cheb[0] * (idg * r)
-    for k in range(n_iters):
-        x = x + d
-        if k + 1 < n_iters:
-            r = r - fused_solver.stencil_terms(S, d)
-            d = cheb[1 + k] * d + cheb[1 + n_iters + k] * (idg * r)
-    return x
+    for sp in canvas_spans(n_iters, False, True, depth):
+        x, r, d = _iterate(S, idg, cheb, n_iters, x, r, d, sp.it0, sp.it1)
+    return x + d
 
 
-def canvas_raw_kernel(C, cheb, n_iters, b, x_out, rect, tile,
-                      threads=CANVAS_THREADS):
-    """One launch of B4's raw mode: ``x_out = p(A) mask(b)``, (3, n, n)
-    canvases; CUDA tensors only. ``rect``: interior-rectangle bounds."""
+def canvas_raw_kernel(C, cheb, n_iters, b, x_out, rect, plan: CanvasPlan,
+                      work=None):
+    """One launch of B4's raw mode (``plan.depth`` kernel launches):
+    ``x_out = p(A) mask(b)``, (3, n, n) canvases; CUDA tensors only.
+    ``rect``: interior-rectangle bounds; ``work`` as in
+    :func:`canvas_kernel_step`."""
     n = b.shape[-1]
     if not (b.is_cuda and x_out.is_cuda and C.is_cuda and cheb.is_cuda):
         raise ValueError("canvas_raw_kernel needs CUDA tensors")
@@ -270,30 +438,21 @@ def canvas_raw_kernel(C, cheb, n_iters, b, x_out, rect, tile,
                          "C and cheb of b's dtype")
     if x_out.shape != b.shape or x_out.dtype != b.dtype:
         raise ValueError("x_out must be like b")
+    if work is None:
+        work = work_buffer(plan, b)
     P = _build.pointer
-    CANVAS_RAW_KERNEL.launch(b.dtype, P(C), P(cheb), P(b), P(x_out), n, tile,
-                             raw_halo(n_iters), n_iters, *rect, threads,
+    CANVAS_RAW_KERNEL.launch(b.dtype, P(C), P(cheb), P(b), P(x_out), P(work),
+                             n, plan.tile, plan.depth, n_iters, *rect,
                              _build.current_stream())
 
 
-def raw_halo(n_iters: int) -> int:
-    """The raw mode's window halo: A is applied k - 1 times (x0 = 0)."""
-    return n_iters - 1
-
-
-def raw_tile(n_iters: int, dtype, preferred: int = CANVAS_TILE) -> int:
-    """The raw mode's output tile: the largest up to ``preferred`` whose
-    window planes fit shared memory, r, d and d_next on the window and x
-    on the tile alone (csrc/canvas_step.cu raw_smem_bytes)."""
-    halo = raw_halo(n_iters)
-    elem = torch.tensor([], dtype=dtype).element_size()
-    for t in fused_solver.TILE_CANDIDATES:
-        w = t + 2 * halo
-        if t <= preferred and (9 * w * w + 3 * t * t) * elem \
-                <= fused_solver.SMEM_BUDGET:
-            return t
-    raise ValueError(f"chebyshev_iters={n_iters} too deep for the raw "
-                     f"mode's shared-memory budget in {dtype}")
+def raw_plan(n_iters: int, dtype) -> CanvasPlan:
+    """The raw mode's launch plan (:func:`canvas_plan`)."""
+    try:
+        return canvas_plan(n_iters, False, dtype, raw=True)
+    except ValueError:
+        raise ValueError(f"chebyshev_iters={n_iters} too deep for the raw "
+                         f"mode's shared-memory budget in {dtype}") from None
 
 
 def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None):
@@ -306,7 +465,7 @@ def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None):
     if b.is_cuda:
         x = torch.empty_like(b)
         canvas_raw_kernel(C, cheb, n_iters, b, x, rect,
-                          raw_tile(n_iters, b.dtype))
+                          raw_plan(n_iters, b.dtype))
     else:
         masks = fused_solver.rect_masks(n, b.dtype, b.device, rect)
         x = plain_canvas_raw(C, cheb, n_iters, b, masks)
@@ -501,12 +660,12 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
         t0, dt, u)
 
     if u.is_cuda:
-        tile = fused_solver.choose_tile(
-            fused_solver.halo_of(n_iters, use_ka), dtype, CANVAS_TILE)
+        plan = canvas_plan(n_iters, use_ka, dtype)
+        work = work_buffer(plan, u)
         step = _pingpong(
             lambda u, up, u_out, up_out, bad: canvas_kernel_step(
                 C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect, bad,
-                tile, load=load_of_step()),
+                plan, load=load_of_step(), work=work),
             u, extrapolate)
     else:
         def step(u, up, bad):
@@ -550,11 +709,11 @@ def load_planes(sources, walls, t0, dt, u):
     return load_of_step
 
 
-def multispecies_tile(n_species: int, n_iters: int, use_ka: bool, dtype,
-                      preferred: int = MULTISPECIES_TILE) -> int:
-    """B6's output tile: the largest up to ``preferred`` whose 3K + 9
-    window planes (K species x 3 families, then r, d, d_next) fit shared
-    memory. Raises ValueError past the kernel's envelope."""
+def multispecies_plan(n_species: int, n_iters: int, use_ka: bool,
+                      dtype) -> CanvasPlan:
+    """B6's launch plan (:func:`canvas_plan` with the K species' 3K mixed
+    planes beside d and d_next in shared memory). Raises ValueError past
+    the kernel's envelope."""
     if not 1 <= n_species <= MAX_SPECIES:
         raise ValueError(
             f"kernel B6 takes 1 to {MAX_SPECIES} species, got K={n_species} "
@@ -562,13 +721,11 @@ def multispecies_tile(n_species: int, n_iters: int, use_ka: bool, dtype,
             f"the scan engines (matvec_impl='stencil'/'ell')"
         )
     try:
-        return fused_solver.choose_tile(fused_solver.halo_of(n_iters, use_ka),
-                                        dtype, preferred,
-                                        planes=3 * n_species + 9)
+        return canvas_plan(n_iters, use_ka, dtype, n_species=n_species)
     except ValueError:
         raise ValueError(
             f"kernel B6's shared-memory envelope exceeded: K={n_species} "
-            f"species x 3 families + 9 planes do not fit even the smallest "
+            f"species x 3 families + 6 planes do not fit even the smallest "
             f"tile with chebyshev_iters={n_iters} — reduce the species "
             f"count K (in-kernel chemistry holds all species resident), "
             f"lower chebyshev_iters (the halo scales with it), or use the "
@@ -578,29 +735,31 @@ def multispecies_tile(n_species: int, n_iters: int, use_ka: bool, dtype,
 
 
 def plain_multispecies_step(C, cheb, E, n_iters, U, use_ka, masks,
-                            loads=None, load_index=None):
+                            loads=None, load_index=None, depth=1):
     """B6's plain version: one Strang step of the (K, 3, n, n) species
     stack ``U``: the half-mix ``E`` (the (K, K) expm(-dt/2 R)), for each
     species B4's step without extrapolation (its load, when
     ``load_index[k] >= 0``, is ``loads[load_index[k]]``), the half-mix
-    again."""
+    again. ``depth`` as in :func:`plain_canvas_step`."""
     Uh = mix_species(E, U)
     solved = []
     for k in range(U.shape[0]):
         li = -1 if load_index is None else load_index[k]
         x, _ = plain_canvas_step(C, cheb, n_iters, Uh[k], None, use_ka, masks,
-                                 None if li < 0 else loads[li])
+                                 None if li < 0 else loads[li], depth)
         solved.append(x)
     return mix_species(E, torch.stack(solved))
 
 
 def multispecies_kernel_step(C, scal, n_iters, U, U_out, use_ka, rect, halt,
-                             tile, loads=None, load_index=None,
-                             threads=MULTISPECIES_THREADS):
-    """One launch of B6: U -> U_out, (K, 3, n, n) species stacks; CUDA
-    tensors only. ``scal``: the Chebyshev scalars then E_half row-major
-    (:func:`multispecies_scalars`); ``loads`` (n_src, 3, n, n) with
-    ``load_index`` as in :func:`plain_multispecies_step`."""
+                             plan: CanvasPlan, loads=None, load_index=None,
+                             work=None):
+    """One launch of B6 (``plan.depth`` kernel launches): U -> U_out,
+    (K, 3, n, n) species stacks; CUDA tensors only. ``scal``: the
+    Chebyshev scalars then E_half row-major (:func:`multispecies_scalars`);
+    ``loads`` (n_src, 3, n, n) with ``load_index`` as in
+    :func:`plain_multispecies_step`; ``work`` the split step's
+    :func:`work_buffer` for K species (made here when None)."""
     K, _, n, _ = U.shape
     if not (U.is_cuda and U_out.is_cuda and C.is_cuda and scal.is_cuda):
         raise ValueError("multispecies_kernel_step needs CUDA tensors")
@@ -616,12 +775,13 @@ def multispecies_kernel_step(C, scal, n_iters, U, U_out, use_ka, rect, halt,
             loads is None or loads.dtype != U.dtype
             or loads.shape[1:] != U.shape[1:] or max(index) >= len(loads)):
         raise ValueError("loads must be (n_src, 3, n, n) of U's dtype")
-    halo = fused_solver.halo_of(n_iters, use_ka)
+    if work is None:
+        work = work_buffer(plan, U, K)
     P = _build.pointer
     MULTISPECIES_KERNEL.launch(
-        U.dtype, P(C), P(scal), P(U), P(loads), P(U_out), P(halt),
-        (ctypes.c_int * K)(*index), K, n, tile, halo, n_iters, int(use_ka),
-        *rect, threads, _build.current_stream())
+        U.dtype, P(C), P(scal), P(U), P(loads), P(U_out), P(halt), P(work),
+        (ctypes.c_int * K)(*index), K, n, plan.tile, plan.depth, n_iters,
+        int(use_ka), *rect, _build.current_stream())
 
 
 def _host_f64(a):
@@ -694,7 +854,7 @@ def fused_multispecies_canvas_hbm(pattern, coeffs, mass_masked_fam,
         raise ValueError("snapshot_every must be a positive divisor "
                          "of n_steps")
     if fuse_chemistry:
-        tile = multispecies_tile(K, n_iters, use_ka, dtype)
+        plan = multispecies_plan(K, n_iters, use_ka, dtype)
     if n_steps == 0:
         bad = torch.tensor(-1, dtype=torch.int32, device=device)
         out = (C0_fam if snapshot_every is None
@@ -720,14 +880,15 @@ def fused_multispecies_canvas_hbm(pattern, coeffs, mass_masked_fam,
     index = loads.index if loads is not None else [-1] * K
     if fuse_chemistry and U.is_cuda:
         scal = multispecies_scalars(bounds, n_iters, E_half, dtype, device)
+        work = work_buffer(plan, U, K)
         step = _pingpong(
             lambda U, _up, U_out, _up_out, bad: multispecies_kernel_step(
-                C, scal, n_iters, U, U_out, use_ka, rect, bad, tile,
-                next_loads(), index),
+                C, scal, n_iters, U, U_out, use_ka, rect, bad, plan,
+                next_loads(), index, work),
             U, False)
     elif U.is_cuda:
-        tile = fused_solver.choose_tile(
-            fused_solver.halo_of(n_iters, use_ka), dtype, CANVAS_TILE)
+        plan = canvas_plan(n_iters, use_ka, dtype)
+        work = work_buffer(plan, U)
 
         def step(U, up, bad):
             planes = next_loads()
@@ -736,8 +897,9 @@ def fused_multispecies_canvas_hbm(pattern, coeffs, mass_masked_fam,
             for k in range(K):
                 canvas_kernel_step(
                     C, cheb, n_iters, Uh[k], None, Ut[k], None, use_ka, rect,
-                    bad, tile,
-                    load=None if index[k] < 0 else planes[index[k]])
+                    bad, plan,
+                    load=None if index[k] < 0 else planes[index[k]],
+                    work=work)
             return mix_species(E, Ut), None
     else:
         def step(U, up, bad):
@@ -864,10 +1026,12 @@ def block_kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt,
 
 
 def canvas_block_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka,
-                             rect, halt, tile, block: BlockRows, load=None):
-    """One launch of B9 on a row block: ``C`` the block's (21, rows, n)
-    stack, (u, up) -> the interior rows of (u_out, up_out); ``rect`` the
-    global rectangle bounds; CUDA tensors only."""
+                             rect, halt, plan: CanvasPlan, block: BlockRows,
+                             load=None, work=None):
+    """One launch of B9 on a row block (``plan.depth`` kernel launches):
+    ``C`` the block's (21, rows, n) stack, (u, up) -> the interior rows of
+    (u_out, up_out); ``rect`` the global rectangle bounds; ``work`` as in
+    :func:`canvas_kernel_step`, of the block's rows; CUDA tensors only."""
     if not (u.is_cuda and u_out.is_cuda and C.is_cuda and cheb.is_cuda):
         raise ValueError("canvas_block_kernel_step needs CUDA tensors")
     _check_block(block, n_iters, use_ka, u.shape)
@@ -877,21 +1041,23 @@ def canvas_block_kernel_step(C, cheb, n_iters, u, up, u_out, up_out, use_ka,
                          "cheb of u's dtype")
     if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
         raise ValueError("load must be a (3, rows, n) block of u's dtype")
+    if work is None:
+        work = work_buffer(plan, u)
     P = _build.pointer
     CANVAS_BLOCK_KERNEL.launch(
         u.dtype, P(C), P(cheb), P(u), P(up), P(u_out), P(up_out), P(halt),
-        P(load), *block.kernel_args(), tile,
-        fused_solver.halo_of(n_iters, use_ka), n_iters, int(use_ka), *rect,
-        _build.current_stream())
+        P(load), P(work), *block.kernel_args(), plan.tile, plan.depth,
+        n_iters, int(use_ka), *rect, _build.current_stream())
 
 
 def multispecies_block_kernel_step(C, scal, n_iters, U, U_out, use_ka, rect,
-                                   halt, tile, block: BlockRows, loads=None,
-                                   load_index=None):
-    """One launch of B10 on a row block: the (K, 3, rows, n) species block
-    U -> the interior rows of U_out; ``C`` the block's (21, rows, n) stack,
-    ``scal`` as :func:`multispecies_kernel_step`'s, ``loads``
-    (n_src, 3, rows, n); CUDA tensors only."""
+                                   halt, plan: CanvasPlan, block: BlockRows,
+                                   loads=None, load_index=None, work=None):
+    """One launch of B10 on a row block (``plan.depth`` kernel launches):
+    the (K, 3, rows, n) species block U -> the interior rows of U_out;
+    ``C`` the block's (21, rows, n) stack, ``scal`` as
+    :func:`multispecies_kernel_step`'s, ``loads`` (n_src, 3, rows, n),
+    ``work`` as there, of the block's rows; CUDA tensors only."""
     K = U.shape[0]
     if not (U.is_cuda and U_out.is_cuda and C.is_cuda and scal.is_cuda):
         raise ValueError("multispecies_block_kernel_step needs CUDA tensors")
@@ -909,9 +1075,10 @@ def multispecies_block_kernel_step(C, scal, n_iters, U, U_out, use_ka, rect,
             loads is None or loads.dtype != U.dtype
             or loads.shape[1:] != U.shape[1:] or max(index) >= len(loads)):
         raise ValueError("loads must be (n_src, 3, rows, n) of U's dtype")
+    if work is None:
+        work = work_buffer(plan, U, K)
     P = _build.pointer
     MULTISPECIES_BLOCK_KERNEL.launch(
-        U.dtype, P(C), P(scal), P(U), P(loads), P(U_out), P(halt),
-        (ctypes.c_int * K)(*index), K, *block.kernel_args(), tile,
-        fused_solver.halo_of(n_iters, use_ka), n_iters, int(use_ka), *rect,
-        _build.current_stream())
+        U.dtype, P(C), P(scal), P(U), P(loads), P(U_out), P(halt), P(work),
+        (ctypes.c_int * K)(*index), K, *block.kernel_args(), plan.tile,
+        plan.depth, n_iters, int(use_ka), *rect, _build.current_stream())

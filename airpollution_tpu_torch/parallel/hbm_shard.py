@@ -461,16 +461,15 @@ def build_canvas_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1,
             return loads[d]()
 
         if device.type == "cuda":
-            tile = fused_solver.choose_tile(
-                fused_solver.halo_of(iters, use_ka), dtype,
-                fused_hbm.CANVAS_TILE)
+            plan = fused_hbm.canvas_plan(iters, use_ka, dtype)
+            work = fused_hbm.work_buffer(plan, U[0])
 
             def block_step(d, src, dst, load):
                 fused_hbm.canvas_block_kernel_step(
                     Cb[d], cheb, iters, src[0],
                     src[1] if extrapolate else None, dst[0],
                     dst[1] if extrapolate else None, use_ka, rect, None,
-                    tile, blocks.blocks[d], load=load)
+                    plan, blocks.blocks[d], load=load, work=work)
         else:
             def block_step(d, src, dst, load):
                 x, up = fused_hbm.plain_canvas_block_step(
@@ -581,14 +580,15 @@ def build_multispecies_hbm_halo_solver(mesh, mesh_data, problem, dt, *,
             return x.view(K, 3, blocks.rows, n)
 
         if device.type == "cuda":
-            tile = fused_hbm.multispecies_tile(K, iters, use_ka, dtype)
+            plan = fused_hbm.multispecies_plan(K, iters, use_ka, dtype)
+            work = fused_hbm.work_buffer(plan, Cb[0], K)
             scal = fused_hbm.multispecies_scalars(bounds, iters, E_half,
                                                   dtype, device)
 
             def block_step(d, src, dst, planes):
                 fused_hbm.multispecies_block_kernel_step(
                     Cb[d], scal, iters, species(src), species(dst), use_ka,
-                    rect, None, tile, blocks.blocks[d], planes, index)
+                    rect, None, plan, blocks.blocks[d], planes, index, work)
         else:
             cheb = fused_solver.cheb_scalars(bounds, iters, dtype, device)
             E = E_half.to(dtype=dtype, device=device)

@@ -12,7 +12,8 @@ Phases, each printing one JSON line:
 1. toolchain: CUDA version, nvcc, kernel build time, card and power limit;
 2. kernels B1-B5 against their plain PyTorch versions, f64 and f32: B1
    (uniform whole-loop solve), B2 (uniform step per launch), B3 (stencil
-   matvec), B4 (canvas step per launch), B5 (canvas whole-loop BiCGStab);
+   matvec), B4 (canvas step per launch; at 129^2 every depth its launch
+   plan can split a step into), B5 (canvas whole-loop BiCGStab);
 3. the uniform main path at 257^2, nt=1001: CRBESolver(matvec_impl="fused",
    Chebyshev-4, extrapolated warm start), BE and CN, held against the scan
    path (matvec_impl="stencil", BiCGStab) and the analytical solution;
@@ -23,8 +24,9 @@ Phases, each printing one JSON line:
    B5 (BiCGStab-5); C3, Robin walls and an obstacle at 257^2 on B4 (CN,
    Chebyshev-8) and on the scan path through B3 (with its steps/s beside
    the plain stencil's);
-6. kernel B6 (multispecies step with in-kernel chemistry) and B4 with an
-   emission load against their plain versions, f64 and f32;
+6. kernel B6 (multispecies step with in-kernel chemistry; K = 1, 3 and 8
+   at 129^2, every depth) and B4 with an emission load against their
+   plain versions, f64 and f32;
 7. the multispecies chemistry-transport path (MultiSpeciesSolver, Strang,
    fused_hbm): M1, the largest row of scripts/multispecies_fused_demo.py
    (1025^2, nt=4001, K=3, CN, Chebyshev-8) on B6, with its k-vs-2k and
@@ -45,7 +47,8 @@ Phases, each printing one JSON line:
 9. slice 5, differentiable fused solves and source inversion: B4's raw
    mode (p(A) mask(b), kernel B4 with raw_b) against its plain version at
    513^2 and 1025^2 (I1's uniform operator, f32) and 257^2 (C1's variable
-   operator, f64 and f32), k = 12 and 8, over the coefficients and their
+   operator, f64 and f32; also k = 24, and every depth its launch plan can
+   split a step into), k = 12 and 8, over the coefficients and their
    transpose, with the adjoint dot-product test; gradients through the
    fused engine (engine="fused_hbm", Chebyshev-24) at 129^2, f64, nt=129,
    BE and CN, for Problem(D) and the emitter's (log q, xs, ys), against
@@ -68,7 +71,8 @@ Phases, each printing one JSON line:
     blocks of one card: kernels B8, B9 and B10 (the block modes of B2, B4
     and B6), each with and without a load, against their plain versions
     at 257^2 and 513^2 on 2 and 4 blocks (f64, f32, 3 steps with the
-    exchange between them) and at their main paths' shapes (f32), their
+    exchange between them; B9 and B10 at every depth at 257^2) and at
+    their main paths' shapes (f32), their
     times beside one block step and one whole-canvas launch; B8 on scripts/tpu_hbm_check.py's 2049^2 row
     (patch assembly, BE, and one CN and one sourced solve) against the
     whole-canvas B2 solve; B9 on C1 against C1's B4 solve, and C3 on 2
@@ -749,21 +753,59 @@ def canvas_step_inputs(inp, k, dtype):
     return C, cheb, u0, masks
 
 
+def depth_plans(k, use_ka, dtype, raw=False, n_species=None):
+    """The planner's launch plan of a canvas step (ops/fused_hbm.
+    canvas_plan) first, then for every other depth that splits the step
+    the largest tile that fits: each instantiation of the canvas kernels
+    at split and unsplit depth."""
+    from airpollution_tpu_torch.ops import fused_hbm
+
+    kind = dict(raw=raw, n_species=n_species)
+    if raw:
+        first = fused_hbm.raw_plan(k, dtype)
+    elif n_species:
+        first = fused_hbm.multispecies_plan(n_species, k, use_ka, dtype)
+    else:
+        first = fused_hbm.canvas_plan(k, use_ka, dtype)
+    plans = [first]
+    for depth in range(1, fused_hbm.MAX_DEPTH + 1):
+        fits = [t for t in fused_hbm.PLAN_TILES
+                if fused_hbm.plan_fits(fused_hbm.CanvasPlan(t, depth), k,
+                                       use_ka, dtype, **kind)]
+        if depth != first.depth and fits:
+            plans.append(fused_hbm.CanvasPlan(fits[0], depth))
+    return plans
+
+
+def dead_max(inp, got, dtype):
+    """max |got| on the obstacle's dead DOFs (None without obstacles);
+    ``got`` (..., 3, n, n)."""
+    from airpollution_tpu_torch.ops import fused_solver
+
+    if inp["dead"] is None:
+        return None
+    dead3 = fused_solver.to_canvases(inp["pattern"],
+                                     inp["dead"].to(dtype)).bool()
+    return float(got[..., dead3].abs().max())
+
+
 def phase_b4(meshes, problems, cache):
-    """Kernel B4 against plain_canvas_step at 129^2 and 1025^2, k = 6, 8
-    and C1's 14, BE and CN, on C1 (rotating wind) and C3 (Robin rectangle
-    and dead DOFs), one step from a state that differs from u_prev."""
+    """Kernel B4 against plain_canvas_step at 129^2 (k = 6, 8 and C1's 14,
+    every depth that splits the step) and 1025^2 (k = 6 and 14, the
+    planner's plan), BE and CN, on C1 (rotating wind) and C3 (Robin
+    rectangle and dead DOFs, exactly 0), one step from a state that
+    differs from u_prev."""
     import torch
 
-    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+    from airpollution_tpu_torch.ops import fused_hbm
 
     worst = {}
     rows = []
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
-        for ms in (129, 1025):
+        for ms, ks in ((129, (6, 8, C1_ITERS)), (1025, (6, C1_ITERS))):
             for pname in ("C1", "C3"):
-                for k in (6, 8, C1_ITERS):
+                for k in ks:
                     for order in (1, 2):
                         use_ka = order == 2
                         inp = canvas_inputs(meshes[(ms, name)],
@@ -774,32 +816,37 @@ def phase_b4(meshes, problems, cache):
                             C, cheb, k, u0, u0, use_ka, masks)
                         ref_u, ref_up = fused_hbm.plain_canvas_step(
                             C, cheb, k, u, up, use_ka, masks)
-                        tile = fused_solver.choose_tile(
-                            fused_solver.halo_of(k, use_ka), dtype,
-                            fused_hbm.CANVAS_TILE)
-                        got_u = torch.empty_like(u)
-                        got_up = torch.empty_like(u)
-                        halt = torch.tensor(-1, dtype=torch.int32,
-                                            device=u.device)
-                        fused_hbm.canvas_kernel_step(
-                            C, cheb, k, u, up, got_u, got_up, use_ka,
-                            inp["rect"], halt, tile)
-                        torch.cuda.synchronize()
-                        abs_e, rel, diff = rel_err(got_u, ref_u)
-                        check(bool(torch.equal(got_up, ref_up)),
-                              f"B4 {ms}^2 k={k}: u_prev output differs")
-                        at = worst_at(diff)
-                        at["tile"] = [at["row"] // tile, at["col"] // tile]
-                        rows.append({"ms": ms, "problem": pname,
-                                     "dtype": name, "k": k, "order": order,
-                                     "tile": tile, "rel_err": rel,
-                                     "worst_at": at})
-                        check(rel <= TOL[name],
-                              f"B4 {ms}^2 {pname} {name} k={k} "
-                              f"order={order}: rel err {rel:.3e} > "
-                              f"{TOL[name]:.0e} at {at}")
-                        if ms == 1025 and name == "float32":
-                            worst["B4"] = max(worst.get("B4", 0.0), abs_e)
+                        plans = depth_plans(k, use_ka, dtype)
+                        for plan in plans if ms < 1025 else plans[:1]:
+                            got_u = torch.empty_like(u)
+                            got_up = torch.empty_like(u)
+                            halt = torch.tensor(-1, dtype=torch.int32,
+                                                device=u.device)
+                            fused_hbm.canvas_kernel_step(
+                                C, cheb, k, u, up, got_u, got_up, use_ka,
+                                inp["rect"], halt, plan)
+                            torch.cuda.synchronize()
+                            abs_e, rel, diff = rel_err(got_u, ref_u)
+                            check(bool(torch.equal(got_up, ref_up)),
+                                  f"B4 {ms}^2 k={k}: u_prev output differs")
+                            at = worst_at(diff)
+                            at["tile"] = [at["row"] // plan.tile,
+                                          at["col"] // plan.tile]
+                            dead = dead_max(inp, got_u, dtype)
+                            rows.append({"ms": ms, "problem": pname,
+                                         "dtype": name, "k": k,
+                                         "order": order, "plan": plan,
+                                         "rel_err": rel, "worst_at": at,
+                                         "dead_max_abs": dead})
+                            check(rel <= TOL[name],
+                                  f"B4 {ms}^2 {pname} {name} k={k} "
+                                  f"order={order} {plan}: rel err "
+                                  f"{rel:.3e} > {TOL[name]:.0e} at {at}")
+                            check(dead in (None, 0.0), f"B4 {ms}^2 {pname}: "
+                                  f"dead DOFs reach {dead}")
+                            if ms == 1025 and name == "float32":
+                                worst["B4"] = max(worst.get("B4", 0.0),
+                                                  abs_e)
     emit({"phase": "b4_vs_plain", "cases": rows})
     return worst
 
@@ -1063,22 +1110,23 @@ def canvas_kernel_times(meshes, problems, cache):
     up = u.clone()
     got_u, got_up = torch.empty_like(u), torch.empty_like(u)
     halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
-    tile = fused_solver.choose_tile(fused_solver.halo_of(k, False), f32,
-                                    fused_hbm.CANVAS_TILE)
+    plan = fused_hbm.canvas_plan(k, False, f32)
+    work = fused_hbm.work_buffer(plan, u)
     rect = inp["rect"]
     fused_hbm.canvas_kernel_step(C, cheb, k, u, up, got_u, got_up, False,
-                                 rect, halt, tile)
+                                 rect, halt, plan, work=work)
     abs_e, rel, _ = rel_err(got_u, fused_hbm.plain_canvas_step(
         C, cheb, k, u, up, False, masks)[0])
     check(rel <= TOL["float32"], f"B4 1025^2 step: rel err {rel:.3e}")
     ms = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
-        C, cheb, k, u, up, got_u, got_up, False, rect, halt, tile), 50)
+        C, cheb, k, u, up, got_u, got_up, False, rect, halt, plan,
+        work=work), 50)
     plain = cuda_ms(lambda: fused_hbm.plain_canvas_step(
         C, cheb, k, u, up, False, masks), 5)
     dofs = meshes[(1025, "float32")].number_of_segments
     b_ms, by = bound((C.numel() + 4 * u.numel()) * 4,
                      dofs * canvas_step_flops_per_dof(k, False, True))
-    out["B4"] = (ms, plain, b_ms, by, abs_e, None)
+    out["B4"] = (ms, plain, b_ms, by, abs_e, None, {"plan": plan})
     # B5: one launch = the whole C2 solve (257^2, nt=1001, k=5, BE, ext).
     md = meshes[(257, "float32")]
     inp = canvas_inputs(md, problems["C1"], 1, f32, cache)
@@ -1195,7 +1243,7 @@ def step_loads(inp, md, source, K, use_ka, C, masks, lumped, dtype):
 
 def b6_case(inp, md, K, k, order, dtype, source, lumped, seed=0):
     """Inputs of one B6 step: (C, cheb, E, scal, U, masks, loads, index,
-    tile)."""
+    plan)."""
     import torch
 
     from airpollution_tpu_torch.ops import fused_hbm
@@ -1212,10 +1260,10 @@ def b6_case(inp, md, K, k, order, dtype, source, lumped, seed=0):
                                   lumped, dtype)
     scal = fused_hbm.multispecies_scalars(inp["bounds"], k, E64, dtype,
                                           U.device)
-    tile = fused_hbm.multispecies_tile(K, k, use_ka, dtype)
+    plan = fused_hbm.multispecies_plan(K, k, use_ka, dtype)
     return dict(C=C, cheb=cheb, E=E64.to(dtype=dtype, device=U.device),
                 scal=scal, U=U, masks=masks, loads=loads, index=index,
-                tile=tile, use_ka=use_ka)
+                plan=plan, use_ka=use_ka)
 
 
 def run_b6(case, k, rect):
@@ -1228,7 +1276,7 @@ def run_b6(case, k, rect):
     halt = torch.tensor(-1, dtype=torch.int32, device=got.device)
     fused_hbm.multispecies_kernel_step(
         case["C"], case["scal"], k, case["U"], got, case["use_ka"], rect,
-        halt, case["tile"], case["loads"], case["index"])
+        halt, case["plan"], case["loads"], case["index"])
     ref = fused_hbm.plain_multispecies_step(
         case["C"], case["cheb"], case["E"], k, case["U"], case["use_ka"],
         case["masks"], case["loads"], case["index"])
@@ -1248,9 +1296,10 @@ def worst_cell(diff, tile):
 
 
 def phase_b6(meshes, problems, cache):
-    """Kernel B6 against plain_multispecies_step: one step at 129^2 and
-    1025^2, K = 3 and 5, BE and CN, with and without the demo's Gaussian
-    load, on the demo's transport (k=8); and a 2-species step on C3's Robin
+    """Kernel B6 against plain_multispecies_step: one step on the demo's
+    transport (k=8), BE and CN, with and without the demo's Gaussian load,
+    K = 1, 3 and 8 at 129^2 (every depth that splits the step) and K = 3
+    at 1025^2 (the planner's plan); and a 2-species step on C3's Robin
     rectangle and block with the walled emitter's load (reference
     quadrature), whose dead DOFs must stay exactly 0."""
     import torch
@@ -1262,44 +1311,45 @@ def phase_b6(meshes, problems, cache):
     k = DEMO_ITERS[1025]
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
-        for ms in (129, 1025):
+        for ms, species in ((129, (1, 3, 8)), (1025, (3,))):
             md = meshes[(ms, name)]
             cases = [("demo", K, order, source, True)
-                     for K in (3, 5) for order in (1, 2)
+                     for K in species for order in (1, 2)
                      for source in (None, src)]
             cases += [("C3", 2, order, walled, False) for order in (1, 2)]
             for pname, K, order, source, lumped in cases:
                 inp = canvas_inputs(md, problems[pname], order, dtype, cache)
                 case = b6_case(inp, md, K, k, order, dtype, source, lumped)
-                got, ref = run_b6(case, k, inp["rect"])
-                abs_e, rel, diff = rel_err(got, ref)
-                row = {"ms": ms, "problem": pname, "dtype": name, "K": K,
-                       "order": order, "load": source is not None,
-                       "tile": case["tile"], "rel_err": rel,
-                       "worst_at": worst_cell(diff, case["tile"])}
-                if inp["dead"] is not None:
-                    from airpollution_tpu_torch.ops import fused_solver
-
-                    dead3 = fused_solver.to_canvases(
-                        inp["pattern"], inp["dead"].to(dtype)).bool()
-                    row["dead_max_abs"] = float(got[:, dead3].abs().max())
-                    check(row["dead_max_abs"] == 0.0,
+                plans = depth_plans(k, order == 2, dtype, n_species=K)
+                for plan in plans if ms < 1025 else plans[:1]:
+                    case["plan"] = plan
+                    got, ref = run_b6(case, k, inp["rect"])
+                    abs_e, rel, diff = rel_err(got, ref)
+                    row = {"ms": ms, "problem": pname, "dtype": name,
+                           "K": K, "order": order,
+                           "load": source is not None, "plan": plan,
+                           "rel_err": rel,
+                           "worst_at": worst_cell(diff, plan.tile),
+                           "dead_max_abs": dead_max(inp, got, dtype)}
+                    check(row["dead_max_abs"] in (None, 0.0),
                           f"B6 {ms}^2 {pname}: dead DOFs reach "
                           f"{row['dead_max_abs']}")
-                rows.append(row)
-                check(rel <= TOL[name],
-                      f"B6 {ms}^2 {pname} {name} K={K} order={order}: rel "
-                      f"err {rel:.3e} > {TOL[name]:.0e} at {row['worst_at']}")
-                if ms == 1025 and name == "float32":
-                    worst["B6"] = max(worst.get("B6", 0.0), abs_e)
+                    rows.append(row)
+                    check(rel <= TOL[name],
+                          f"B6 {ms}^2 {pname} {name} K={K} order={order} "
+                          f"{plan}: rel err {rel:.3e} > {TOL[name]:.0e} at "
+                          f"{row['worst_at']}")
+                    if ms == 1025 and name == "float32":
+                        worst["B6"] = max(worst.get("B6", 0.0), abs_e)
     emit({"phase": "b6_vs_plain", "card": card_line(), "cases": rows})
     return worst
 
 
 def phase_b4_load(meshes, problems, cache):
     """Kernel B4 with an emission load against plain_canvas_step: one step
-    at 129^2 and 1025^2, BE and CN, the demo's emitter on its transport
-    (lumped) and the walled emitter on C3's (reference quadrature)."""
+    at 129^2 (every depth that splits it) and 1025^2 (the planner's plan),
+    BE and CN, the demo's emitter on its transport (lumped) and the walled
+    emitter on C3's (reference quadrature)."""
     import torch
 
     from airpollution_tpu_torch.ops import fused_hbm, fused_solver
@@ -1320,27 +1370,28 @@ def phase_b4_load(meshes, problems, cache):
                     C, cheb, u, masks = canvas_step_inputs(inp, k, dtype)
                     (load,), _ = step_loads(inp, md, source, 1, use_ka, C,
                                             masks, lumped, dtype)
-                    tile = fused_solver.choose_tile(
-                        fused_solver.halo_of(k, use_ka), dtype,
-                        fused_hbm.CANVAS_TILE)
-                    got = torch.empty_like(u)
-                    halt = torch.tensor(-1, dtype=torch.int32,
-                                        device=u.device)
-                    fused_hbm.canvas_kernel_step(
-                        C, cheb, k, u, None, got, None, use_ka, inp["rect"],
-                        halt, tile, load=load)
                     ref, _ = fused_hbm.plain_canvas_step(
                         C, cheb, k, u, None, use_ka, masks, load)
-                    torch.cuda.synchronize()
-                    abs_e, rel, diff = rel_err(got, ref)
-                    rows.append({"ms": ms, "problem": pname, "dtype": name,
-                                 "order": order, "tile": tile,
-                                 "rel_err": rel, "worst_at": worst_at(diff)})
-                    check(rel <= TOL[name],
-                          f"B4+load {ms}^2 {pname} {name} order={order}: "
-                          f"rel err {rel:.3e} > {TOL[name]:.0e}")
-                    if ms == 1025 and name == "float32":
-                        worst["B4"] = max(worst.get("B4", 0.0), abs_e)
+                    plans = depth_plans(k, use_ka, dtype)
+                    for plan in plans if ms < 1025 else plans[:1]:
+                        got = torch.empty_like(u)
+                        halt = torch.tensor(-1, dtype=torch.int32,
+                                            device=u.device)
+                        fused_hbm.canvas_kernel_step(
+                            C, cheb, k, u, None, got, None, use_ka,
+                            inp["rect"], halt, plan, load=load)
+                        torch.cuda.synchronize()
+                        abs_e, rel, diff = rel_err(got, ref)
+                        rows.append({"ms": ms, "problem": pname,
+                                     "dtype": name, "order": order,
+                                     "plan": plan, "rel_err": rel,
+                                     "worst_at": worst_at(diff)})
+                        check(rel <= TOL[name],
+                              f"B4+load {ms}^2 {pname} {name} "
+                              f"order={order} {plan}: rel err {rel:.3e} > "
+                              f"{TOL[name]:.0e}")
+                        if ms == 1025 and name == "float32":
+                            worst["B4"] = max(worst.get("B4", 0.0), abs_e)
     emit({"phase": "b4_load_vs_plain", "card": card_line(), "cases": rows})
     return worst
 
@@ -1497,9 +1548,10 @@ def multispecies_kernel_times(meshes, problems, cache):
     check(rel <= TOL["float32"], f"B6 1025^2 step: rel err {rel:.3e}")
     out_buf = torch.empty_like(case["U"])
     halt = torch.tensor(-1, dtype=torch.int32, device=out_buf.device)
+    work = fused_hbm.work_buffer(case["plan"], case["U"], K)
     ms = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
         case["C"], case["scal"], k, case["U"], out_buf, True, inp["rect"],
-        halt, case["tile"], case["loads"], case["index"]), 30)
+        halt, case["plan"], case["loads"], case["index"], work), 30)
     plain = cuda_ms(lambda: fused_hbm.plain_multispecies_step(
         case["C"], case["cheb"], case["E"], k, case["U"], True,
         case["masks"], case["loads"], case["index"]), 3)
@@ -1512,15 +1564,15 @@ def multispecies_kernel_times(meshes, problems, cache):
     # B4 with a load: one species' step of the same shape.
     u = case["U"][0]
     load = case["loads"][0]
-    tile = fused_solver.choose_tile(fused_solver.halo_of(k, True),
-                                    torch.float32, fused_hbm.CANVAS_TILE)
+    plan = fused_hbm.canvas_plan(k, True, torch.float32)
+    b4_work = fused_hbm.work_buffer(plan, u)
     b4_out = torch.empty_like(u)
     b4_ms = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
         case["C"], case["cheb"], k, u, None, b4_out, None, True, inp["rect"],
-        halt, tile, load=load), 30)
+        halt, plan, load=load, work=b4_work), 30)
     b4_nl = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
         case["C"], case["cheb"], k, u, None, b4_out, None, True, inp["rect"],
-        halt, tile), 30)
+        halt, plan, work=b4_work), 30)
     # B6 at M2's shape (257^2, k=6), for M2's share of a step.
     md2 = meshes[(257, "float32")]
     k2 = DEMO_ITERS[257]
@@ -1528,15 +1580,16 @@ def multispecies_kernel_times(meshes, problems, cache):
     case2 = b6_case(inp2, md2, K, k2, 2, torch.float32, demo_species(1)[0],
                     True)
     out2 = torch.empty_like(case2["U"])
+    work2 = fused_hbm.work_buffer(case2["plan"], case2["U"], K)
     ms_257 = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
         case2["C"], case2["scal"], k2, case2["U"], out2, True, inp2["rect"],
-        halt, case2["tile"], case2["loads"], case2["index"]), 200)
+        halt, case2["plan"], case2["loads"], case2["index"], work2), 200)
     emit({"phase": "multispecies_kernel_times", "card": card_line(),
           "b6_ms": ms, "b6_plain_ms": plain, "b6_bound_ms": b_ms,
-          "b6_tile": case["tile"], "b6_ms_257_k6": ms_257,
+          "b6_plan": case["plan"], "b6_ms_257_k6": ms_257,
           "b4_with_load_ms": b4_ms, "b4_without_load_ms": b4_nl, "b4_k": k,
-          "b4_order": 2})
-    return {"B6": (ms, plain, b_ms, by, abs_e, None)}
+          "b4_order": 2, "b4_plan": plan})
+    return {"B6": (ms, plain, b_ms, by, abs_e, None, {"plan": case["plan"]})}
 
 
 # --- slice 4: loads on B1, B2 and B4, B1's BiCGStab variant, S1-S3, P1-P2
@@ -1807,20 +1860,18 @@ def phase_b4_flux(meshes, cache):
                 C, cheb, u, masks = canvas_step_inputs(inp, k, dtype)
                 u = u + 0.01 * masks  # a nonzero state under the plume
                 plane = flux_plane(inp, md, problem, use_ka, C, masks, dtype)
-                tile = fused_solver.choose_tile(
-                    fused_solver.halo_of(k, use_ka), dtype,
-                    fused_hbm.CANVAS_TILE)
+                plan = fused_hbm.canvas_plan(k, use_ka, dtype)
                 got = torch.empty_like(u)
                 halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
                 fused_hbm.canvas_kernel_step(
                     C, cheb, k, u, u, got, torch.empty_like(u), use_ka,
-                    inp["rect"], halt, tile, load=plane)
+                    inp["rect"], halt, plan, load=plane)
                 ref, _ = fused_hbm.plain_canvas_step(C, cheb, k, u, u,
                                                      use_ka, masks, plane)
                 torch.cuda.synchronize()
                 abs_e, rel, diff = rel_err(got, ref)
                 rows.append({"ms": ms, "dtype": name, "order": order,
-                             "tile": tile, "rel_err": rel,
+                             "plan": plan, "rel_err": rel,
                              "flux_line_max": float(plane[0, 0].abs().max()),
                              "worst_at": worst_at(diff)})
                 check(rel <= TOL[name], f"B4+flux {rows[-1]}: rel err above "
@@ -2227,15 +2278,16 @@ def slice4_kernel_times(meshes, cache, s1_md, s2_md):
         else:
             (plane,), _ = step_loads(inp, bmd, problem_s, 1, True, C, masks,
                                      True, f32)
-        tile = fused_solver.choose_tile(fused_solver.halo_of(8, True), f32,
-                                        fused_hbm.CANVAS_TILE)
+        plan = fused_hbm.canvas_plan(8, True, f32)
+        work = fused_hbm.work_buffer(plan, u)
         got = torch.empty_like(u)
         got_up = torch.empty_like(u)
         halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
 
         def launch(ld):
             fused_hbm.canvas_kernel_step(C, cheb, 8, u, u, got, got_up, True,
-                                         inp["rect"], halt, tile, load=ld)
+                                         inp["rect"], halt, plan, load=ld,
+                                         work=work)
 
         launch(plane)
         abs_e, rel, _ = rel_err(got, fused_hbm.plain_canvas_step(
@@ -2251,7 +2303,8 @@ def slice4_kernel_times(meshes, cache, s1_md, s2_md):
                              bmd.number_of_segments * (
                                  canvas_step_flops_per_dof(8, True, True)
                                  + 1))
-            out["B4-load"] = (with_load, plain, b_ms, by, abs_e, None)
+            out["B4-load"] = (with_load, plain, b_ms, by, abs_e, None,
+                              {"plan": plan})
     emit(extra)
     return out
 
@@ -2291,20 +2344,21 @@ def raw_inputs(md, problem, dtype, cache, transposed):
     return inp, C
 
 
-def run_raw(C, cheb, k, b, rect):
+def run_raw(C, cheb, k, b, rect, plan=None):
     import torch
 
     from airpollution_tpu_torch.ops import fused_hbm
 
     x = torch.empty_like(b)
     fused_hbm.canvas_raw_kernel(C, cheb, k, b, x, rect,
-                                fused_hbm.raw_tile(k, b.dtype))
+                                plan or fused_hbm.raw_plan(k, b.dtype))
     return x
 
 
 def phase_b4_raw(cases, cache):
     """B4's raw mode against plain_canvas_raw on ``cases`` ((label, md,
-    problem, dtypes)), k = 12 and 8, over the coefficients and their
+    problem, dtypes)), k = 12 and 8 (the "c1" cases also k = 24, at every
+    depth that splits the step), over the coefficients and their
     transpose, from a random b (seed 0); and the adjoint dot-product test
     <K_A(b), m y> = <m b, K_A^T(y)> with K_A(b) = p(A) m b, the
     transposed-coefficient launch as K_A^T, random b and y."""
@@ -2323,8 +2377,9 @@ def phase_b4_raw(cases, cache):
             n = md.structured_n
             b, y = (torch.tensor(rng.standard_normal((3, n, n)), dtype=dtype,
                                  device=md.device) for _ in range(2))
-            for k in (12, 8):
+            for k in (12, 8, 24) if label.startswith("c1") else (12, 8):
                 outs = {}
+                plans = depth_plans(k, False, dtype, raw=True)
                 for transposed in (False, True):
                     inp, C = raw_inputs(md, problem, dtype, cache,
                                         transposed)
@@ -2333,19 +2388,23 @@ def phase_b4_raw(cases, cache):
                     masks = fused_solver.rect_masks(n, dtype, C.device,
                                                     inp["rect"])
                     vec = y if transposed else b
-                    got = run_raw(C, cheb, k, vec, inp["rect"])
                     ref = fused_hbm.plain_canvas_raw(C, cheb, k, vec, masks)
-                    torch.cuda.synchronize()
-                    abs_e, rel, diff = rel_err(got, ref)
-                    rows.append({"case": label, "dtype": name, "k": k,
-                                 "transposed": transposed, "rel_err": rel,
-                                 "worst_at": worst_at(diff)})
-                    check(rel <= TOL[name],
-                          f"B4-raw {label} {name} k={k} T={transposed}: rel "
-                          f"err {rel:.3e} > {TOL[name]:.0e}")
+                    for plan in plans if label.startswith("c1") \
+                            else plans[:1]:
+                        got = run_raw(C, cheb, k, vec, inp["rect"], plan)
+                        torch.cuda.synchronize()
+                        abs_e, rel, diff = rel_err(got, ref)
+                        rows.append({"case": label, "dtype": name, "k": k,
+                                     "transposed": transposed, "plan": plan,
+                                     "rel_err": rel,
+                                     "worst_at": worst_at(diff)})
+                        check(rel <= TOL[name],
+                              f"B4-raw {label} {name} k={k} T={transposed} "
+                              f"{plan}: rel err {rel:.3e} > {TOL[name]:.0e}")
+                        if label == "i1_513" and name == "float32":
+                            worst["B4-raw"] = max(worst.get("B4-raw", 0.0),
+                                                  abs_e)
                     outs[transposed] = got
-                    if label == "i1_513" and name == "float32":
-                        worst["B4-raw"] = max(worst.get("B4-raw", 0.0), abs_e)
                 lhs = torch.sum(outs[False].double() * (masks * y).double())
                 rhs = torch.sum((masks * b).double() * outs[True].double())
                 gap = float((lhs - rhs).abs() / torch.maximum(lhs.abs(),
@@ -2502,9 +2561,10 @@ def slice5_kernel_times(md_513, cache):
     b = torch.tensor(np.random.default_rng(1).standard_normal((3, n, n)),
                      dtype=f32, device=C.device)
     x = torch.empty_like(b)
-    tile = fused_hbm.raw_tile(k, f32)
+    plan = fused_hbm.raw_plan(k, f32)
+    work = fused_hbm.work_buffer(plan, b)
     ms = cuda_ms(lambda: fused_hbm.canvas_raw_kernel(
-        C, cheb, k, b, x, inp["rect"], tile), 50)
+        C, cheb, k, b, x, inp["rect"], plan, work), 50)
     plain = cuda_ms(lambda: fused_hbm.plain_canvas_raw(C, cheb, k, b, masks),
                     5)
     abs_e, _, _ = rel_err(x, fused_hbm.plain_canvas_raw(C, cheb, k, b, masks))
@@ -2512,8 +2572,8 @@ def slice5_kernel_times(md_513, cache):
                      md_513.number_of_segments * raw_flops_per_dof(k))
     emit({"phase": "slice5_kernel_times", "card": card_line(),
           "b4_raw_513_k12_ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-          "bound_by": by, "tile": tile})
-    return {"B4-raw": (ms, plain, b_ms, by, abs_e, None)}
+          "bound_by": by, "plan": plan})
+    return {"B4-raw": (ms, plain, b_ms, by, abs_e, None, {"plan": plan})}
 
 
 @functools.lru_cache(maxsize=1)
@@ -3047,7 +3107,9 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
     3 steps with the exchange between them: B8 on the plume (BE,
     extrapolated, k=8; load: S1's emitter), B9 on C3's Robin walls and
     block (CN, extrapolated, k=8; load: the walled emitter), B10 on the
-    K=3 demo chain (CN, k=8; load: its emitter on species 0)."""
+    K=3 demo chain (CN, k=8; load: its emitter on species 0); B9 and B10
+    at every depth that splits their step at 257^2, at the planner's plan
+    at 513^2."""
     import torch
 
     from airpollution_tpu_torch.ops import fused_hbm, fused_solver
@@ -3101,16 +3163,17 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
                 Cb = blocks.split(C)
                 (flux,), _ = step_loads(inp, md, walled_source(), 1, True, C,
                                         cmasks, False, dtype)
-                tile = fused_solver.choose_tile(k + 1, dtype,
-                                                fused_hbm.CANVAS_TILE)
-                for load in (None, blocks.split(flux)):
+                plans = depth_plans(k, True, dtype)
+                for plan, load in [(p, ld) for p in (plans if ms == 257
+                                                     else plans[:1])
+                                   for ld in (None, blocks.split(flux))]:
                     state = torch.stack([blocks.split(u0),
                                          blocks.split(0.8 * u0)], dim=1)
 
-                    def kernel(d, src, dst, load=load):
+                    def kernel(d, src, dst, load=load, plan=plan):
                         fused_hbm.canvas_block_kernel_step(
                             Cb[d], cheb, k, src[0], src[1], dst[0], dst[1],
-                            True, rect, None, tile, blocks.blocks[d],
+                            True, rect, None, plan, blocks.blocks[d],
                             load=None if load is None else load[d])
 
                     def plain(d, src, load=load):
@@ -3123,12 +3186,15 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
                                                 kernel, plain, state)
                     rows.append({"kernel": "B9", "ms": ms, "blocks": nb,
                                  "dtype": name, "load": load is not None,
-                                 "rel_err": rel})
+                                 "plan": plan, "rel_err": rel})
                     if name == "float32":
                         worst["B9"] = max(worst.get("B9", 0.0), abs_e)
                 # B10: the demo chain, K=3, CN.
                 inp = canvas_inputs(md, problems["demo"], 2, dtype, cache)
-                for source in (None, demo_species(1)[0]):
+                plans = depth_plans(k, True, dtype, n_species=3)
+                for plan, source in [(p, src) for p in (plans if ms == 257
+                                                        else plans[:1])
+                                     for src in (None, demo_species(1)[0])]:
                     case = b6_case(inp, md, 3, k, 2, dtype, source, True)
                     Cb = blocks.split(case["C"])
                     bm = [fused_hbm.block_masks(b, dtype, Cb.device,
@@ -3136,16 +3202,16 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
                           for b in blocks.blocks]
                     loads = (None if case["loads"] is None
                              else blocks.split(case["loads"]))
-                    tile = case["tile"]
                     state = blocks.split(case["U"].reshape(9, n, n))
 
                     def species(x):
                         return x.view(3, 3, blocks.rows, n)
 
-                    def kernel(d, src, dst, loads=loads, case=case):
+                    def kernel(d, src, dst, loads=loads, case=case,
+                               plan=plan):
                         fused_hbm.multispecies_block_kernel_step(
                             Cb[d], case["scal"], k, species(src),
-                            species(dst), True, inp["rect"], None, tile,
+                            species(dst), True, inp["rect"], None, plan,
                             blocks.blocks[d],
                             None if loads is None else loads[d],
                             case["index"])
@@ -3161,7 +3227,7 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
                                                 kernel, plain, state)
                     rows.append({"kernel": "B10", "ms": ms, "blocks": nb,
                                  "dtype": name, "load": source is not None,
-                                 "rel_err": rel})
+                                 "plan": plan, "rel_err": rel})
                     if name == "float32":
                         worst["B10"] = max(worst.get("B10", 0.0), abs_e)
     emit({"phase": "block_vs_plain", "card": card_line(), "cases": rows})
@@ -3487,14 +3553,15 @@ def block_kernel_times(meshes, problems, cache):
     Cb = blocks.split(C)
     state = torch.stack([blocks.split(u)] * 2, dim=1)
     out = torch.empty_like(state)
-    tile = fused_solver.choose_tile(k, f32, fused_hbm.CANVAS_TILE)
+    plan = fused_hbm.canvas_plan(k, False, f32)
+    work = fused_hbm.work_buffer(plan, state[0][0])
     b = blocks.blocks[1]
     m, on = fused_hbm.block_masks(b, f32, u.device, rect)
 
     def b9(d):
         fused_hbm.canvas_block_kernel_step(
             Cb[d], cheb, k, state[d][0], state[d][1], out[d][0], out[d][1],
-            False, rect, None, tile, blocks.blocks[d])
+            False, rect, None, plan, blocks.blocks[d], work=work)
 
     def plain_b9():
         return torch.stack(fused_hbm.plain_canvas_block_step(
@@ -3506,14 +3573,17 @@ def block_kernel_times(meshes, problems, cache):
     cells = 3 * b.local * n
     b_ms, by = bound(((21 + 2 * 3) * b.rows * n + 2 * cells) * 4,
                      cells * canvas_step_flops_per_dof(k, False, True))
-    times["B9"] = (ms_k, plain, b_ms, by, abs_e, None)
+    times["B9"] = (ms_k, plain, b_ms, by, abs_e, None, {"plan": plan})
     extra["B9_max_abs_err_vs_plain"] = abs_e
     extra["B9_step_4_blocks_ms"] = per_step_ms(
         state, blocks, lambda: [b9(d) for d in range(nb)])
     halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
     whole_out = (torch.empty_like(u), torch.empty_like(u))
+    whole_work = fused_hbm.work_buffer(plan, u)
     extra["B4_1025_ms"] = cuda_ms(lambda: fused_hbm.canvas_kernel_step(
-        C, cheb, k, u, u, *whole_out, False, rect, halt, tile), 20)
+        C, cheb, k, u, u, *whole_out, False, rect, halt, plan,
+        work=whole_work), 20)
+    del whole_work
     del state, out, Cb, whole_out
     # B10: M1's step.
     k, K = DEMO_ITERS[1025], 3
@@ -3527,12 +3597,14 @@ def block_kernel_times(meshes, problems, cache):
     out = torch.empty_like(state)
     b = blocks.blocks[1]
     m, on = fused_hbm.block_masks(b, f32, u.device, rect)
+    plan = case["plan"]
+    work = fused_hbm.work_buffer(plan, Cb[0], K)
 
     def b10(d):
         fused_hbm.multispecies_block_kernel_step(
             Cb[d], case["scal"], k, state[d].view(K, 3, b.rows, n),
-            out[d].view(K, 3, b.rows, n), True, rect, None, case["tile"],
-            blocks.blocks[d], loads[d], case["index"])
+            out[d].view(K, 3, b.rows, n), True, rect, None, plan,
+            blocks.blocks[d], loads[d], case["index"], work)
 
     def plain_b10():
         return fused_hbm.plain_multispecies_block_step(
@@ -3547,14 +3619,16 @@ def block_kernel_times(meshes, problems, cache):
     b_ms, by = bound(((21 + 3 * K + 3) * b.rows * n + K * cells) * 4,
                      K * cells * canvas_step_flops_per_dof(k, True, False)
                      + 2 * cells * K * (2 * K - 1))
-    times["B10"] = (ms_k, plain, b_ms, by, abs_e, None)
+    times["B10"] = (ms_k, plain, b_ms, by, abs_e, None, {"plan": plan})
     extra["B10_max_abs_err_vs_plain"] = abs_e
     extra["B10_step_4_blocks_ms"] = per_step_ms(
         state, blocks, lambda: [b10(d) for d in range(nb)])
     wout = torch.empty_like(case["U"])
+    whole_work = fused_hbm.work_buffer(plan, case["U"], K)
     extra["B6_1025_ms"] = cuda_ms(lambda: fused_hbm.multispecies_kernel_step(
         case["C"], case["scal"], k, case["U"], wout, True, rect, halt,
-        case["tile"], case["loads"], case["index"]), 20)
+        plan, case["loads"], case["index"], whole_work), 20)
+    del whole_work
     extra["exchange_ms_b10_state"] = cuda_ms(
         lambda: hbm_shard.exchange(state, blocks.local, blocks.halo), 50)
     extra.update({f"{kid}_ms": times[kid][0] for kid in ("B9", "B10")})

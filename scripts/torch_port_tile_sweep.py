@@ -10,9 +10,6 @@ launch against the kernel's plain PyTorch version:
   B2 launched once per step on the same mesh;
 - B2 (``csrc/uniform_step.cu``: one 1025^2 step, Chebyshev-8,
   extrapolated, BE) at every tile and both block sizes;
-- B4 (``csrc/canvas_step.cu``: one 1025^2 step of the rotating-wind
-  canvas operator, Chebyshev-14 as C1 runs it, extrapolated, BE and CN)
-  likewise;
 - B3 (``csrc/stencil_matvec.cu``: one 257^2 matvec at its one block
   size, through the bound operator) and B5
   (``csrc/canvas_solver.cu``: the whole 257^2, nt=1001 BiCGStab-5 solve)
@@ -22,7 +19,10 @@ Prints one JSON line per configuration, then the card's name and power
 limit. Needs one CUDA card; run from the repository root, optionally
 naming the kernels to sweep:
 
-    python3 scripts/torch_port_tile_sweep.py [B1 B2 B3 B4 B5]
+    python3 scripts/torch_port_tile_sweep.py [B1 B2 B3 B5]
+
+The canvas step kernels B4 and B6 take their launch plans from
+scripts/torch_port_b4_b6_ab.py --sweep.
 """
 
 import json
@@ -109,31 +109,6 @@ def split_b1(md, problem):
                           "us_per_step": ms * 1e3}), flush=True)
 
 
-def sweep_b4(md, problem):
-    k = cs.C1_ITERS
-    for order in (1, 2):
-        use_ka = order == 2
-        inp = cs.canvas_inputs(md, problem, order, torch.float32, {})
-        C, cheb, u, masks = cs.canvas_step_inputs(inp, k, torch.float32)
-        up = u.clone()
-        ref, _ = fused_hbm.plain_canvas_step(C, cheb, k, u, up, use_ka, masks)
-        out, out_up = torch.empty_like(u), torch.empty_like(u)
-        halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
-        for tile in tiles(fused_solver.halo_of(k, use_ka)):
-            for threads in fused_solver.BLOCK_THREADS:
-                def run():
-                    fused_hbm.canvas_kernel_step(C, cheb, k, u, up, out,
-                                                 out_up, use_ka, inp["rect"],
-                                                 halt, tile, threads)
-                run()
-                err = float((out - ref).abs().max())
-                ms = cs.cuda_ms(run, 20)
-                print(json.dumps({"kernel": "B4", "ms_mesh": 1025,
-                                  "order": order, "k": k, "tile": tile,
-                                  "threads": threads, "ms": ms,
-                                  "max_abs_err": err}), flush=True)
-
-
 def sweep_b3_b5(md, problem):
     import numpy as np
 
@@ -165,20 +140,17 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    which = set(sys.argv[1:]) or {"B1", "B2", "B3", "B4", "B5"}
+    which = set(sys.argv[1:]) or {"B1", "B2", "B3", "B5"}
     domain, problem = apt.Domain(), apt.Problem(sigma=1.0)
-    rotating = apt.RotatingPlumeProblem(omega=0.05, D=0.3)
     md = apt.MeshData(apt.create_mesh(257, 20.0), domain, nt=1001)
     if "B1" in which:
         sweep_b1(md, problem)
         split_b1(md, problem)
     if which & {"B3", "B5"}:
-        sweep_b3_b5(md, rotating)
-    md = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=1001)
+        sweep_b3_b5(md, apt.RotatingPlumeProblem(omega=0.05, D=0.3))
     if "B2" in which:
+        md = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=1001)
         sweep_b2(md, problem)
-    if "B4" in which:
-        sweep_b4(md, rotating)
     print(cs.card_line(), flush=True)
     return 0
 

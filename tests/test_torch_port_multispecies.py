@@ -497,9 +497,11 @@ def test_validation_errors_match_jax(kw):
 
 def test_b6_envelope_raises_naming_k_and_iterations():
     with pytest.raises(ValueError, match="K=8.*chebyshev_iters=60"):
-        fused_hbm.multispecies_tile(8, 60, True, torch.float64)
+        fused_hbm.multispecies_plan(8, 60, True, torch.float64)
     with pytest.raises(ValueError, match="1 to 8 species"):
-        fused_hbm.multispecies_tile(9, 4, False, torch.float32)
-    # The demo's row fits a 32^2 tile in f32 (180 KB) and 16^2 in f64.
-    assert fused_hbm.multispecies_tile(3, 8, True, torch.float32) == 32
-    assert fused_hbm.multispecies_tile(3, 8, True, torch.float64) == 16
+        fused_hbm.multispecies_plan(9, 4, False, torch.float32)
+    # The demo's row fits the kernel's registers and shared memory in f32
+    # and f64.
+    for dtype in (torch.float32, torch.float64):
+        plan = fused_hbm.multispecies_plan(3, 8, True, dtype)
+        assert fused_hbm.plan_fits(plan, 8, True, dtype, n_species=3)
