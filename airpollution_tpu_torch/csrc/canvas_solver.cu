@@ -8,14 +8,18 @@
 // bicgstab_loop.cuh's; this file supplies the operator: a (24, n, n) stack
 // of 15 coefficient canvases of the masked system, the masked mass, the
 // inverse diagonal and the interior mask, read through the read-only path
-// (__ldg: it never changes during a solve). Zero source, as the JAX kernel.
+// (__ldg: it never changes during a solve). In register mode each thread
+// reads its cells' 15 coefficients and inverse diagonal once per solve
+// (Cell), the mass and mask once per step; a matvec phase reads a
+// neighbour's inverse diagonal (and the first phase of a step its mask) at
+// the neighbour. Zero source, as the JAX kernel.
 //
 // Crank-Nicolson needs no extra coefficients: with P = diag(interior),
 // B = I - P and the masked system S = P (M + (dt/2) ka) + B, the CN RHS is
 // b = 2 M_masked u + B u - S u.
 //
-// What bounds it: 27 grid barriers per step (28 CN) at k = 5; the operator
-// (13.5 MB at 257^2 in f32 with the state and Krylov canvases) stays in L2.
+// What bounds it: 16 grid barriers per step at k = 5; the operator (13.5 MB
+// at 257^2 in f32 with the state and Krylov canvases) stays in L2.
 
 #include "bicgstab_loop.cuh"
 
@@ -23,49 +27,71 @@ namespace crbe {
 
 template <typename T>
 struct CanvasOp {
+  // Register mode holds 18 operator values per cell: one cell (two
+  // spilled and ran slower than global mode at 257^2 on an H100).
+  static constexpr int kMaxCells = 1;
   const T* C;  // (24, n, n)
   int n;
   size_t nn;
 
+  // One cell's operator values that every iteration reads: the 15
+  // coefficients and the inverse diagonal (the mass and the interior mask,
+  // read once per step, stay in device memory).
+  struct Cell {
+    T c[15];
+    T id[3];
+  };
+
   __device__ __forceinline__ void load() {}
-  __device__ __forceinline__ T coef(int k, size_t q) const {
-    return __ldg(C + k * nn + q);
+  __device__ __forceinline__ Cell cell(size_t q, int, int) const {
+    Cell c;
+#pragma unroll
+    for (int i = 0; i < 15; ++i) c.c[i] = __ldg(C + i * nn + q);
+#pragma unroll
+    for (int f = 0; f < 3; ++f) c.id[f] = __ldg(C + (18 + f) * nn + q);
+    return c;
   }
-  __device__ __forceinline__ void apply(const T* x, int i, int j, size_t q,
-                                        T y[3]) const {
-    const Neighbours<T> a = neighbours(x, n, i, j);
-    const T* c = C + q;
-    y[0] = __ldg(c) * a.h0 + __ldg(c + nn) * a.vr + __ldg(c + 2 * nn) * a.d0 +
-           __ldg(c + 3 * nn) * a.vu + __ldg(c + 4 * nn) * a.du;
-    y[1] = __ldg(c + 5 * nn) * a.v0 + __ldg(c + 6 * nn) * a.dl +
-           __ldg(c + 7 * nn) * a.hl + __ldg(c + 8 * nn) * a.hd +
-           __ldg(c + 9 * nn) * a.d0;
-    y[2] = __ldg(c + 10 * nn) * a.d0 + __ldg(c + 11 * nn) * a.vr +
-           __ldg(c + 12 * nn) * a.h0 + __ldg(c + 13 * nn) * a.hd +
-           __ldg(c + 14 * nn) * a.v0;
+  __device__ __forceinline__ void apply(const Cell& k, const Neighbours<T>& a,
+                                        int, int, T y[3]) const {
+    const T* c = k.c;
+    y[0] = c[0] * a.h0 + c[1] * a.vr + c[2] * a.d0 + c[3] * a.vu +
+           c[4] * a.du;
+    y[1] = c[5] * a.v0 + c[6] * a.dl + c[7] * a.hl + c[8] * a.hd +
+           c[9] * a.d0;
+    y[2] = c[10] * a.d0 + c[11] * a.vr + c[12] * a.h0 + c[13] * a.hd +
+           c[14] * a.v0;
   }
-  __device__ __forceinline__ T mask(int f, int, int, size_t q) const {
-    return coef(21 + f, q);
+  __device__ __forceinline__ T mask_at(int f, size_t q, int, int) const {
+    return __ldg(C + (21 + f) * nn + q);
   }
-  __device__ __forceinline__ T idiag(int f, size_t q) const {
-    return coef(18 + f, q);
+  __device__ __forceinline__ T mask(const Cell&, int f, size_t q, int i,
+                                    int j) const {
+    return mask_at(f, q, i, j);
   }
-  __device__ __forceinline__ T be_rhs(int f, T u, int, int, size_t q) const {
-    return coef(15 + f, q) * u;
+  __device__ __forceinline__ T idiag(const Cell& k, int f) const {
+    return k.id[f];
   }
-  __device__ __forceinline__ T cn_rhs(int f, T u, T y, int, int,
-                                      size_t q) const {
-    return T(2) * coef(15 + f, q) * u + (T(1) - coef(21 + f, q)) * u - y;
+  __device__ __forceinline__ T idiag_at(int f, size_t q) const {
+    return __ldg(C + (18 + f) * nn + q);
+  }
+  __device__ __forceinline__ T be_rhs(const Cell&, int f, size_t q,
+                                      T u) const {
+    return __ldg(C + (15 + f) * nn + q) * u;
+  }
+  __device__ __forceinline__ T cn_rhs(const Cell&, int f, size_t q, T u,
+                                      T y) const {
+    return T(2) * __ldg(C + (15 + f) * nn + q) * u +
+           (T(1) - __ldg(C + (21 + f) * nn + q)) * u - y;
   }
 };
 
 template <typename T>
 int launch_canvas_solve(const T* C, T* u, T* up, T* work, double* partials,
                         int n, int n_steps, int n_iters, int use_ka,
-                        int threads, void* stream, int* grid_out) {
+                        int cells, void* stream, int* grid_out) {
   CanvasOp<T> op{C, n, static_cast<size_t>(n) * n};
   return launch_bicgstab<T>(op, u, up, work, partials, nullptr, 0, n,
-                            n_steps, n_iters, use_ka, threads, stream,
+                            n_steps, n_iters, use_ka, cells, stream,
                             grid_out);
 }
 
@@ -75,19 +101,19 @@ extern "C" {
 
 int crbe_canvas_solve_f32(const float* C, float* u, float* up, float* work,
                           double* partials, int n, int n_steps, int n_iters,
-                          int use_ka, int threads, void* stream,
+                          int use_ka, int cells, void* stream,
                           int* grid_out) {
   return crbe::launch_canvas_solve<float>(C, u, up, work, partials, n,
-                                          n_steps, n_iters, use_ka, threads,
+                                          n_steps, n_iters, use_ka, cells,
                                           stream, grid_out);
 }
 
 int crbe_canvas_solve_f64(const double* C, double* u, double* up,
                           double* work, double* partials, int n, int n_steps,
-                          int n_iters, int use_ka, int threads, void* stream,
+                          int n_iters, int use_ka, int cells, void* stream,
                           int* grid_out) {
   return crbe::launch_canvas_solve<double>(C, u, up, work, partials, n,
-                                           n_steps, n_iters, use_ka, threads,
+                                           n_steps, n_iters, use_ka, cells,
                                            stream, grid_out);
 }
 

@@ -81,8 +81,6 @@ namespace crbe {
 
 // Chebyshev scalar block: 1/theta, a_0..a_{k-1}, b_0..b_{k-1}.
 constexpr int kChebScal = 1 + 2 * kMaxIters;
-// The most launches one step is split into (ops/fused_hbm.MAX_DEPTH).
-constexpr int kMaxDepth = 4;
 
 template <typename T>
 struct Shape;
@@ -112,71 +110,6 @@ __device__ __forceinline__ void rect_masks(int gr, int gc, int c,
   m[0] = (gr >= rc.h_lo && gr < rc.h_hi && c_in) ? T(1) : T(0);
   m[1] = (r_in && gc >= rc.v_lo && gc < rc.v_hi) ? T(1) : T(0);
   m[2] = (r_in && c_in) ? T(1) : T(0);
-}
-
-// Raises a kernel's dynamic shared-memory limit to `smem` bytes when a
-// launch needs more than the last one (the attribute is per kernel).
-template <typename K>
-inline cudaError_t ensure_smem(K kernel, size_t smem, size_t* smem_set) {
-  if (smem <= *smem_set) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) *smem_set = smem;
-  return err;
-}
-
-// One launch of a step split over `depth` launches: the Chebyshev
-// iterations [it0, it1) it runs, whether it starts the step (right-hand
-// side and warm start, or raw mode's r = mask b) and ends it (the last
-// x += d, written out), and `ext`, the halos of the spans after it (block
-// mode widens the tiles' row range by it).
-struct Span {
-  int it0, it1;
-  int first, last;
-  int ext;
-};
-
-// The phases that shrink the square: the right-hand side (Crank-Nicolson
-// only), the initial residual, and the k - 1 iterations with a matvec;
-// raw mode: the k - 1 iterations alone.
-inline int step_halo(int n_iters, int use_ka, bool raw) {
-  return raw ? n_iters - 1 : n_iters + use_ka;
-}
-
-// Span j's halo: the H phases dealt as evenly as possible, the earlier
-// spans taking the remainder (ops/fused_hbm.span_halos).
-inline int span_halo(int H, int depth, int j) {
-  return H / depth + (j < H % depth ? 1 : 0);
-}
-
-// Whether `depth` spans are a valid split of the step: each later span runs
-// at least one iteration and the first holds its leading phases.
-inline bool depth_fits(int n_iters, int use_ka, bool raw, int depth) {
-  const int H = step_halo(n_iters, use_ka, raw);
-  if (depth < 1 || depth > kMaxDepth) return false;
-  if (depth == 1) return true;
-  const int lead = raw ? 1 : use_ka + 1;
-  return depth <= H && span_halo(H, depth, 0) >= lead;
-}
-
-inline Span make_span(int n_iters, int use_ka, bool raw, int depth, int j,
-                      int* halo) {
-  const int H = step_halo(n_iters, use_ka, raw);
-  const int lead = raw ? 0 : use_ka + 1;
-  int before = 0, after = 0;
-  for (int i = 0; i < depth; ++i) {
-    if (i < j) before += span_halo(H, depth, i);
-    if (i > j) after += span_halo(H, depth, i);
-  }
-  *halo = span_halo(H, depth, j);
-  Span s;
-  s.first = j == 0;
-  s.last = j == depth - 1;
-  s.it0 = j == 0 ? 0 : before - lead;
-  s.it1 = before + *halo - lead;
-  s.ext = after;
-  return s;
 }
 
 // The window of one output tile: a (tile + 2 halo)^2 square of cells whose

@@ -70,17 +70,19 @@ from airpollution_tpu_torch.ops import fused_solver, linalg
 from airpollution_tpu_torch.ops.loads import EmissionLoads, RobinFluxLoads
 from airpollution_tpu_torch.problems import mix_species
 
+# B2 takes a uniform plan's tile rows and columns and depth, and a work
+# buffer (null at depth 1).
 KERNEL = _build.Kernel(
     "uniform_step", "uniform_step.cu",
     {torch.float32: "crbe_uniform_step_f32",
      torch.float64: "crbe_uniform_step_f64"},
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 LOAD_KERNEL = _build.Kernel(
     "uniform_step_load", "uniform_step.cu",
     {torch.float32: "crbe_uniform_step_load_f32",
      torch.float64: "crbe_uniform_step_load_f64"},
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 )
 # The canvas kernels (B4, its raw mode, B6) take a plan's tile and depth
 # and a work buffer (null at depth 1) instead of a halo and a block size.
@@ -104,19 +106,18 @@ MULTISPECIES_KERNEL = _build.Kernel(
     + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 # The block modes (B8, B9, B10): one row block per launch, with the block's
-# rows, global row offset and interior as five more ints, and no block size
-# (built for 512 threads only).
+# rows, global row offset and interior as four more ints.
 BLOCK_KERNEL = _build.Kernel(
     "uniform_block_step", "uniform_step.cu",
     {torch.float32: "crbe_uniform_block_step_f32",
      torch.float64: "crbe_uniform_block_step_f64"},
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 BLOCK_LOAD_KERNEL = _build.Kernel(
     "uniform_block_step_load", "uniform_step.cu",
     {torch.float32: "crbe_uniform_block_step_load_f32",
      torch.float64: "crbe_uniform_block_step_load_f64"},
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 )
 CANVAS_BLOCK_KERNEL = _build.Kernel(
     "canvas_block_step", "canvas_step.cu",
@@ -132,8 +133,8 @@ MULTISPECIES_BLOCK_KERNEL = _build.Kernel(
     + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 )
 
-#: Output tile edge, measured on an H100 (scripts/torch_port_tile_sweep.py):
-#: fastest at 1025^2 with Chebyshev-8, 1,089 blocks of 512 threads.
+#: B2's square tile edge before fused_solver.uniform_plan; kept only for
+#: ``fused_solver.choose_tile``'s test.
 TILE = 32
 MAX_SPECIES = 8  # csrc/multispecies_step.cu kMaxSpecies
 
@@ -169,9 +170,9 @@ def robin_rect_bounds(c, robin_sides):
 #: of cells, each thread keeping its cells' 18 operator values, x and r in
 #: registers. Measured on an H100 (scripts/torch_port_b4_b6_ab.py --sweep).
 CANVAS_SHAPE = {torch.float32: (512, 4), torch.float64: (256, 4)}
-#: The most launches one step is split into (csrc/canvas_tile.cuh
-#: kMaxDepth), and the output tiles the planner tries.
-MAX_DEPTH = 4
+#: The most launches one step is split into (csrc/tile_step.cuh kMaxDepth,
+#: shared with the uniform step), and the output tiles the planner tries.
+MAX_DEPTH = fused_solver.MAX_DEPTH
 PLAN_TILES = (64, 56, 48, 44, 40, 36, 32, 30, 28, 26, 24, 22, 20, 18, 16,
               14, 12, 10, 8)
 #: Plans measured on an H100 (scripts/torch_port_b4_b6_ab.py --sweep) for the
@@ -188,59 +189,14 @@ class CanvasPlan(NamedTuple):
     depth: int = 1
 
 
-def step_halo(n_iters: int, use_ka: bool, raw: bool = False) -> int:
-    """The phases of one step that shrink the window's square: B4's and
-    B6's halo k + use_ka (fused_solver.halo_of), raw mode's k - 1 (x0 = 0,
-    so its first matvec is skipped)."""
-    return n_iters - 1 if raw else n_iters + int(use_ka)
+# The spans of a split step, shared with the uniform step (fused_solver).
+step_halo = fused_solver.step_halo
+Span = fused_solver.Span
+depth_fits = fused_solver.depth_fits
+canvas_spans = fused_solver.step_spans
 
 
-class Span(NamedTuple):
-    """One launch of a split step (csrc/canvas_tile.cuh make_span): its
-    halo, the Chebyshev iterations [it0, it1) it runs (those with a matvec,
-    0 .. k - 2), and ``ext``, the halos of the spans after it."""
-
-    halo: int
-    it0: int
-    it1: int
-    first: bool
-    last: bool
-    ext: int
-
-
-def depth_fits(n_iters: int, use_ka: bool, raw: bool, depth: int) -> bool:
-    """Whether ``depth`` spans split the step: each later span runs at
-    least one iteration, the first holds the right-hand side and the
-    initial residual (raw mode: at least one iteration)."""
-    H = step_halo(n_iters, use_ka, raw)
-    if not 1 <= depth <= MAX_DEPTH:
-        return False
-    lead = 1 if raw else int(use_ka) + 1
-    return depth == 1 or (depth <= H and H // depth
-                          + (1 if H % depth else 0) >= lead)
-
-
-def canvas_spans(n_iters: int, use_ka: bool, raw: bool, depth: int):
-    """The spans of a step split over ``depth`` launches: the H shrinking
-    phases dealt as evenly as possible, the earlier spans taking the
-    remainder, as the kernels deal them."""
-    if not depth_fits(n_iters, use_ka, raw, depth):
-        raise ValueError(f"depth {depth} does not split a step of "
-                         f"chebyshev_iters={n_iters}")
-    H = step_halo(n_iters, use_ka, raw)
-    halos = [H // depth + (1 if j < H % depth else 0) for j in range(depth)]
-    lead = 0 if raw else int(use_ka) + 1
-    spans, before = [], 0
-    for j, h in enumerate(halos):
-        spans.append(Span(h, 0 if j == 0 else before - lead,
-                          before + h - lead, j == 0, j == depth - 1,
-                          sum(halos[j + 1:])))
-        before += h
-    return tuple(spans)
-
-
-def _elem(dtype) -> int:
-    return torch.tensor([], dtype=dtype).element_size()
+_elem = fused_solver._elem
 
 
 def plan_fits(plan: CanvasPlan, n_iters: int, use_ka: bool, dtype, *,
@@ -315,20 +271,23 @@ def work_buffer(plan: CanvasPlan, like: torch.Tensor, n_species: int = 1):
                        dtype=like.dtype, device=like.device)
 
 
-def kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt, tile,
-                threads=fused_solver.THREADS, load=None):
+def kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt,
+                plan: fused_solver.UniformPlan, load=None, work=None):
     """One launch of B2: (u, up) -> (u_out, up_out); CUDA tensors only.
-    ``load``: an optional (3, n, n) plane added to the right-hand side
-    (B2's load entry point, counted in :data:`LOAD_KERNEL`)."""
+    ``plan``: fused_solver.uniform_plan's; ``work``: its work buffer
+    (fused_solver.uniform_work, made here when not given); ``load``: an
+    optional (3, n, n) plane added to the right-hand side (B2's load entry
+    point, counted in :data:`LOAD_KERNEL`)."""
     n = u.shape[-1]
     if not (u.is_cuda and u_out.is_cuda and scal.is_cuda):
         raise ValueError("kernel_step needs CUDA tensors")
     if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
         raise ValueError("load must be a (3, n, n) plane of u's dtype")
-    halo = fused_solver.halo_of(n_iters, use_ka)
+    if work is None:
+        work = fused_solver.uniform_work(plan, u)
     P = _build.pointer
     head = (P(scal), P(u), P(up), P(u_out), P(up_out), P(halt))
-    tail = (n, tile, halo, n_iters, int(use_ka), threads,
+    tail = (P(work), n, plan.th, plan.tw, plan.depth, n_iters, int(use_ka),
             _build.current_stream())
     if load is None:
         KERNEL.launch(u.dtype, *head, *tail)
@@ -564,12 +523,12 @@ def fused_solve_uniform_hbm(spec, consts, mass_consts, inv_diag_consts,
         return None if loads is None else loads.advance()[0]
 
     if u.is_cuda:
-        tile = fused_solver.choose_tile(
-            fused_solver.halo_of(n_iters, use_ka), dtype, TILE)
+        plan = fused_solver.uniform_plan(n_iters, use_ka, dtype, u.shape[-1])
+        work = fused_solver.uniform_work(plan, u)
         step = _pingpong(
             lambda u, up, u_out, up_out, bad: kernel_step(
-                scal, n_iters, u, up, u_out, up_out, use_ka, bad, tile,
-                load=load_of_step()),
+                scal, n_iters, u, up, u_out, up_out, use_ka, bad, plan,
+                load=load_of_step(), work=work),
             u, extrapolate)
     else:
         def step(u, up, bad):
@@ -945,6 +904,20 @@ class BlockRows(NamedTuple):
         return (self.n, self.rows, self.row0, self.halo,
                 self.halo + self.local)
 
+    @property
+    def live_rows(self) -> int:
+        """The interior rows whose global row lies below n - 1 (the rows
+        the uniform block step's tiles cover)."""
+        first = self.row0 + self.halo
+        return max(0, min(first + self.local, self.n - 1) - first)
+
+
+def block_plan(n_iters: int, use_ka: bool, dtype, block: BlockRows):
+    """B8's launch plan on ``block`` (fused_solver.uniform_plan's on the
+    block's live rows, the tile height balanced over them)."""
+    return fused_solver.uniform_plan(n_iters, use_ka, dtype, block.n,
+                                     live_rows=block.live_rows)
+
 
 def block_masks(block: BlockRows, dtype, device, rect=None):
     """``(masks, on_canvas)`` of a row block: the (3, rows, n) interior
@@ -1005,9 +978,12 @@ def _check_block(block: BlockRows, n_iters, use_ka, shape):
 
 
 def block_kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt,
-                      tile, block: BlockRows, load=None):
+                      plan: fused_solver.UniformPlan, block: BlockRows,
+                      load=None, work=None):
     """One launch of B8 on a row block: (u, up) -> the interior rows of
-    (u_out, up_out), (3, rows, n) blocks; CUDA tensors only. ``load``: an
+    (u_out, up_out), (3, rows, n) blocks; CUDA tensors only. ``plan``:
+    :func:`block_plan`'s; ``work``: its work buffer
+    (fused_solver.uniform_work, made here when not given); ``load``: an
     optional (3, rows, n) load block (B8's load entry point, counted in
     :data:`BLOCK_LOAD_KERNEL`)."""
     if not (u.is_cuda and u_out.is_cuda and scal.is_cuda):
@@ -1015,9 +991,11 @@ def block_kernel_step(scal, n_iters, u, up, u_out, up_out, use_ka, halt,
     _check_block(block, n_iters, use_ka, u.shape)
     if load is not None and (load.shape != u.shape or load.dtype != u.dtype):
         raise ValueError("load must be a (3, rows, n) block of u's dtype")
+    if work is None:
+        work = fused_solver.uniform_work(plan, u)
     P = _build.pointer
     head = (P(scal), P(u), P(up), P(u_out), P(up_out), P(halt))
-    tail = (*block.kernel_args(), tile, fused_solver.halo_of(n_iters, use_ka),
+    tail = (P(work), *block.kernel_args(), plan.th, plan.tw, plan.depth,
             n_iters, int(use_ka), _build.current_stream())
     if load is None:
         BLOCK_KERNEL.launch(u.dtype, *head, *tail)

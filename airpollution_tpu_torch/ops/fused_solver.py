@@ -13,8 +13,10 @@ extrapolating), and runs a fixed number of iterations.
   indices), in two variants:
 
   - k Chebyshev iterations, no reductions: ``csrc/uniform_solver.cu``, a
-    cooperative persistent kernel with one grid barrier per step; with a
-    load, its second entry point reads one (3, n, n) plane per step;
+    cooperative persistent kernel with one grid barrier per step, each
+    block stepping its output tiles with ``csrc/tile_step.cuh`` (the tile
+    from :func:`uniform_plan`); with a load, its second entry point reads
+    one (3, n, n) plane per step;
   - k BiCGStab iterations right-preconditioned by Jacobi:
     ``csrc/uniform_bicgstab.cu``, B5's loop (``csrc/bicgstab_loop.cuh``)
     on the 15 scalars.
@@ -42,6 +44,8 @@ same arithmetic on the full canvas with zero-padded shifts.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,18 +53,20 @@ import torch.nn.functional as F
 from airpollution_tpu_torch import _build
 from airpollution_tpu_torch.ops.loads import EmissionLoads
 
+# B1 takes the plan's tile rows and columns and depth, and a work buffer
+# (null at depth 1).
 KERNEL = _build.Kernel(
     "uniform_solver", "uniform_solver.cu",
     {torch.float32: "crbe_uniform_solve_f32",
      torch.float64: "crbe_uniform_solve_f64"},
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
 )
 LOAD_KERNEL = _build.Kernel(
     "uniform_solver_load", "uniform_solver.cu",
     {torch.float32: "crbe_uniform_solve_load_f32",
      torch.float64: "crbe_uniform_solve_load_f64"},
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)],
 )
 BICGSTAB_KERNEL = _build.Kernel(
@@ -82,20 +88,31 @@ CANVAS_KERNEL = _build.Kernel(
 #: address on Hopper, less room for the static scalar block.
 SMEM_BUDGET = 227 * 1024 - 2048
 TILE_CANDIDATES = (64, 56, 48, 40, 32, 24, 16, 8)
-BLOCK_THREADS = (256, 512)  # the block sizes csrc/ instantiates
 MAX_ITERS = 64  # csrc/tile_step.cuh kMaxIters
-#: Launch shape, measured on an H100 (scripts/torch_port_tile_sweep.py):
-#: 512 threads per block, and 24^2 output tiles for the whole-loop kernel.
-#: At 257^2 they make 121 blocks for the 132 SMs; 32^2 tiles make 81, and
-#: smaller ones pay more for the halo than they gain in occupancy.
-THREADS = 512
+#: The square tile edge of the step held wholly in shared memory, before
+#: :func:`uniform_plan`; kept only for ``choose_tile``'s test.
 TILE = 24
-#: B5's block size, measured on an H100 (scripts/torch_port_tile_sweep.py:
-#: 92 ms per 257^2 solve against 104 ms at 256), and the most blocks it
-#: runs (the size of its buffer of per-block partial sums;
-#: csrc/bicgstab_loop.cuh kMaxGrid). B1's BiCGStab variant uses the same.
+#: The uniform step kernels' compiled launch shape per dtype
+#: (csrc/tile_step.cuh UNIFORM_THREADS_* and UniformShape): threads per
+#: block and the cells per thread compiled; a launch takes the least that
+#: holds its window, each cell keeping x and r (6 values) in registers.
+#: Measured on an H100 (scripts/torch_port_ab.py --sweep).
+UNIFORM_SHAPE = {torch.float32: (512, (4, 8, 12)),
+                 torch.float64: (256, (4, 8))}
+#: The tile rows and columns :func:`uniform_plan` chooses from (before
+#: they are balanced over the live cells).
+UNIFORM_EDGES = (8, 16, 24, 32, 40, 48, 52, 56, 60, 64, 72)
+#: The most launches one step is split into (csrc/tile_step.cuh kMaxDepth).
+MAX_DEPTH = 4
+#: B5's and B1's BiCGStab variant's block size (csrc/bicgstab_loop.cuh
+#: kBicgstabThreads; 92 ms per 257^2 solve against 104 ms at 256 in the
+#: first design on an H100) and the most blocks they run (the size of their
+#: buffer of per-block partial sums; kMaxGrid).
 CANVAS_THREADS = 512
 CANVAS_MAX_GRID = 2048
+#: The SMs of an H100, for plans made off the card; a wrapper plans with
+#: its card's count.
+H100_SMS = 132
 #: Memory for the per-step loads of a time-dependent source on B1: one
 #: window of steps is launched at a time (64 steps at 257^2 in float32
 #: are 51 MB).
@@ -180,6 +197,192 @@ def choose_tile(halo: int, dtype, preferred: int, planes: int = 12) -> int:
         if t <= preferred and tile_fits(t, halo, dtype, planes):
             return t
     raise ValueError(f"halo {halo} too deep for the shared-memory budget")
+
+
+def step_halo(n_iters: int, use_ka: bool, raw: bool = False) -> int:
+    """The phases of one step that shrink the window: the uniform and
+    canvas steps' halo k + use_ka (:func:`halo_of`), B4's raw mode's
+    k - 1 (x0 = 0, so its first matvec is skipped)."""
+    return n_iters - 1 if raw else n_iters + int(use_ka)
+
+
+class Span(NamedTuple):
+    """One launch of a split step (csrc/tile_step.cuh make_span): its
+    halo, the Chebyshev iterations [it0, it1) it runs (those with a matvec,
+    0 .. k - 2), and ``ext``, the halos of the spans after it."""
+
+    halo: int
+    it0: int
+    it1: int
+    first: bool
+    last: bool
+    ext: int
+
+
+def depth_fits(n_iters: int, use_ka: bool, raw: bool, depth: int) -> bool:
+    """Whether ``depth`` spans split the step: each later span runs at
+    least one iteration, the first holds the right-hand side and the
+    initial residual (raw mode: at least one iteration)."""
+    H = step_halo(n_iters, use_ka, raw)
+    if not 1 <= depth <= MAX_DEPTH:
+        return False
+    lead = 1 if raw else int(use_ka) + 1
+    return depth == 1 or (depth <= H and H // depth
+                          + (1 if H % depth else 0) >= lead)
+
+
+def step_spans(n_iters: int, use_ka: bool, raw: bool, depth: int):
+    """The spans of a step split over ``depth`` launches: the H shrinking
+    phases dealt as evenly as possible, the earlier spans taking the
+    remainder, as the kernels deal them."""
+    if not depth_fits(n_iters, use_ka, raw, depth):
+        raise ValueError(f"depth {depth} does not split a step of "
+                         f"chebyshev_iters={n_iters}")
+    H = step_halo(n_iters, use_ka, raw)
+    halos = [H // depth + (1 if j < H % depth else 0) for j in range(depth)]
+    lead = 0 if raw else int(use_ka) + 1
+    spans, before = [], 0
+    for j, h in enumerate(halos):
+        spans.append(Span(h, 0 if j == 0 else before - lead,
+                          before + h - lead, j == 0, j == depth - 1,
+                          sum(halos[j + 1:])))
+        before += h
+    return tuple(spans)
+
+
+def _elem(dtype) -> int:
+    return torch.tensor([], dtype=dtype).element_size()
+
+
+class UniformPlan(NamedTuple):
+    """How a uniform step is launched (B1, B2, B8): the output tile's rows
+    and columns, and the number of launches (spans) a step is split
+    over."""
+
+    th: int
+    tw: int
+    depth: int = 1
+
+
+def uniform_plan_fits(plan: UniformPlan, n_iters: int, use_ka: bool, dtype,
+                      *, shape=None) -> bool:
+    """Whether every span's window fits the compiled shape's registers
+    (its cells <= threads x the most cells per thread; ``shape`` another
+    (threads, cells) than :data:`UNIFORM_SHAPE`'s) and its 6 planes (d and
+    d_next) shared memory."""
+    if not depth_fits(n_iters, use_ka, False, plan.depth):
+        return False
+    h = step_spans(n_iters, use_ka, False, plan.depth)[0].halo
+    threads, cells = shape or UNIFORM_SHAPE[dtype]
+    w = (plan.th + 2 * h) * (plan.tw + 2 * h)
+    return w <= threads * max(cells) and 6 * w * _elem(dtype) <= SMEM_BUDGET
+
+
+def balanced(extent: int, edge: int) -> int:
+    """The tile length that covers ``extent`` cells in as many tiles as
+    ``edge`` would, as evenly as possible (at most ``edge``)."""
+    extent = max(extent, 1)
+    return -(-extent // -(-extent // edge))
+
+
+def uniform_tiles(plan: UniformPlan, n: int, live_rows: int | None = None):
+    """(tile rows, tiles per row) of a uniform step on an n x n canvas, or
+    on a block with ``live_rows`` live rows (csrc/tile_step.cuh
+    uniform_tiling): the tiles cover the live cells, global rows and
+    columns below c = n - 1."""
+    rows = n - 1 if live_rows is None else live_rows
+    return max(1, -(-rows // plan.th)), max(1, -(-(n - 1) // plan.tw))
+
+
+def uniform_cost(plan: UniformPlan, n_iters: int, use_ka: bool, dtype,
+                 n: int, live_rows: int | None = None,
+                 sms: int = H100_SMS) -> int:
+    """What :func:`uniform_plan` minimises: the waves of tiles (one block
+    per SM) times the cell steps a thread takes over the first span's
+    phases. A warp's cells run along the window's rows, so a phase saves
+    warp steps only by the rows its rectangle sheds: phase s of a
+    Wr x Wc window takes ceil((Wr - 2 s) Wc / threads) steps."""
+    h = step_spans(n_iters, use_ka, False, plan.depth)[0].halo
+    threads = UNIFORM_SHAPE[dtype][0]
+    tiles_r, tiles_c = uniform_tiles(plan, n, live_rows)
+    wr, wc = plan.th + 2 * h, plan.tw + 2 * h
+    steps = sum(-(-(wr - 2 * s) * wc // threads) for s in range(h + 1))
+    return -(-tiles_r * tiles_c // sms) * steps
+
+
+def uniform_candidates(n_iters: int, use_ka: bool, dtype, n: int,
+                       depth: int, live_rows: int | None = None, *,
+                       shape=None):
+    """The plans :func:`uniform_plan` chooses from at ``depth``: tiles of
+    :data:`UNIFORM_EDGES` rows and columns, balanced over the live cells
+    (:func:`balanced`, so that the last tile row and column do not overrun
+    them), that fit (:func:`uniform_plan_fits`, ``shape`` as there)."""
+    c = n - 1
+    rows = c if live_rows is None else live_rows
+    plans = {UniformPlan(balanced(rows, a), balanced(c, b), depth)
+             for a in UNIFORM_EDGES for b in UNIFORM_EDGES}
+    return sorted(p for p in plans
+                  if uniform_plan_fits(p, n_iters, use_ka, dtype,
+                                       shape=shape))
+
+
+@functools.lru_cache(maxsize=None)
+def uniform_plan(n_iters: int, use_ka: bool, dtype, n: int, *,
+                 live_rows: int | None = None) -> UniformPlan:
+    """The launch plan of a uniform step on an n x n canvas (B1's whole
+    loop, B2), or on a row block with ``live_rows`` rows of global index
+    below n - 1 (B8): at the least depth where a candidate fits
+    (:func:`uniform_candidates`), the one of least :func:`uniform_cost`,
+    then the squarer (less halo per output cell), then the wider. Raises
+    ValueError when nothing fits."""
+    for depth in range(1, MAX_DEPTH + 1):
+        if not depth_fits(n_iters, use_ka, False, depth):
+            continue
+        plans = uniform_candidates(n_iters, use_ka, dtype, n, depth,
+                                   live_rows)
+        if plans:
+            return min(plans, key=lambda p: (
+                uniform_cost(p, n_iters, use_ka, dtype, n, live_rows),
+                -min(p.th, p.tw), -p.tw))
+    raise ValueError(f"halo {halo_of(n_iters, use_ka)} too deep for the "
+                     "registers and shared memory")
+
+
+def uniform_work(plan: UniformPlan, like: torch.Tensor):
+    """The work planes of a split uniform step (x, r and d: 9 planes the
+    shape of one of ``like``'s (rows, n) planes; two sets from depth 3
+    on), or None at depth 1."""
+    if plan.depth == 1:
+        return None
+    sets = 1 if plan.depth == 2 else 2
+    return torch.empty((sets * 9,) + tuple(like.shape[-2:]),
+                       dtype=like.dtype, device=like.device)
+
+
+#: The most cells per thread the BiCGStab kernels keep in registers, per
+#: operator and dtype (csrc/*: Op::kMaxCells): 18 vector values per cell,
+#: and B5's 18 operator values. Measured on an H100
+#: (scripts/torch_port_ab.py --sweep): past these the registers spill and
+#: global mode is faster (the uniform loop at 513^2: 4 cells 34.1 ms, global
+#: 30.5 for 200 steps; the canvas loop at 257^2: 2 cells 70.6, global 67.2
+#: for 1,000).
+BICGSTAB_CELLS = {("uniform", torch.float32): 2,
+                  ("uniform", torch.float64): 1,
+                  ("canvas", torch.float32): 1,
+                  ("canvas", torch.float64): 1}
+
+
+def bicgstab_cells(n: int, operator: str, dtype, sms: int = H100_SMS) -> int:
+    """The cells per thread of a BiCGStab solve (B5, B1's BiCGStab variant)
+    on an n x n canvas with the "uniform" or "canvas" operator: the fewest
+    that cover the canvas with one 512-thread block per SM on ``sms`` SMs,
+    within the operator's register capacity (:data:`BICGSTAB_CELLS`); else
+    0, global mode, the vectors in device memory. The kernel sizes its grid
+    (csrc/bicgstab_loop.cuh solve_grid)."""
+    for cells in range(1, BICGSTAB_CELLS[(operator, dtype)] + 1):
+        if n * n <= CANVAS_THREADS * cells * sms:
+            return cells
+    return 0
 
 
 def rect_masks(n: int, dtype, device, rect=None, row0: int = 0,
@@ -314,10 +517,11 @@ def plain_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate, up=None,
 
 
 def kernel_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate, up=None,
-                 load=None, tile=None, threads=THREADS):
+                 load=None, plan: UniformPlan | None = None):
     """The whole Chebyshev loop in one launch of B1 (CUDA tensors only);
-    arguments and result as :func:`plain_solve`. With a load the launch
-    goes to B1's load entry point, counted in :data:`LOAD_KERNEL`."""
+    arguments and result as :func:`plain_solve`; ``plan`` by default
+    :func:`uniform_plan`'s. With a load the launch goes to
+    B1's load entry point, counted in :data:`LOAD_KERNEL`."""
     if not u3.is_cuda or not scal.is_cuda:
         raise ValueError("kernel_solve needs CUDA tensors")
     _check_load(load, u3, n_steps)
@@ -325,24 +529,23 @@ def kernel_solve(scal, u3, *, n_steps, n_iters, use_ka, extrapolate, up=None,
     if n_steps == 0:
         return u3, up
     n = u3.shape[-1]
-    halo = halo_of(n_iters, use_ka)
-    tile = tile or choose_tile(halo, u3.dtype, TILE)
+    plan = plan or uniform_plan(n_iters, use_ka, u3.dtype, n)
     ua = u3.contiguous().clone()
     ub = torch.empty_like(ua)
     upa = up.contiguous().clone() if extrapolate else None
     upb = torch.empty_like(ua) if extrapolate else None
+    work = uniform_work(plan, ua)
     grid = ctypes.c_int(0)
     P = _build.pointer
     head = (P(scal.contiguous()), P(ua), P(ub), P(upa), P(upb))
+    geo = (n, plan.th, plan.tw, plan.depth, n_iters, int(use_ka), n_steps)
     if load is None:
-        KERNEL.launch(u3.dtype, *head, n, tile, halo, n_iters, int(use_ka),
-                      n_steps, threads, _build.current_stream(),
-                      ctypes.byref(grid))
+        KERNEL.launch(u3.dtype, *head, P(work), *geo,
+                      _build.current_stream(), ctypes.byref(grid))
     else:
         stride = 0 if load.dim() == 3 else load[0].numel()
-        LOAD_KERNEL.launch(u3.dtype, *head, P(load.contiguous()), n, tile,
-                           halo, n_iters, int(use_ka), n_steps, stride,
-                           threads, _build.current_stream(),
+        LOAD_KERNEL.launch(u3.dtype, *head, P(load.contiguous()), P(work),
+                           *geo, stride, _build.current_stream(),
                            ctypes.byref(grid))
     if n_steps % 2 == 0:
         return ua, upa
@@ -421,22 +624,31 @@ def plain_uniform_bicgstab_solve(scal, u3, *, n_steps, n_iters, use_ka,
     return u, up
 
 
-def _bicgstab_buffers(u3):
-    """Work canvases (r, rhat, p, v, t, w) and the per-block partial sums
-    of the cooperative BiCGStab kernels."""
-    work = torch.empty((6,) + tuple(u3.shape), dtype=u3.dtype,
+def _bicgstab_buffers(u3, cells: int):
+    """Work canvases of the cooperative BiCGStab kernels (r, p and v twice,
+    u_prev's second buffer; in global mode also the own u, r, rhat, p, v,
+    t), and the four per-block partial sums with the grid barrier's
+    counter (csrc/bicgstab_loop.cuh launch_bicgstab)."""
+    planes = 6 if cells else 12
+    work = torch.empty((planes,) + tuple(u3.shape), dtype=u3.dtype,
                        device=u3.device)
-    partials = torch.empty((4, CANVAS_MAX_GRID), dtype=torch.float64,
+    partials = torch.empty(4 * CANVAS_MAX_GRID + 1, dtype=torch.float64,
                            device=u3.device)
     return work, partials
 
 
+def _device_cells(u3, operator):
+    sms = torch.cuda.get_device_properties(u3.device).multi_processor_count
+    return bicgstab_cells(u3.shape[-1], operator, u3.dtype, sms)
+
+
 def kernel_uniform_bicgstab_solve(scal, u3, *, n_steps, n_iters, use_ka,
                                   extrapolate, up=None, load=None,
-                                  threads=CANVAS_THREADS):
+                                  cells: int | None = None):
     """The whole BiCGStab loop in one launch of B1's BiCGStab variant (CUDA
     tensors only); arguments and result as
-    :func:`plain_uniform_bicgstab_solve`."""
+    :func:`plain_uniform_bicgstab_solve`; ``cells`` per thread by default
+    :func:`bicgstab_cells`' for the card."""
     if not u3.is_cuda or not scal.is_cuda:
         raise ValueError("kernel_uniform_bicgstab_solve needs CUDA tensors")
     if scal.numel() < 21 or scal.dtype != u3.dtype:
@@ -448,14 +660,15 @@ def kernel_uniform_bicgstab_solve(scal, u3, *, n_steps, n_iters, use_ka,
         return u3, up
     u = u3.contiguous().clone()
     up = up.contiguous().clone() if extrapolate else None
-    work, partials = _bicgstab_buffers(u)
+    cells = _device_cells(u, "uniform") if cells is None else cells
+    work, partials = _bicgstab_buffers(u, cells)
     stride = 0 if load is None or load.dim() == 3 else load[0].numel()
     grid = ctypes.c_int(0)
     P = _build.pointer
     BICGSTAB_KERNEL.launch(
         u.dtype, P(scal.contiguous()), P(u), P(up), P(work), P(partials),
         P(None if load is None else load.contiguous()), u.shape[-1], n_steps,
-        n_iters, int(use_ka), stride, threads, _build.current_stream(),
+        n_iters, int(use_ka), stride, cells, _build.current_stream(),
         ctypes.byref(grid))
     return u, up
 
@@ -582,8 +795,9 @@ def plain_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate):
 
 
 def kernel_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate,
-                          threads=CANVAS_THREADS):
-    """The whole loop in one launch of B5 (CUDA tensors only)."""
+                          cells: int | None = None):
+    """The whole loop in one launch of B5 (CUDA tensors only); ``cells``
+    per thread by default :func:`bicgstab_cells`' for the card."""
     if not u3.is_cuda or not C.is_cuda:
         raise ValueError("kernel_bicgstab_solve needs CUDA tensors")
     if C.shape[0] != 24 or C.shape[1:] != u3.shape[1:] \
@@ -596,12 +810,14 @@ def kernel_bicgstab_solve(C, u3, *, n_steps, n_iters, use_ka, extrapolate,
     C = C.contiguous()
     u = u3.contiguous().clone()
     up = u.clone() if extrapolate else None
-    work, partials = _bicgstab_buffers(u)
+    cells = _device_cells(u, "canvas") if cells is None else cells
+    work, partials = _bicgstab_buffers(u, cells)
     grid = ctypes.c_int(0)
     P = _build.pointer
     CANVAS_KERNEL.launch(u.dtype, P(C), P(u), P(up), P(work),
                          P(partials), n, n_steps, n_iters, int(use_ka),
-                         threads, _build.current_stream(), ctypes.byref(grid))
+                         cells, _build.current_stream(),
+                         ctypes.byref(grid))
     return u
 
 

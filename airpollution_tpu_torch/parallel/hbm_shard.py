@@ -253,14 +253,15 @@ def build_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1, iters=8,
             return None if loads is None else loads[d].advance()[0]
 
         if device.type == "cuda":
-            tile = fused_solver.choose_tile(
-                fused_solver.halo_of(iters, use_ka), dtype, fused_hbm.TILE)
+            plans = [fused_hbm.block_plan(iters, use_ka, dtype, b)
+                     for b in blocks.blocks]
+            works = [fused_solver.uniform_work(p, U[0]) for p in plans]
 
             def block_step(d, src_, dst, load):
                 fused_hbm.block_kernel_step(
                     scal, iters, src_[0], src_[1] if extrapolate else None,
                     dst[0], dst[1] if extrapolate else None, use_ka, None,
-                    tile, blocks.blocks[d], load=load)
+                    plans[d], blocks.blocks[d], load=load, work=works[d])
         else:
             def block_step(d, src_, dst, load):
                 x, up = fused_hbm.plain_block_step(

@@ -43,7 +43,12 @@ Phases, each printing one JSON line:
    BiCGStab solve; P1 and P2, scripts/torch_port_production_scenario.py
    at 1025^2 (nt=2001, a row every 200) and 513^2 with the
    compensation-point flux (nt=1001, a row every 100) on B4 with its load
-   plane, with the lumped-mass budget;
+   plane, with the lumped-mass budget; then the launch variants of the
+   uniform tile step and the BiCGStab loop against their plain versions
+   (f64, f32): B2 at its plan, a 16 x 40 tile and depths 2-4, with and
+   without a load; B8 on 4 blocks at depth 1 and 2; B1 at depth 2; B5
+   and B1's BiCGStab variant in every cells-per-thread mode and global
+   mode at 129^2, and at their plans at 513^2;
 9. slice 5, differentiable fused solves and source inversion: B4's raw
    mode (p(A) mask(b), kernel B4 with raw_b) against its plain version at
    513^2 and 1025^2 (I1's uniform operator, f32) and 257^2 (C1's variable
@@ -470,15 +475,14 @@ def phase_b2(meshes, problem):
                                                     masks)
                     ref_u, ref_up = fused_solver.plain_step(
                         scal, k, u, up, use_ka, masks)
-                    tile = fused_solver.choose_tile(
-                        fused_solver.halo_of(k, use_ka), dtype,
-                        fused_hbm.TILE)
+                    plan = fused_solver.uniform_plan(k, use_ka, dtype,
+                                                     u.shape[-1])
                     got_u = torch.empty_like(u)
                     got_up = torch.empty_like(u)
                     halt = torch.tensor(-1, dtype=torch.int32,
                                         device=u.device)
                     fused_hbm.kernel_step(scal, k, u, up, got_u, got_up,
-                                          use_ka, halt, tile)
+                                          use_ka, halt, plan)
                     torch.cuda.synchronize()
                     abs_e, rel, diff = rel_err(got_u, ref_u)
                     check(bool(torch.equal(got_up, ref_up)),
@@ -486,13 +490,14 @@ def phase_b2(meshes, problem):
                     f, r, c = (int(i) for i in torch.unravel_index(
                         diff.argmax(), diff.shape))
                     rows.append({"ms": ms, "dtype": name, "k": k,
-                                 "order": order, "tile": tile,
+                                 "order": order, "plan": plan,
                                  "rel_err": rel,
                                  "worst_at": {"family": "HVD"[f], "row": r,
                                               "col": c,
-                                              "tile": [r // tile, c // tile],
-                                              "in_tile": [r % tile,
-                                                          c % tile]}})
+                                              "tile": [r // plan.th,
+                                                       c // plan.tw],
+                                              "in_tile": [r % plan.th,
+                                                          c % plan.tw]}})
                     check(rel <= TOL[name],
                           f"B2 {ms}^2 {name} k={k} order={order}: rel err "
                           f"{rel:.3e} > {TOL[name]:.0e} at {rows[-1]}")
@@ -609,7 +614,9 @@ def kernel_times(meshes, problem):
     dofs = md.number_of_segments
     b_ms, by = bound(2 * u3.numel() * 4,
                      n_steps * dofs * step_flops_per_dof(k, False, True))
-    out["B1"] = (ms, plain, b_ms, by, abs_e, None)
+    out["B1"] = (ms, plain, b_ms, by, abs_e, None, {
+        "plan": fused_solver.uniform_plan(k, False, torch.float32,
+                                          u3.shape[-1])})
     # B2: one launch = one 1025^2 step, k=8.
     k = 8
     scal, u = uniform_inputs(meshes[(1025, "float32")], problem, 1, k,
@@ -617,21 +624,20 @@ def kernel_times(meshes, problem):
     up = u.clone()
     got_u, got_up = torch.empty_like(u), torch.empty_like(u)
     halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
-    tile = fused_solver.choose_tile(fused_solver.halo_of(k, False),
-                                    torch.float32, fused_hbm.TILE)
+    plan = fused_solver.uniform_plan(k, False, torch.float32, u.shape[-1])
     masks = fused_solver.rect_masks(u.shape[-1], torch.float32, u.device)
-    fused_hbm.kernel_step(scal, k, u, up, got_u, got_up, False, halt, tile)
+    fused_hbm.kernel_step(scal, k, u, up, got_u, got_up, False, halt, plan)
     abs_e, rel, _ = rel_err(got_u, fused_solver.plain_step(
         scal, k, u, up, False, masks)[0])
     check(rel <= TOL["float32"], f"B2 1025^2 step: rel err {rel:.3e}")
     ms = cuda_ms(lambda: fused_hbm.kernel_step(
-        scal, k, u, up, got_u, got_up, False, halt, tile), 50)
+        scal, k, u, up, got_u, got_up, False, halt, plan), 50)
     plain = cuda_ms(lambda: fused_solver.plain_step(
         scal, k, u, up, False, masks), 5)
     dofs = meshes[(1025, "float32")].number_of_segments
     b_ms, by = bound(4 * u.numel() * 4,
                      dofs * step_flops_per_dof(k, False, True))
-    out["B2"] = (ms, plain, b_ms, by, abs_e, None)
+    out["B2"] = (ms, plain, b_ms, by, abs_e, None, {"plan": plan})
     return out
 
 
@@ -1141,7 +1147,8 @@ def canvas_kernel_times(meshes, problems, cache):
     b_ms, by = bound((C.numel() + 2 * u3.numel()) * 4,
                      (md.nt - 1) * md.number_of_segments
                      * bicgstab_flops_per_dof(5, False, True))
-    out["B5"] = (ms, plain, b_ms, by, abs_e, None)
+    out["B5"] = (ms, plain, b_ms, by, abs_e, None, {
+        "cells": fused_solver.bicgstab_cells(u3.shape[-1], "canvas", f32)})
     return out
 
 
@@ -1789,20 +1796,19 @@ def phase_b2_load(meshes):
                                                     masks, load)
                     ref_u, ref_up = fused_solver.plain_step(
                         scal, k, u, up, use_ka, masks, load)
-                    tile = fused_solver.choose_tile(
-                        fused_solver.halo_of(k, use_ka), dtype,
-                        fused_hbm.TILE)
+                    plan = fused_solver.uniform_plan(k, use_ka, dtype,
+                                                     u.shape[-1])
                     got_u, got_up = torch.empty_like(u), torch.empty_like(u)
                     halt = torch.tensor(-1, dtype=torch.int32,
                                         device=u.device)
                     fused_hbm.kernel_step(scal, k, u, up, got_u, got_up,
-                                          use_ka, halt, tile, load=load)
+                                          use_ka, halt, plan, load=load)
                     torch.cuda.synchronize()
                     abs_e, rel, diff = rel_err(got_u, ref_u)
                     check(bool(torch.equal(got_up, ref_up)),
                           f"B2+load {ms}^2 k={k}: u_prev output differs")
                     rows.append({"ms": ms, "dtype": name, "k": k,
-                                 "order": order, "tile": tile,
+                                 "order": order, "plan": plan,
                                  "rel_err": rel, "worst_at": worst_at(diff)})
                     check(rel <= TOL[name], f"B2+load {rows[-1]}: rel err "
                           f"above {TOL[name]:.0e}")
@@ -1811,6 +1817,166 @@ def phase_b2_load(meshes):
                                                abs_e)
     emit({"phase": "b2_load_vs_plain", "card": card_line(), "cases": rows})
     return worst
+
+
+def phase_plan_variants(meshes, problems, cache):
+    """The uniform step's and the BiCGStab loop's launch variants against
+    their plain versions, f64 and f32. B2: one step at 129^2 and 257^2
+    (k=8, BE and CN, extrapolated, with and without S1's load) at its plan,
+    at a rectangular 16 x 40 tile and at every depth 2-4 that splits the
+    step (those that fit); B8: 4 blocks at 257^2 for 3 steps at its plan
+    and at depth 2,
+    with and without the load; B1: 65^2 x 16 steps at depth 2, BE and CN,
+    with and without a steady load; B5 (C1's operator) and B1's BiCGStab
+    variant (the plume) at 129^2 x 16 steps, BE and CN, extrapolated, in
+    every cells-per-thread mode their registers allow and in global mode
+    (float32 held to bicgstab_tol), and at 513^2 x 8 steps at their plans
+    (global mode)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+
+    problem = plume()
+    rows = []
+    k = 8
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for ms in (129, 257):
+            md = meshes[(ms, name)]
+            n = md.structured_n
+            for order in (1, 2):
+                use_ka = order == 2
+                scal, u0 = uniform_inputs(md, problem, order, k, dtype)
+                masks = fused_solver.rect_masks(n, dtype, u0.device)
+                base = fused_solver.uniform_plan(k, use_ka, dtype, n)
+                plans = [base, fused_solver.UniformPlan(16, 40, 1)]
+                plans += [base._replace(depth=d) for d in (2, 3, 4)
+                          if fused_solver.depth_fits(k, use_ka, False, d)]
+                plans = [pl for pl in plans if fused_solver.uniform_plan_fits(
+                    pl, k, use_ka, dtype)]
+                for load in (None, uniform_load(md, scal, order, s_source(),
+                                                1, dtype)):
+                    u, up = fused_solver.plain_step(scal, k, u0, 0.9 * u0,
+                                                    use_ka, masks, load)
+                    ref_u, ref_up = fused_solver.plain_step(
+                        scal, k, u, up, use_ka, masks, load)
+                    halt = torch.tensor(-1, dtype=torch.int32,
+                                        device=u.device)
+                    for plan in plans:
+                        got_u, got_up = (torch.empty_like(u),
+                                         torch.empty_like(u))
+                        fused_hbm.kernel_step(scal, k, u, up, got_u, got_up,
+                                              use_ka, halt, plan, load=load)
+                        torch.cuda.synchronize()
+                        _, rel, diff = rel_err(got_u, ref_u)
+                        rows.append({"kernel": "B2", "ms": ms, "dtype": name,
+                                     "order": order, "load": load is not None,
+                                     "plan": plan, "rel_err": rel,
+                                     "worst_at": worst_at(diff)})
+                        check(bool(torch.equal(got_up, ref_up)),
+                              f"B2 {rows[-1]}: u_prev output differs")
+                        check(rel <= TOL[name], f"B2 {rows[-1]}: rel err "
+                              f"above {TOL[name]:.0e}")
+        # B8 on 4 blocks at 257^2, at its plans and at depth 2.
+        md = meshes[(257, name)]
+        n = md.structured_n
+        scal, u3 = uniform_inputs(md, problem, 1, k, dtype)
+        plane = uniform_load(md, scal, 1, s_source(), 1, dtype)
+        blocks = block_rows(n, 4, k, False)
+        bmasks = [fused_hbm.block_masks(b, dtype, u3.device)
+                  for b in blocks.blocks]
+        for depth in (1, 2):
+            plans = [fused_hbm.block_plan(k, False, dtype, b)._replace(
+                depth=depth) for b in blocks.blocks]
+            for kid, load in (("B8", None), ("B8-load", blocks.split(plane))):
+                state = torch.stack([blocks.split(u3),
+                                     blocks.split(0.8 * u3)], dim=1)
+
+                def kernel(d, src, dst, load=load, plans=plans):
+                    fused_hbm.block_kernel_step(
+                        scal, k, src[0], src[1], dst[0], dst[1], False, None,
+                        plans[d], blocks.blocks[d],
+                        load=None if load is None else load[d])
+
+                def plain(d, src, load=load):
+                    x, up = fused_hbm.plain_block_step(
+                        scal, k, src[0], src[1], False, *bmasks[d],
+                        None if load is None else load[d])
+                    return torch.stack([x, up])
+
+                _, rel = block_case_run(kid, blocks, dtype, 3, kernel, plain,
+                                        state)
+                rows.append({"kernel": kid, "ms": 257, "blocks": 4,
+                             "dtype": name, "plans": plans, "rel_err": rel})
+        # B1 at depth 2.
+        md = meshes[(65, name)]
+        for order in (1, 2):
+            scal, u3 = uniform_inputs(md, problem, order, k, dtype)
+            plan = fused_solver.UniformPlan(16, 16, 2)
+            for load in (None, uniform_load(md, scal, order, s_source(), 16,
+                                            dtype)):
+                kw = dict(n_steps=16, n_iters=k, use_ka=order == 2,
+                          extrapolate=True, load=load)
+                got, got_up = fused_solver.kernel_solve(scal, u3, plan=plan,
+                                                        **kw)
+                ref, ref_up = fused_solver.plain_solve(scal, u3, **kw)
+                torch.cuda.synchronize()
+                _, rel, diff = rel_err(got, ref)
+                rows.append({"kernel": "B1", "ms": 65, "dtype": name,
+                             "order": order, "load": load is not None,
+                             "plan": plan, "rel_err": rel,
+                             "worst_at": worst_at(diff)})
+                rows[-1]["u_prev_rel_err"] = rel_err(got_up, ref_up)[1]
+                check(max(rel, rows[-1]["u_prev_rel_err"]) <= TOL[name],
+                      f"B1 {rows[-1]}: rel err above {TOL[name]:.0e}")
+        # The BiCGStab loops in every mode.
+        for ms, n_steps, forced in ((129, 16, True), (513, 8, False)):
+            if ms == 513 and name == "float64":
+                continue
+            md = meshes[(ms, name)]
+            for order in (1, 2):
+                kw = dict(n_steps=n_steps, n_iters=5, use_ka=order == 2,
+                          extrapolate=True)
+                inp = canvas_inputs(md, problems["C1"], order, dtype, cache)
+                C, c3 = bicgstab_inputs(inp, dtype)
+                scal, u3 = uniform_inputs(md, problem, order, 5, dtype)
+                scal21 = scal[:21].contiguous()
+                cases = (
+                    ("B5", "canvas",
+                     lambda cells: fused_solver.kernel_bicgstab_solve(
+                         C, c3, cells=cells, **kw),
+                     lambda x: fused_solver.plain_bicgstab_solve(C, x, **kw),
+                     c3),
+                    ("B1-BiCGStab", "uniform",
+                     lambda cells: fused_solver.kernel_uniform_bicgstab_solve(
+                         scal21, u3, cells=cells, **kw)[0],
+                     lambda x: fused_solver.plain_uniform_bicgstab_solve(
+                         scal21, x, **kw)[0], u3))
+                for kid, op, run, plain, x0 in cases:
+                    ref = plain(x0)
+                    sens = None
+                    if name == "float32":
+                        sens = rel_err(plain(x0 * (1.0 + 1e-7)), ref)[1]
+                    tol = bicgstab_tol(name, sens)
+                    if forced:
+                        most = fused_solver.BICGSTAB_CELLS[(op, dtype)]
+                        modes = list(range(1, most + 1)) + [0]
+                    else:
+                        modes = [fused_solver.bicgstab_cells(
+                            md.structured_n, op, dtype)]
+                    for cells in modes:
+                        got = run(cells)
+                        torch.cuda.synchronize()
+                        _, rel, diff = rel_err(got, ref)
+                        rows.append({"kernel": kid, "ms": ms, "dtype": name,
+                                     "order": order, "cells": cells,
+                                     "rel_err": rel,
+                                     "plain_sensitivity": sens, "tol": tol,
+                                     "worst_at": worst_at(diff)})
+                        check(rel <= tol, f"{kid} {rows[-1]}: rel err above "
+                              "tol")
+    emit({"phase": "plan_variants_vs_plain", "card": card_line(),
+          "cases": rows})
 
 
 def flux_plane(inp, md, problem, use_ka, C, masks, dtype):
@@ -2230,7 +2396,9 @@ def slice4_kernel_times(meshes, cache, s1_md, s2_md):
         scal21, u3, **kw), 3)
     b_ms, by = bound(2 * u3.numel() * 4, (md.nt - 1) * md.number_of_segments
                      * bicgstab_flops_per_dof(5, False, True))
-    out["B1-BiCGStab"] = (ms, plain, b_ms, by, abs_e, None)
+    out["B1-BiCGStab"] = (ms, plain, b_ms, by, abs_e, None, {
+        "cells": fused_solver.bicgstab_cells(u3.shape[-1], "uniform",
+                                             f32)})
     # B2 with a load: one S2 step (513^2, k=4, BE, ext), and at 1025^2,
     # k=8 without and with a load.
     for label, bmd, k in (("s2", s2_md, S_ITERS),
@@ -2240,13 +2408,12 @@ def slice4_kernel_times(meshes, cache, s1_md, s2_md):
         up = u.clone()
         got_u, got_up = torch.empty_like(u), torch.empty_like(u)
         halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
-        tile = fused_solver.choose_tile(fused_solver.halo_of(k, False), f32,
-                                        fused_hbm.TILE)
+        plan = fused_solver.uniform_plan(k, False, f32, u.shape[-1])
         masks = fused_solver.rect_masks(u.shape[-1], f32, u.device)
 
-        def launch(ld):
+        def launch(ld, plan=plan):
             fused_hbm.kernel_step(scal, k, u, up, got_u, got_up, False, halt,
-                                  tile, load=ld)
+                                  plan, load=ld)
 
         launch(load)
         abs_e, rel, _ = rel_err(got_u, fused_solver.plain_step(
@@ -3129,16 +3296,17 @@ def phase_block_vs_plain(meshes, problem, problems, cache):
                 blocks = block_rows(n, nb, k, False)
                 masks = [fused_hbm.block_masks(b, dtype, u3.device)
                          for b in blocks.blocks]
+                plans = [fused_hbm.block_plan(k, False, dtype, b)
+                         for b in blocks.blocks]
                 for kid, load in (("B8", None),
                                   ("B8-load", blocks.split(plane))):
-                    tile = fused_solver.choose_tile(k, dtype, fused_hbm.TILE)
                     state = torch.stack([blocks.split(u3),
                                          blocks.split(0.8 * u3)], dim=1)
 
                     def kernel(d, src, dst, load=load):
                         fused_hbm.block_kernel_step(
                             scal, k, src[0], src[1], dst[0], dst[1], False,
-                            None, tile, blocks.blocks[d],
+                            None, plans[d], blocks.blocks[d],
                             load=None if load is None else load[d])
 
                     def plain(d, src, load=load):
@@ -3485,7 +3653,9 @@ def b8_kernel_times(md):
     blocks = block_rows(md.structured_n, nb, k, False)
     state = torch.stack([blocks.split(u)] * 2, dim=1)
     out = torch.empty_like(state)
-    tile = fused_solver.choose_tile(k, f32, fused_hbm.TILE)
+    plans = [fused_hbm.block_plan(k, False, f32, blk)
+             for blk in blocks.blocks]
+    extra["plans"] = plans
     b = blocks.blocks[1]
     m, on = fused_hbm.block_masks(b, f32, u.device)
     plane = blocks.split(uniform_load(md, scal, 1, s_source(), 1, f32))
@@ -3494,7 +3664,7 @@ def b8_kernel_times(md):
         def launch(d, load=load):
             fused_hbm.block_kernel_step(
                 scal, k, state[d][0], state[d][1], out[d][0], out[d][1],
-                False, None, tile, blocks.blocks[d],
+                False, None, plans[d], blocks.blocks[d],
                 load=None if load is None else load[d])
 
         def plain_step(load=load):
@@ -3509,15 +3679,17 @@ def b8_kernel_times(md):
         b_ms, by = bound((planes_in * b.rows + 6 * b.local) * b.n * 4,
                          cells * (step_flops_per_dof(k, False, True)
                                   + (load is not None)))
-        times[kid] = (ms_k, plain, b_ms, by, abs_e, None)
+        times[kid] = (ms_k, plain, b_ms, by, abs_e, None,
+                      {"plan": plans[1]})
         extra[f"{kid}_max_abs_err_vs_plain"] = abs_e
         extra[f"{kid}_ms"] = ms_k
         extra[f"{kid}_step_4_blocks_ms"] = per_step_ms(
             state, blocks, lambda: [launch(d) for d in range(nb)])
     halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
     whole_out = (torch.empty_like(u), torch.empty_like(u))
+    whole_plan = fused_solver.uniform_plan(k, False, f32, u.shape[-1])
     extra["B2_2049_ms"] = cuda_ms(lambda: fused_hbm.kernel_step(
-        scal, k, u, u, *whole_out, False, halt, tile), 20)
+        scal, k, u, u, *whole_out, False, halt, whole_plan), 20)
     extra["exchange_ms"] = cuda_ms(
         lambda: hbm_shard.exchange(state, blocks.local, blocks.halo), 50)
     emit(extra)
@@ -3713,13 +3885,14 @@ def main() -> int:
     worst.update(phase_b1_loads(meshes))
     worst.update(phase_b2_load(meshes))
     worst.update(phase_b4_flux(meshes, cache))
+    meshes[(513, "float64")] = meshes[(513, "float32")]
+    phase_plan_variants(meshes, problems, cache)
     times = kernel_times(meshes, problem)
     times.update(canvas_kernel_times(meshes, problems, cache))
     times.update(multispecies_kernel_times(meshes, problems, cache))
     times.update(slice4_kernel_times(meshes, cache, meshes[(257, "float32")],
                                      meshes[(513, "float32")]))
     # Slice 7: the block kernels against their plain versions, their times.
-    meshes[(513, "float64")] = meshes[(513, "float32")]
     worst.update(phase_block_vs_plain(meshes, problem, problems, cache))
     times.update(block_kernel_times(meshes, problems, cache))
 
