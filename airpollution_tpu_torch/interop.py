@@ -12,7 +12,11 @@ per-species operators for ``MultiSpeciesSolver.set_operators``, and
 the fused canvas kernels take. ``params_from_numpy`` carries a parameter
 pytree (a dict of arrays) into the dict of tensors that the port's
 diagnostics/inverse.py takes, so that both packages start a fit or a
-posterior from the same parameters.
+posterior from the same parameters. ``pinn_params_from_numpy`` builds
+the PINN's network (models/pinn.MLP) from the JAX package's parameter
+list, and ``pinn_params_from_file`` from a ``pinn_*.npz`` params file
+that the JAX package's ``save_pinn`` wrote, so that both packages compute
+from the same weights.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.models.crbe import GlobalOperators
 from airpollution_tpu_torch.models.multispecies import stack_operators
+from airpollution_tpu_torch.models.pinn import MLP
 from airpollution_tpu_torch.ops.sparse import EllMatrix, ell_index
 
 
@@ -99,3 +104,44 @@ def params_from_numpy(params, *, dtype=None, device=None,
     return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device,
                             requires_grad=requires_grad)
             for k, v in params.items()}
+
+
+def pinn_params_from_numpy(params, activation="adaptive_tanh", *,
+                           dtype=None, device=None) -> MLP:
+    """The network of a JAX-layout parameter list: ``[{"B": (in, m)}]``
+    first where there is a Fourier embedding, then one dict per dense
+    layer with ``W`` (in, out), ``b`` and, where present, ``alpha``
+    (hidden layers of the adaptive tanh) and ``amp`` (the last layer).
+    The layers list, the embedding and the amplitude are read off the
+    arrays; ``dtype`` defaults to the arrays' own, ``device`` to the CUDA
+    card."""
+    params = [{k: np.asarray(v) for k, v in layer.items()}
+              for layer in params]
+    dense = params[1:] if "B" in params[0] else params
+    layers = [dense[0]["W"].shape[0]] + [layer["W"].shape[1]
+                                         for layer in dense]
+    fourier = params[0]["B"].shape[1] if "B" in params[0] else 0
+    if fourier:
+        layers[0] = params[0]["B"].shape[0]
+    has_alpha = any("alpha" in layer for layer in dense)
+    if has_alpha != (activation == "adaptive_tanh"):
+        raise ValueError(
+            f"activation {activation!r} does not match the parameters "
+            f"({'with' if has_alpha else 'without'} adaptive-tanh alphas)")
+    amp = "amp" in dense[-1]
+    mlp = MLP(layers, activation, fourier_features=fourier,
+              output_scale=1.0 if amp else 0.0,
+              dtype=dtype or torch.from_numpy(dense[0]["W"]).dtype,
+              device=device)
+    mlp.load_params_tree(params)
+    return mlp
+
+
+def pinn_params_from_file(path, activation="adaptive_tanh", *, dtype=None,
+                          device=None) -> MLP:
+    """:func:`pinn_params_from_numpy` of a ``pinn_*.npz`` params file (with
+    its ``.tree`` descriptor) of either package's ``save_pinn``."""
+    from airpollution_tpu_torch.io.checkpoint import params_from_descriptor
+
+    return pinn_params_from_numpy(params_from_descriptor(path), activation,
+                                  dtype=dtype, device=device)

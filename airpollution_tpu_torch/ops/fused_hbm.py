@@ -133,9 +133,6 @@ MULTISPECIES_BLOCK_KERNEL = _build.Kernel(
     + [ctypes.c_int] * 14 + [ctypes.c_void_p],
 )
 
-#: B2's square tile edge before fused_solver.uniform_plan; kept only for
-#: ``fused_solver.choose_tile``'s test.
-TILE = 32
 MAX_SPECIES = 8  # csrc/multispecies_step.cu kMaxSpecies
 
 

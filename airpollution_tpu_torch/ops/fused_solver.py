@@ -87,11 +87,7 @@ CANVAS_KERNEL = _build.Kernel(
 #: Shared-memory budget a tile window may use: the 227 KB a block can
 #: address on Hopper, less room for the static scalar block.
 SMEM_BUDGET = 227 * 1024 - 2048
-TILE_CANDIDATES = (64, 56, 48, 40, 32, 24, 16, 8)
 MAX_ITERS = 64  # csrc/tile_step.cuh kMaxIters
-#: The square tile edge of the step held wholly in shared memory, before
-#: :func:`uniform_plan`; kept only for ``choose_tile``'s test.
-TILE = 24
 #: The uniform step kernels' compiled launch shape per dtype
 #: (csrc/tile_step.cuh UNIFORM_THREADS_* and UniformShape): threads per
 #: block and the cells per thread compiled; a launch takes the least that
@@ -181,22 +177,6 @@ def halo_of(n_iters: int, use_ka: bool) -> int:
     """Window halo: the step applies A k + 1 times (Crank-Nicolson k + 2),
     and the last application's output is never read back into x."""
     return n_iters + (1 if use_ka else 0)
-
-
-def tile_fits(tile: int, halo: int, dtype, planes: int = 12) -> bool:
-    """Whether ``planes`` window planes of a tile (by default four
-    3-family planes: x, r, d, d_next) fit shared memory."""
-    elem = torch.tensor([], dtype=dtype).element_size()
-    return planes * (tile + 2 * halo) ** 2 * elem <= SMEM_BUDGET
-
-
-def choose_tile(halo: int, dtype, preferred: int, planes: int = 12) -> int:
-    """Largest output tile up to ``preferred`` whose ``planes`` window
-    planes fit the shared-memory budget."""
-    for t in TILE_CANDIDATES:
-        if t <= preferred and tile_fits(t, halo, dtype, planes):
-            return t
-    raise ValueError(f"halo {halo} too deep for the shared-memory budget")
 
 
 def step_halo(n_iters: int, use_ka: bool, raw: bool = False) -> int:

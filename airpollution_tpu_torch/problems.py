@@ -177,6 +177,30 @@ class AdDifProblem(abc.ABC):
         return torch.full(xy.shape[:-1], float(self.D), dtype=xy.dtype,
                           device=xy.device)
 
+    def diffusion_grad_at(self, xy, t=None):
+        """grad D(x, y) at (N, 2) points -> (N, 2), the term the PINN
+        residual's expansion -div(D grad c) = -D lap c - grad D . grad c
+        needs (ops/autodiff.pde_residual). Exact zeros for a
+        constant-coefficient problem; otherwise the autograd of
+        :meth:`diffusion_at` at each point (each value depends on its own
+        point only), with each point's own ``t`` for a ``time_varying``
+        problem. Differentiable in the problem's tensor parameters."""
+        zeros = torch.zeros(xy.shape[:-1] + (2,), dtype=xy.dtype,
+                            device=xy.device)
+        if not self.variable_coefficients:
+            return zeros
+        keep_graph = torch.is_grad_enabled()
+        with torch.enable_grad():
+            p = xy.detach().requires_grad_(True)
+            targs = (t,) if self.time_varying else ()
+            D = self.diffusion_at(p, *targs)
+            if not D.requires_grad:
+                return zeros
+            (g,) = torch.autograd.grad(
+                D.sum(), p, create_graph=keep_graph,
+                allow_unused=True, materialize_grads=True)
+        return g
+
 
 def _plume(num, denom, reaction, t):
     plume = torch.exp(-num / denom) / (math.pi * denom)

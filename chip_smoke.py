@@ -3838,6 +3838,290 @@ def patch_inputs(md, k, dtype):
     return scal, fused_solver.to_canvases(spec, u0).to(dtype)
 
 
+# --- slice 11: the PINN (no kernel of its own: library dense products) ------
+
+# The paper's widest PINN, [3, 64 x 4, 1] tanh at the ms=128 collocation
+# budget (experiments/common.py schedules: 16,000 epochs, patience 1,000,
+# lr 1e-4, lambda (180, 80, 80)), cut to 2,000 epochs for time; and the
+# levers row of results_snapshot/df_pinn_training_results_levers.csv
+# ("fourier64+causal+wide64x4+lbfgs1000") at the ms=64 budget, cut to
+# 1,000 Adam epochs and 50 L-BFGS steps.
+PINN_LAYERS = [3, 64, 64, 64, 64, 1]
+PINN_LAMBDA = {"pde": 180.0, "ic": 80.0, "bc": 80.0}
+PINN_WIDE = dict(mesh_size=128, batch={"pde": 34744, "ic": 6949,
+                                       "bc": 6949},
+                 lr=1e-4, patience=1000, epochs=2000, scheduled_epochs=16000)
+PINN_LEVERS = dict(mesh_size=64, batch={"pde": 8595, "ic": 1719,
+                                        "bc": 1719},
+                   lr=1e-4, patience=1000, epochs=1000, lbfgs_steps=50,
+                   fourier_features=64, causal_eps=1.0,
+                   scheduled_lbfgs_steps=1000)
+# The widest cell's loss must fall at least this factor over its 2,000
+# epochs: it fell 8,138-fold and 8,485-fold in the first two runs on an
+# H100 (PERF.md section 6), so a tenth of that leaves room for rounding.
+PINN_LOSS_DROP = 800.0
+PINN_OBSTACLES = ((-6.0, -1.0, -4.0, 3.0), (4.0, 9.0, 2.0, 5.0))
+
+
+def pinn_numpy_params(layers, fourier, seed):
+    """The JAX package's parameter layout as seeded numpy arrays: a B of
+    ``fourier`` columns over the input half-widths, Xavier-normal weights,
+    small biases."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    params, widths = [], list(layers)
+    if fourier:
+        B = rng.standard_normal((layers[0], fourier))
+        params.append({"B": B / np.array([20.0, 20.0, 5.0])[:, None]})
+        widths[0] = 2 * fourier
+    for fan_in, fan_out in zip(widths[:-1], widths[1:]):
+        params.append({
+            "W": np.sqrt(2.0 / (fan_in + fan_out))
+            * rng.standard_normal((fan_in, fan_out)),
+            "b": 0.05 * rng.standard_normal(fan_out)})
+    return params
+
+
+def pinn_points(seed, n_pde=6000, n_ic=1200, n_bc=1200):
+    """Seeded numpy points in the box [-20, 20]^2 x [0, 10]: PDE (n, 3),
+    IC (n, 2), BC (4 (n // 4), 3) in side blocks left, right, bottom,
+    top."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pde = np.stack([rng.uniform(-20, 20, n_pde), rng.uniform(-20, 20, n_pde),
+                    rng.uniform(0, 10, n_pde)], axis=1)
+    ic = rng.uniform(-20, 20, (n_ic, 2))
+    k = n_bc // 4
+    along = rng.uniform(-20, 20, 4 * k)
+    x = np.concatenate([np.full(k, -20.0), np.full(k, 20.0), along[2 * k:]])
+    y = np.concatenate([along[:2 * k], np.full(k, -20.0), np.full(k, 20.0)])
+    bc = np.stack([x, y, rng.uniform(0, 10, 4 * k)], axis=1)
+    return pde, ic, bc
+
+
+def pinn_problem(obstacles):
+    import airpollution_tpu_torch as apt
+
+    p = apt.Problem(sigma=1.0)
+    if obstacles:
+        p.obstacles = PINN_OBSTACLES
+    return p
+
+
+def pinn_loss_step(device, dtype, params, pts, fac, options):
+    """The composite loss, its gradient and one Adam step of the trainer
+    (models/pinn.adam, lr 1e-4) on ``device``, from the same parameters
+    and points: (loss and terms, gradient, parameters after the step)."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.interop import pinn_params_from_numpy
+    from airpollution_tpu_torch.models import pinn
+
+    problem = pinn_problem(options["obstacles"])
+    model = apt.PINN(PINN_LAYERS, problem, apt.Domain(), activation="tanh",
+                     dtype=dtype, fourier_features=options["fourier"],
+                     device=device)
+    model.mlp = pinn_params_from_numpy(params, "tanh", dtype=dtype,
+                                       device=device)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    pde, ic, bc, ic_target, bc_target = pts
+    xyt_ic = t(np.concatenate([ic, np.zeros((len(ic), 1))], axis=1))
+    kw = {}
+    if fac is not None:
+        kw = dict(xyt_fac=t(fac[0]), fac_normals=t(fac[1]))
+    total, aux = pinn.composite_loss(
+        model.mlp, problem, t(pde), xyt_ic, t(ic_target), t(bc),
+        t(bc_target), PINN_LAMBDA, None, t_final=10.0,
+        causal_eps=options["causal_eps"], **kw)
+    (grad,) = torch.autograd.grad(total, model.mlp.flat)
+    flat = model.mlp.flat
+    opt = pinn.adam(flat, model.fresh_carry(1e-4, PINN_LAMBDA))
+    with torch.no_grad():
+        flat.grad = grad
+        opt.step()
+    return (torch.stack([total, *aux]).detach().cpu().double(),
+            grad.detach().cpu().double(), flat.detach().cpu().double())
+
+
+def phase_pinn_card_vs_cpu():
+    """The PINN's loss, gradient and one Adam step at [3, 64 x 4, 1] on the
+    card against the CPU plain path, from the same parameters (seeded
+    numpy arrays carried by interop.pinn_params_from_numpy) and points,
+    in float64 (1e-12) and float32 (1e-5): the plain loss (6,000 PDE
+    points: the chunked mean), and Fourier features with causal weighting
+    and two buildings (facade points, dead collocation points)."""
+    import torch
+
+    from airpollution_tpu_torch.ops import sampling
+
+    out = {"phase": "pinn_card_vs_cpu", "card": card_line(),
+           "layers": PINN_LAYERS}
+    cases = {"plain": dict(fourier=0, causal_eps=0.0, obstacles=False),
+             "fourier_causal_obstacles": dict(fourier=64, causal_eps=1.0,
+                                              obstacles=True)}
+    worst = 0.0
+    for name, options in cases.items():
+        params = pinn_numpy_params(PINN_LAYERS, options["fourier"], 11)
+        pde, ic, bc = pinn_points(12)
+        ref = pinn_problem(options["obstacles"])
+        f64 = torch.float64
+        ic_target = ref.initial_condition_fn(
+            torch.tensor(ic, dtype=f64)).reshape(-1, 1).numpy()
+        bc_target = ref.boundary_fn(
+            torch.tensor(bc, dtype=f64)).reshape(-1, 1).numpy()
+        fac = None
+        if options["obstacles"]:
+            g = torch.Generator().manual_seed(13)
+            xyt, nrm = sampling.sample_facade_points(
+                g, 1200, PINN_OBSTACLES, (0.0, 10.0), f64)
+            fac = (xyt.numpy(), nrm.numpy())
+        pts = (pde, ic, bc, ic_target, bc_target)
+        for dname in ("float64", "float32"):
+            dtype = getattr(torch, dname)
+            t0 = time.perf_counter()
+            card = pinn_loss_step("cuda", dtype, params, pts, fac, options)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu = pinn_loss_step("cpu", dtype, params, pts, fac, options)
+            cpu_s = time.perf_counter() - t0
+            errs = {
+                "loss": float(((card[0] - cpu[0]).abs()
+                               / cpu[0].abs().clamp_min(1e-300)).max()),
+                "grad": float((card[1] - cpu[1]).abs().max()
+                              / cpu[1].abs().max()),
+                "adam_step": float((card[2] - cpu[2]).abs().max()
+                                   / cpu[2].abs().max()),
+            }
+            tag = f"{name}_{dname}"
+            out[tag] = dict(errs, card_s=card_s, cpu_s=cpu_s,
+                            loss=cpu[0].tolist())
+            if dname == "float64":
+                worst = max(worst, *errs.values())
+            for what, e in errs.items():
+                check(e <= TOL[dname],
+                      f"PINN {tag}: card vs CPU {what} {e:.3e} > "
+                      f"{TOL[dname]:.0e}")
+    out["worst_float64"] = worst
+    emit(out)
+
+
+def pinn_train_cell(cfg, **model_kw):
+    """Train one PINN cell on the card (the Gaussian plume, tanh, seed
+    1234): (model, problem, history, Adam seconds, Adam epochs)."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+
+    problem = apt.Problem(sigma=1.0)
+    model = apt.PINN(PINN_LAYERS, problem, apt.Domain(), activation="tanh",
+                     seed=1234, **model_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    history = model.train(cfg["batch"], cfg["epochs"], cfg["lr"],
+                          PINN_LAMBDA, early_stopping_patience=cfg["patience"],
+                          causal_eps=cfg.get("causal_eps", 0.0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return model, problem, history, seconds, len(history["total_loss"])
+
+
+def phase_pinn_widest(md):
+    """The paper's widest PINN cell on the card (PINN_WIDE), f32: epochs/s,
+    the loss at the first and last epochs, compute_errors and
+    compute_fem_errors at t = T on the ms=128 mesh. Gates: finite values
+    and a loss that falls PINN_LOSS_DROP-fold."""
+    import math
+
+    reset_counts()
+    model, problem, h, seconds, n = pinn_train_cell(PINN_WIDE)
+    loss = h["total_loss"]
+    rel_l2, l2, max_err = model.compute_errors(md, problem.analytical_solution)
+    fem = model.compute_fem_errors(md, problem.analytical_solution)
+    out = {"phase": "pinn_widest_ms128", "card": card_line(),
+           "layers": PINN_LAYERS, "batch": PINN_WIDE["batch"],
+           "epochs": n, "scheduled_epochs": PINN_WIDE["scheduled_epochs"],
+           "seconds": seconds, "epochs_per_s": n / seconds,
+           "loss_first": loss[0], "loss_last": loss[-1],
+           "loss_drop": loss[0] / loss[-1],
+           "rel_l2": rel_l2, "l2": l2, "max_error": max_err,
+           "fem_rel_l2": fem[0], "fem_l2": fem[1], "fem_max_error": fem[2],
+           "kernel_launches": sum(k.launches
+                                  for k in kernel_objects().values())}
+    emit(out)
+    values = loss + [rel_l2, l2, max_err, *fem]
+    check(all(math.isfinite(v) for v in values),
+          "PINN widest cell: a loss or an error is not finite")
+    check(n == PINN_WIDE["epochs"],
+          f"PINN widest cell stopped early at epoch {n}")
+    check(loss[-1] * PINN_LOSS_DROP <= loss[0],
+          f"PINN widest cell: loss {loss[0]:.3e} -> {loss[-1]:.3e}, not "
+          f"down {PINN_LOSS_DROP:g}x")
+    return out
+
+
+def phase_pinn_levers(md):
+    """The levers cell on the card (PINN_LEVERS), f32: Fourier 64 and
+    causal weighting, 1,000 Adam epochs, then 50 L-BFGS steps. Gates:
+    finite values, and the L-BFGS loss does not rise."""
+    import math
+
+    import torch
+
+    model, problem, h, seconds, n = pinn_train_cell(
+        PINN_LEVERS, fourier_features=PINN_LEVERS["fourier_features"])
+    t0 = time.perf_counter()
+    h = model.finetune_lbfgs(PINN_LEVERS["batch"], PINN_LEVERS["lbfgs_steps"],
+                             PINN_LAMBDA)
+    torch.cuda.synchronize()
+    lbfgs_s = time.perf_counter() - t0
+    lb = h["total_loss"][n:]
+    rel_l2, l2, max_err = model.compute_errors(md, problem.analytical_solution)
+    out = {"phase": "pinn_levers_ms64", "card": card_line(),
+           "layers": PINN_LAYERS, "batch": PINN_LEVERS["batch"],
+           "fourier_features": PINN_LEVERS["fourier_features"],
+           "causal_eps": PINN_LEVERS["causal_eps"], "adam_epochs": n,
+           "adam_seconds": seconds, "epochs_per_s": n / seconds,
+           "adam_loss_first": h["total_loss"][0],
+           "adam_loss_last": h["total_loss"][n - 1],
+           "lbfgs_steps": len(lb), "lbfgs_seconds": lbfgs_s,
+           "lbfgs_steps_per_s": len(lb) / lbfgs_s,
+           "lbfgs_loss_first": lb[0], "lbfgs_loss_last": lb[-1],
+           "rel_l2": rel_l2, "l2": l2, "max_error": max_err}
+    emit(out)
+    check(all(math.isfinite(v) for v in h["total_loss"] + [rel_l2]),
+          "PINN levers cell: a loss or an error is not finite")
+    check(len(lb) == PINN_LEVERS["lbfgs_steps"],
+          "PINN levers cell: L-BFGS steps missing")
+    check(lb[-1] <= lb[0], f"PINN levers cell: the L-BFGS loss rose "
+          f"{lb[0]:.3e} -> {lb[-1]:.3e}")
+    return out
+
+
+def phase_pinn(domain):
+    """Slice 11: the PINN's card-against-CPU check, its widest cell and its
+    levers cell, then the pinn line."""
+    import airpollution_tpu_torch as apt
+
+    t0 = time.perf_counter()
+    phase_pinn_card_vs_cpu()
+    wide = phase_pinn_widest(apt.MeshData(apt.create_mesh(128, 20.0),
+                                          domain, nt=128))
+    levers = phase_pinn_levers(apt.MeshData(apt.create_mesh(64, 20.0),
+                                            domain, nt=128))
+    emit({"phase": "pinn", "card": card_line(),
+          "widest_epochs_per_s": wide["epochs_per_s"],
+          "levers_epochs_per_s": levers["epochs_per_s"],
+          "levers_lbfgs_steps_per_s": levers["lbfgs_steps_per_s"],
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -3961,6 +4245,8 @@ def main() -> int:
     del md_2049
     launches["B9"] = phase_b9_blocks(c1_be, meshes[(257, "float32")],
                                      problems, domain)
+    # Slice 11: the PINN (its path launches no kernel of the port).
+    phase_pinn(domain)
     kernels = []
     for kid, (name, source, replaces) in KERNELS.items():
         ms, plain, b_ms, by, abs_e, library, *extra = times[kid]

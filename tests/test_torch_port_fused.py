@@ -116,19 +116,6 @@ def test_step_reach_fits_the_kernel_halo(k, use_ka):
             assert reach <= halo, (f, which, reach, halo)
 
 
-def test_launch_tile_fits_shared_memory():
-    for dtype in (torch.float32, torch.float64):
-        for k in (1, 4, 8, 16):
-            halo = fused_solver.halo_of(k, True)
-            tile = fused_solver.choose_tile(halo, dtype, fused_hbm.TILE)
-            assert tile <= fused_hbm.TILE
-            assert fused_solver.tile_fits(tile, halo, dtype)
-    assert fused_solver.choose_tile(4, torch.float32,
-                                    fused_solver.TILE) == fused_solver.TILE
-    with pytest.raises(ValueError, match="too deep"):
-        fused_solver.choose_tile(64, torch.float64, 32)
-
-
 def test_guard_flags_the_first_diverged_chunk():
     jspec, j_args, tspec, t_args = _inputs(1)
     # An interval far below the spectrum makes Chebyshev diverge.

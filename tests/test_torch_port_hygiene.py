@@ -28,6 +28,8 @@ PORT_MODULES = [
     "airpollution_tpu_torch.diagnostics",
     "airpollution_tpu_torch.diagnostics.inverse",
     "airpollution_tpu_torch.interop",
+    "airpollution_tpu_torch.io",
+    "airpollution_tpu_torch.io.checkpoint",
     "airpollution_tpu_torch.problems",
     "airpollution_tpu_torch.mesh.data",
     "airpollution_tpu_torch.mesh.mirror",
@@ -37,13 +39,17 @@ PORT_MODULES = [
     "airpollution_tpu_torch.mesh.topology",
     "airpollution_tpu_torch.models.crbe",
     "airpollution_tpu_torch.models.multispecies",
+    "airpollution_tpu_torch.models.pinn",
     "airpollution_tpu_torch.ops.fused_hbm",
     "airpollution_tpu_torch.ops.fused_solver",
     "airpollution_tpu_torch.ops.fused_stencil",
+    "airpollution_tpu_torch.ops.autodiff",
     "airpollution_tpu_torch.ops.gather",
+    "airpollution_tpu_torch.ops.lbfgs",
     "airpollution_tpu_torch.ops.lifting",
     "airpollution_tpu_torch.ops.linalg",
     "airpollution_tpu_torch.ops.loads",
+    "airpollution_tpu_torch.ops.sampling",
     "airpollution_tpu_torch.ops.sparse",
     "airpollution_tpu_torch.ops.stencil",
     "airpollution_tpu_torch.ops.uniform",
@@ -66,6 +72,7 @@ def test_port_imports_no_jax():
             importlib.import_module(m)
         import chip_smoke
         import scripts.torch_port_source_inversion
+        import scripts.torch_port_pinn_experiments
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu")
                or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
@@ -80,6 +87,7 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "torch_port_production_scenario.py")
     files.append(REPO / "scripts" / "torch_port_source_inversion.py")
+    files.append(REPO / "scripts" / "torch_port_pinn_experiments.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -124,6 +132,25 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tapt.MultiSpeciesSolver(tapt.Domain(), chem, md)
     with pytest.raises(ValueError, match="differs"):
         tapt.MultiSpeciesSolver(tapt.Domain(), chem, md, device="meta")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tapt.PINN([3, 4, 1], tapt.Problem(), tapt.Domain())
+
+
+def test_pinn_unported_methods_raise():
+    """Multi-device training (ROADMAP item 19) and the plots (A3) are not
+    ported: each raises NotImplementedError, on the CPU model too."""
+    m = tapt.PINN([3, 4, 1], tapt.Problem(), tapt.Domain(), device="cpu")
+    md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
+                       device="cpu")
+    with pytest.raises(NotImplementedError):
+        m.train_parallel(None, {"pde": 8, "ic": 4, "bc": 4}, 1, 1e-3,
+                         {"pde": 1.0, "ic": 1.0, "bc": 1.0})
+    with pytest.raises(NotImplementedError):
+        m.plot_history()
+    with pytest.raises(NotImplementedError):
+        m.plot_solution(1.0, md)
+    with pytest.raises(NotImplementedError):
+        m.plot_interpolated_solution(1.0, md)
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
