@@ -1,8 +1,8 @@
 """Inverse problems: recover physical parameters by differentiating through
 the full CRBE solve, PyTorch counterpart of
 ``airpollution_tpu/diagnostics/inverse.py`` (``solve_final_state``,
-``solve_snapshots``, ``fit_parameters``, ``fit_diffusion``, ``fit_source``
-and ``posterior_covariance``).
+``solve_snapshots``, ``fit_parameters``, ``fit_diffusion``, ``fit_source``,
+``fit_anisotropic_diffusion`` and ``posterior_covariance``).
 
 The problems keep tensor parameters as tensors (problems.param), assembly
 carries their graph, and each implicit step is a
@@ -27,7 +27,7 @@ Typical use::
 
 Not ported yet (the JAX package has them): ``robin_alpha`` and
 ``robin_g_const`` (they raise NotImplementedError), ``fit_wind``,
-``fit_anisotropic_diffusion``, ``fit_deposition``,
+``fit_deposition``,
 ``fit_surface_exchange``, ``fit_initial_condition``, ``fit_chemistry``,
 ``solve_multispecies_snapshots`` and ``receptor_footprint``.
 """
@@ -43,10 +43,14 @@ from airpollution_tpu_torch.models.crbe import (
     obstacle_masks,
     run_time_loop,
 )
-from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+from airpollution_tpu_torch.ops import fused_hbm
 from airpollution_tpu_torch.ops import stencil as stencil_mod
 from airpollution_tpu_torch.ops import uniform as uniform_mod
-from airpollution_tpu_torch.problems import GaussianSourceProblem, Problem
+from airpollution_tpu_torch.problems import (
+    AnisotropicPlumeProblem,
+    GaussianSourceProblem,
+    Problem,
+)
 
 #: Structured-mesh size (points per axis) from which ``engine="auto"`` runs
 #: the differentiable loop's solves on kernel B4's raw mode, as the JAX
@@ -73,9 +77,8 @@ def _mesh_tensor(x, mesh_data):
 
 def _fused_hooks(pattern, ops, perm, chebyshev_iters, dtype, robin_sides):
     """``(cheb_solve_impl, cheb_transpose_solve_impl)``: B4's raw mode over
-    the coefficient canvases and over their transpose. The canvases are
-    detached constants, built once per solve; the Chebyshev scalars once
-    per interval (the loop hands the same ``bounds`` to every step).
+    the coefficient canvases and over their transpose
+    (fused_hbm.raw_solve_pair).
 
     The input mask is the interior rectangle widened by the Robin walls
     (fused_hbm.robin_rect_bounds), whose DOFs are unknowns. The JAX
@@ -86,31 +89,9 @@ def _fused_hooks(pattern, ops, perm, chebyshev_iters, dtype, robin_sides):
             if robin_sides else None)
     coeffs = stencil_mod.extract_coefficients(pattern,
                                               ops.system.vals.detach())
-    inv_diag_fam = 1.0 / ops.system_diag.detach()[perm]
-    C = fused_hbm.raw_operator(pattern, coeffs, inv_diag_fam, dtype)
-    C_T = fused_hbm.raw_operator(
-        pattern, stencil_mod.transpose_coefficients(coeffs), inv_diag_fam,
-        dtype)
-    last = {}
-
-    def scalars(bounds):
-        if last.get("bounds") is not bounds:
-            last["bounds"] = bounds
-            last["cheb"] = fused_solver.cheb_scalars(
-                bounds, chebyshev_iters, dtype, C.device)
-        return last["cheb"]
-
-    def solve_impl(rhs, bounds):
-        return fused_hbm.apply_canvas_raw(pattern, C, rhs,
-                                          n_iters=chebyshev_iters,
-                                          cheb=scalars(bounds), rect=rect)
-
-    def transpose_impl(rhs, bounds):
-        return fused_hbm.apply_canvas_raw(pattern, C_T, rhs,
-                                          n_iters=chebyshev_iters,
-                                          cheb=scalars(bounds), rect=rect)
-
-    return solve_impl, transpose_impl
+    return fused_hbm.raw_solve_pair(pattern, coeffs,
+                                    1.0 / ops.system_diag.detach()[perm],
+                                    chebyshev_iters, dtype, rect)
 
 
 def _solve(problem, mesh_data, *, time_scheme_order, stiffness_convention,
@@ -451,3 +432,32 @@ def fit_source(observed, mesh_data, *, snapshot_indices=None,
         result["D"] = float(torch.exp(params["log_d"]))
         result["v"] = tuple(float(x) for x in params["v"])
     return result, losses
+
+
+def fit_anisotropic_diffusion(observed, mesh_data, *, snapshot_indices=None,
+                              sensor_indices=None, Dx0: float = 0.1,
+                              Dy0: float = 0.1, v=(1.0, 0.5),
+                              sigma: float = 1.0, steps: int = 150,
+                              lr: float = 0.05, **kwargs):
+    """Recover the eddy-diffusivity tensor diag(Dx, Dy) of a
+    problems.AnisotropicPlumeProblem from concentration observations
+    (optimised in log space; the tensor enters through the weak-form
+    assembly, models/crbe.local_matrices). Returns ``({"Dx": ..., "Dy":
+    ...}, losses)``."""
+    md = mesh_data
+    v = _mesh_tensor(v, md)
+
+    def make_problem(params):
+        return AnisotropicPlumeProblem(v=v, Dx=torch.exp(params["log_dx"]),
+                                       Dy=torch.exp(params["log_dy"]),
+                                       sigma=sigma)
+
+    init = {"log_dx": torch.log(torch.tensor(Dx0, dtype=md.dtype)),
+            "log_dy": torch.log(torch.tensor(Dy0, dtype=md.dtype))}
+    kwargs.pop("cache_key", None)
+    params, losses = fit_parameters(
+        observed, md, make_problem, init,
+        snapshot_indices=snapshot_indices, sensor_indices=sensor_indices,
+        steps=steps, lr=lr, **kwargs)
+    return ({"Dx": float(torch.exp(params["log_dx"])),
+             "Dy": float(torch.exp(params["log_dy"]))}, losses)

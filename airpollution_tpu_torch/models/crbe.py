@@ -29,6 +29,11 @@ Solve paths (``matvec_impl``):
   DOFs) takes the uniform routes' 21 scalars from a congruent patch mesh
   (ops/uniform.patch_constants) and assembles no global operator.
 
+A ``time_varying`` problem is refused here: models/unsteady solves it in
+chunks, each assembled at its midpoint (``assemble(..., coeff_time=)``, or
+the canvas operator straight from the local matrices,
+:func:`assemble_canvas`).
+
 Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
 solver that this package does not have yet raise ``NotImplementedError``
 instead of taking another path.
@@ -146,17 +151,6 @@ class GlobalOperators(NamedTuple):
     system_diag: torch.Tensor  # diagonal of the masked system (Jacobi)
 
 
-def reject_unported(problem):
-    """Refuse problem features this package does not solve yet: time-varying
-    coefficients (the JAX package reassembles them per time chunk,
-    models/unsteady, not ported)."""
-    if getattr(problem, "time_varying", False):
-        raise NotImplementedError(
-            "temporally varying coefficients (problem.time_varying) are not "
-            "ported yet; use the JAX package (airpollution_tpu)"
-        )
-
-
 def obstacle_masks(mesh_data, problem):
     """Solid-obstacle masks ``(tri_keep, dead_mask)``, or ``(None, None)``
     when the problem declares no obstacles.
@@ -183,7 +177,7 @@ def obstacle_masks(mesh_data, problem):
     return tri_keep, live == 0
 
 
-def robin_terms(mesh_data, problem):
+def robin_terms(mesh_data, problem, alpha_override=None):
     """``(dirichlet_mask, robin_mask, robin_alpha)`` of a problem's Robin
     sides; ``(boundary_mask, None, None)`` without any.
 
@@ -191,7 +185,9 @@ def robin_terms(mesh_data, problem):
     its own edge and every other one integrates to 0 there, so the
     boundary mass is diagonal: ``robin_alpha`` is the per-DOF
     ``alpha |e|`` added to the operator's diagonal at assembly, and the
-    g-load is ``g(mid_e, t) |e|`` on Robin DOFs (run_time_loop)."""
+    g-load is ``g(mid_e, t) |e|`` on Robin DOFs (run_time_loop).
+    ``alpha_override``: a dict over the same sides whose values (tensors,
+    say) replace the problem's alphas; the masks stay the problem's."""
     robin = getattr(problem, "robin_sides", None)
     if not robin:
         return mesh_data.boundary_mask, None, None
@@ -201,28 +197,43 @@ def robin_terms(mesh_data, problem):
             f"unknown robin_sides {sorted(unknown)} — expected a subset "
             f"of {sorted(SIDE_NORMALS)}"
         )
+    if alpha_override is not None and set(alpha_override) != set(robin):
+        raise ValueError(
+            f"alpha_override sides {sorted(alpha_override)} must match "
+            f"robin_sides {sorted(robin)}"
+        )
     side_masks = boundary_side_masks(mesh_data)
     lengths = mesh_data.segment_lengths
     robin_mask = torch.zeros_like(mesh_data.boundary_mask)
     alpha_vec = torch.zeros_like(lengths)
     for side, alpha in robin.items():
+        if alpha_override is not None:
+            alpha = alpha_override[side]
         m = side_masks[side]
         robin_mask = robin_mask | m
         alpha_vec = alpha_vec + torch.where(m, alpha * lengths, 0.0)
     return mesh_data.boundary_mask & ~robin_mask, robin_mask, alpha_vec
 
 
-def _local_operators(mesh_data, problem, stiffness_convention):
+def _local_operators(mesh_data, problem, stiffness_convention, coeff_time):
     """Local matrices of every triangle: constant or centroid-sampled
-    coefficients, then obstacle masking. Returns ``(loc, dead_mask)``."""
-    reject_unported(problem)
+    coefficients (the time-varying hooks at ``coeff_time``), then obstacle
+    masking. Returns ``(loc, dead_mask)``."""
     md = mesh_data
     verts = md.points[md.triangles]  # (n_tri, 3, 2)
+    time_varying = getattr(problem, "time_varying", False)
+    if time_varying and coeff_time is None:
+        raise ValueError(
+            "time-varying coefficients need an assembly time: pass "
+            "coeff_time=t (or solve with models/unsteady."
+            "solve_time_varying, which reassembles per time chunk)"
+        )
     if getattr(problem, "variable_coefficients", False):
         # Piecewise-constant fields sampled at triangle centroids.
         centroids = verts.mean(dim=1)
-        D_loc = problem.diffusion_at(centroids)
-        v_loc = problem.velocity_at(centroids)
+        targs = (coeff_time,) if time_varying else ()
+        D_loc = problem.diffusion_at(centroids, *targs)
+        v_loc = problem.velocity_at(centroids, *targs)
     else:
         D_loc, v_loc = problem.D, problem.v
     loc = local_matrices(verts, md.triangle_areas, D_loc, v_loc,
@@ -239,10 +250,17 @@ def _local_operators(mesh_data, problem, stiffness_convention):
 
 
 def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
-             stiffness_convention: str = "correct") -> GlobalOperators:
-    """Assemble all global operators in one pass (crbe.py:326-362)."""
+             stiffness_convention: str = "correct", coeff_time=None,
+             robin_alpha=None) -> GlobalOperators:
+    """Assemble all global operators in one pass (crbe.py:326-362).
+
+    ``coeff_time``: the time at which a ``time_varying`` problem's hooks
+    are sampled, required for such a problem (models/unsteady passes each
+    chunk's midpoint). ``robin_alpha``: an alpha override of the Robin
+    sides (:func:`robin_terms`)."""
     md = mesh_data
-    loc, dead = _local_operators(md, problem, stiffness_convention)
+    loc, dead = _local_operators(md, problem, stiffness_convention,
+                                 coeff_time)
     t2s_flat = md.triangle_to_segments.reshape(-1)
     n_seg = md.number_of_segments
     mass_diag = torch.zeros(n_seg, dtype=loc.mass_diag.dtype,
@@ -275,7 +293,8 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
     if not (isinstance(r, (int, float)) and r == 0.0):
         ka_vals = add_diag(ka_vals, r * mass_diag)
     # Robin walls: the diagonal alpha |e| boundary term folds into K + A.
-    dirichlet_mask, _, robin_vec = robin_terms(md, problem)
+    dirichlet_mask, _, robin_vec = robin_terms(md, problem,
+                                               alpha_override=robin_alpha)
     if dead is not None:
         dirichlet_mask = dirichlet_mask | dead
     if robin_vec is not None:
@@ -289,6 +308,73 @@ def assemble(mesh_data, problem, dt: float, time_scheme_order: int,
     system_diag = sparse.ell_diagonal(system, ell_diag_slot)
     return GlobalOperators(mass_diag=mass_diag, stiffness=K, advection=A,
                            ka=ka, system=system, system_diag=system_diag)
+
+
+def assemble_canvas(mesh_data, problem, dt: float, time_scheme_order: int,
+                    stiffness_convention: str = "correct", coeff_time=None,
+                    robin_alpha=None):
+    """The canvas operator of a structured mesh, assembled from the local
+    matrices directly (crbe.py:444-544 of the JAX package): no ELL
+    operator, no scatter and no gather, only the static slices and pads of
+    stencil.canvases_from_local. Returns ``(coeffs, mass_fam,
+    system_diag_fam)`` in family layout: the 15 coefficient grids of the
+    masked system (``extract_coefficients(pattern, assemble(...).system
+    .vals)``), the mass and the system diagonal (``assemble(...)``'s,
+    permuted). Reaction, Robin walls (with ``robin_alpha``), obstacles and
+    variable and time-varying coefficients (at ``coeff_time``) fold in as
+    in :func:`assemble`; the result keeps autograd."""
+    md = mesh_data
+    n = getattr(md, "structured_n", None)
+    if n is None:
+        raise ValueError("assemble_canvas requires a structured mesh "
+                         "(general meshes take the assemble() ELL route)")
+    c = n - 1
+    loc, dead = _local_operators(md, problem, stiffness_convention,
+                                 coeff_time)
+    ka_loc = loc.stiffness + loc.advection
+    r = getattr(problem, "reaction", 0.0)
+    if not (isinstance(r, (int, float)) and r == 0.0):
+        # + r M on the diagonal local mass: assemble()'s diagonal fold.
+        ka_loc = ka_loc + torch.diag_embed(r * loc.mass_diag)
+    csc = {1: 1.0, 2: 0.5}[time_scheme_order]
+    coeffs, (mH, mV, mD) = stencil_mod.canvases_from_local(
+        n, (csc * dt) * ka_loc, loc.mass_diag)
+    perm = torch.as_tensor(
+        np.asarray(stencil_mod.get_family_perm(md)[0], dtype=np.int64),
+        device=md.device)
+    nH = n * c
+
+    def fam_split(vec):
+        v = vec[perm]
+        return (v[:nH].reshape(n, c), v[nH:2 * nH].reshape(c, n),
+                v[2 * nH:].reshape(c, c))
+
+    dirichlet_mask, _, robin_vec = robin_terms(md, problem,
+                                               alpha_override=robin_alpha)
+    if dead is not None:
+        dirichlet_mask = dirichlet_mask | dead
+        # Unit mass on dead DOFs: identity rows after the masking below.
+        mH, mV, mD = (torch.where(d, torch.ones_like(m), m)
+                      for d, m in zip(fam_split(dead), (mH, mV, mD)))
+    diag_adds = [mH, mV, mD]
+    if robin_vec is not None:
+        diag_adds = [a + (csc * dt) * rv.to(a.dtype)
+                     for a, rv in zip(diag_adds, fam_split(robin_vec))]
+    bmasks = fam_split(dirichlet_mask)
+    out = []
+    for k, canvas in enumerate(coeffs):
+        fam = k // 5
+        if k % 5 == 0:  # the diagonal term of this family's rows
+            canvas = torch.where(bmasks[fam], torch.ones_like(canvas),
+                                 canvas + diag_adds[fam])
+        else:
+            canvas = torch.where(bmasks[fam], torch.zeros_like(canvas),
+                                 canvas)
+        out.append(canvas)
+    mass_fam = torch.cat([mH.reshape(-1), mV.reshape(-1), mD.reshape(-1)])
+    system_diag_fam = torch.cat([out[0].reshape(-1), out[5].reshape(-1),
+                                 out[10].reshape(-1)])
+    return tuple(out), mass_fam, system_diag_fam
 
 
 def _ell_matvec(A):
@@ -541,9 +627,9 @@ class CRBESolver:
         if getattr(problem, "time_varying", False):
             raise ValueError(
                 "CRBESolver assembles the operator once; time-varying "
-                "coefficients (problem.time_varying) need reassembly per "
-                "time chunk (the JAX package's models/unsteady, not "
-                "ported yet)"
+                "coefficients (problem.time_varying) need the "
+                "quasi-static chunk driver models/unsteady."
+                "solve_time_varying"
             )
         fused = matvec_impl in ("fused", "fused_hbm")
         per_dof = ("auto", "ell", "stencil", "pallas", "fused", "fused_hbm")

@@ -21,7 +21,10 @@ and ``_guarded_scan``.
   Jacobi-preconditioned Chebyshev polynomial ``p(A) mask(b)`` from a zero
   start, one launch; over the transposed coefficients it is ``p(A^T)``.
   The primal and adjoint solve of the differentiable fused engine
-  (diagnostics/inverse.py). ``csrc/canvas_step.cu`` (``kRaw``).
+  (diagnostics/inverse.py, models/unsteady; :func:`raw_solve_pair`).
+  ``csrc/canvas_step.cu`` (``kRaw``). :func:`canvas_interval` estimates a
+  canvas operator's Chebyshev interval on kernel B3 (its matvec and the
+  transposed one), once per time-varying chunk.
 - Kernels B8, B9, B10: the block modes of B2, B4 and B6, one step on one
   row block of the canvas (:class:`BlockRows`: ``local`` interior rows and
   ``halo`` rows of each neighbour's) with global-row masks, writing the
@@ -66,7 +69,8 @@ import numpy as np
 import torch
 
 from airpollution_tpu_torch import _build
-from airpollution_tpu_torch.ops import fused_solver, linalg
+from airpollution_tpu_torch.ops import fused_solver, linalg, stencil
+from airpollution_tpu_torch.ops.fused_stencil import StencilOperator
 from airpollution_tpu_torch.ops.loads import EmissionLoads, RobinFluxLoads
 from airpollution_tpu_torch.problems import mix_species
 
@@ -444,6 +448,60 @@ def chebyshev_apply_canvas_hbm(pattern, coeffs, inv_diag_fam, b_fam, *,
     cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, b_fam.device)
     return apply_canvas_raw(pattern, C, b_fam, n_iters=n_iters, cheb=cheb,
                             rect=rect)
+
+
+def raw_solve_pair(pattern, coeffs, inv_diag_fam, n_iters: int, dtype,
+                   rect=None):
+    """``(solve_impl, transpose_impl)``, each ``(rhs, bounds) -> x``: B4's
+    raw mode over the coefficient grids and over their transpose, the
+    primal and adjoint sweeps of linalg.differentiable_chebyshev_solve on
+    the fused engine. The stacks are detached constants built here, once;
+    the Chebyshev scalars once per interval (a loop hands the same
+    ``bounds`` to every step). ``rect``: the interior rectangle, widened by
+    Robin walls (:func:`robin_rect_bounds`)."""
+    coeffs = tuple(g.detach() for g in coeffs)
+    inv_diag_fam = inv_diag_fam.detach()
+    C = raw_operator(pattern, coeffs, inv_diag_fam, dtype)
+    C_T = raw_operator(pattern, stencil.transpose_coefficients(coeffs),
+                       inv_diag_fam, dtype)
+    last = {}
+
+    def scalars(bounds):
+        if last.get("bounds") is not bounds:
+            last["bounds"] = bounds
+            last["cheb"] = fused_solver.cheb_scalars(bounds, n_iters, dtype,
+                                                     C.device)
+        return last["cheb"]
+
+    def solve_impl(rhs, bounds):
+        return apply_canvas_raw(pattern, C, rhs, n_iters=n_iters,
+                                cheb=scalars(bounds), rect=rect)
+
+    def transpose_impl(rhs, bounds):
+        return apply_canvas_raw(pattern, C_T, rhs, n_iters=n_iters,
+                                cheb=scalars(bounds), rect=rect)
+
+    return solve_impl, transpose_impl
+
+
+def canvas_interval(pattern, coeffs, diag_fam):
+    """The Chebyshev interval of a canvas operator given by its 15
+    coefficient grids and system diagonal (family layout): linalg
+    .power_bounds over the stencil matvec and its transpose (the matvec
+    over stencil.transpose_coefficients), Jacobi-scaled, as host floats.
+    Both are kernel B3 (ops/fused_stencil.StencilOperator) on CUDA
+    tensors, the plain stencil.stencil_matvec on CPU ones. The estimate
+    of the time-varying chunks, serial and block alike (models/unsteady,
+    parallel/hbm_shard), so that both take the same interval. No
+    gradient."""
+    coeffs = tuple(g.detach().contiguous() for g in coeffs)
+    diag_fam = diag_fam.detach()
+    lo, hi = linalg.power_bounds(
+        StencilOperator(pattern, coeffs), torch.zeros_like(diag_fam),
+        scale=1.0 / torch.sqrt(diag_fam),
+        transpose_matvec=StencilOperator(pattern, tuple(
+            g.contiguous() for g in stencil.transpose_coefficients(coeffs))))
+    return float(lo), float(hi)
 
 
 def _step_loop(step, u, up, n_steps, guard_every, keep=None):

@@ -127,14 +127,22 @@ def _transpose(matvec: Callable, example: torch.Tensor) -> Callable:
     return vecmat
 
 
-def _scaled_and_transpose(matvec, example, scale):
-    """``B x = s * A(s * x)`` and its transpose ``B^T``."""
+def _scaled_and_transpose(matvec, example, scale, transpose_matvec=None):
+    """``B x = s * A(s * x)`` and its transpose ``B^T``: ``s *
+    transpose_matvec(s * x)`` when ``A^T`` is given, else the autograd
+    transpose of ``B``."""
     s = torch.ones_like(example) if scale is None else scale
 
     def scaled(x):
         return s * matvec(s * x)
 
-    return scaled, _transpose(scaled, example)
+    if transpose_matvec is None:
+        return scaled, _transpose(scaled, example)
+
+    def scaled_transpose(x):
+        return s * transpose_matvec(s * x)
+
+    return scaled, scaled_transpose
 
 
 def power_bounds(
@@ -144,13 +152,17 @@ def power_bounds(
     scale: Optional[torch.Tensor] = None,
     iters: int = 48,
     margin: float = 0.05,
+    transpose_matvec: Optional[Callable] = None,
 ):
     """``[lambda_min, lambda_max]`` of the Hermitian part of
     ``diag(scale) A diag(scale)``, widened by ``margin`` (an interval that
     slightly contains the spectrum keeps Chebyshev convergent). Two power
     iterations: one for ``lambda_max``, one shifted for ``lambda_min``.
-    Returns two 0-d tensors."""
-    scaled, transpose = _scaled_and_transpose(matvec, example, scale)
+    ``transpose_matvec``: ``A^T`` as a matvec of its own (a kernel that
+    autograd cannot transpose); by default ``A^T`` is the autograd
+    transpose of ``matvec``. Returns two 0-d tensors."""
+    scaled, transpose = _scaled_and_transpose(matvec, example, scale,
+                                              transpose_matvec)
 
     def sym(x):
         return 0.5 * (scaled(x) + transpose(x))

@@ -152,8 +152,60 @@ def build_stencil_pattern(t2s, ell_cols, n: int) -> StencilPattern:
     )
 
 
+def canvases_from_local(n: int, local, local_mass=None):
+    """The 15 stencil coefficient grids straight from per-triangle local
+    matrices, on a structured mesh: each term is a fixed one- or
+    two-slice combination of the local matrices of the one or two
+    triangles that couple its family pair (the neighbour table of the
+    module docstring), placed with static pads. No scatter and no gather,
+    so it keeps autograd through plain slicing.
+
+    ``local``: (n_tri, 3, 3) local matrices in mesh order (triangle A of
+    cell (row j, column i) at ``2 (j c + i)``, triangle B at the next
+    index); ``local_mass``: optional (n_tri, 3) diagonal local masses.
+    Returns ``(coeffs, mass)``: the 15 grids in
+    :func:`extract_coefficients` order of the UNMASKED assembled operator
+    (the per-DOF diagonal adds and the Dirichlet masking are the caller's,
+    models/crbe.assemble_canvas), and the assembled mass grids (mH, mV,
+    mD), or None without ``local_mass``."""
+    c = n - 1
+    L = local.reshape(c, c, 2, 3, 3)
+    LA, LB = L[:, :, 0], L[:, :, 1]
+    # H rows (n, c): H(j, i) is edge 2 of A(j, i) (j < c) and edge 0 of
+    # B(j - 1, i) (j >= 1).
+    cHH = _pad(LA[:, :, 2, 2], bottom=1) + _pad(LB[:, :, 0, 0], top=1)
+    cHVu = _pad(LA[:, :, 2, 0], bottom=1)
+    cHDu = _pad(LA[:, :, 2, 1], bottom=1)
+    cHVd = _pad(LB[:, :, 0, 1], top=1)
+    cHDd = _pad(LB[:, :, 0, 2], top=1)
+    # V rows (c, n): V(j, i) is edge 1 of B(j, i) (i < c) and edge 0 of
+    # A(j, i - 1) (i >= 1).
+    cVV = _pad(LB[:, :, 1, 1], right=1) + _pad(LA[:, :, 0, 0], left=1)
+    cVDl = _pad(LA[:, :, 0, 1], left=1)
+    cVHl = _pad(LA[:, :, 0, 2], left=1)
+    cVHr = _pad(LB[:, :, 1, 0], right=1)
+    cVDr = _pad(LB[:, :, 1, 2], right=1)
+    # D rows (c, c): D(j, i) is edge 1 of A(j, i) and edge 2 of B(j, i).
+    cDD = LA[:, :, 1, 1] + LB[:, :, 2, 2]
+    coeffs = (cHH, cHVu, cHDu, cHVd, cHDd,
+              cVV, cVDl, cVHl, cVHr, cVDr,
+              cDD, LA[:, :, 1, 0], LA[:, :, 1, 2], LB[:, :, 2, 0],
+              LB[:, :, 2, 1])
+    if local_mass is None:
+        return coeffs, None
+    m = local_mass.reshape(c, c, 2, 3)
+    mA, mB = m[:, :, 0], m[:, :, 1]
+    mass = (_pad(mA[:, :, 2], bottom=1) + _pad(mB[:, :, 0], top=1),
+            _pad(mB[:, :, 1], right=1) + _pad(mA[:, :, 0], left=1),
+            mA[:, :, 1] + mB[:, :, 2])
+    return coeffs, mass
+
+
 def extract_coefficients(pattern: StencilPattern, ell_vals) -> tuple:
     """The 15 coefficient grids from the flat ELL values (one gather)."""
+    if not pattern.term_slots:
+        raise ValueError("extracting coefficients needs the pattern's ELL "
+                         "slot grids (get_pattern, not family_pattern)")
     flat = ell_vals.reshape(-1)
     out = []
     for slots, valid in zip(pattern.term_slots, pattern.term_valid):
@@ -261,6 +313,21 @@ def get_pattern(mesh_data) -> StencilPattern:
         )
         mesh_data._stencil_pattern = pattern
     return pattern
+
+
+def family_pattern(mesh_data) -> StencilPattern:
+    """The family layout (n, c and the permutations) without the ELL slot
+    grids: what the canvas paths that read no ELL operator need
+    (models/crbe.assemble_canvas and its consumers). The full pattern
+    where it is already built; else a few ms at 1025^2, where
+    :func:`get_pattern` takes seconds on the host."""
+    pattern = getattr(mesh_data, "_stencil_pattern", None)
+    if pattern is not None:
+        return pattern
+    perm, inv_perm = get_family_perm(mesh_data)
+    n = mesh_data.structured_n
+    return StencilPattern(n=n, c=n - 1, perm=perm, inv_perm=inv_perm,
+                          term_slots=(), term_valid=())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,7 +45,11 @@ import torch
 import torch.nn.functional as F
 
 from airpollution_tpu_torch.mesh.data import structured_grid
-from airpollution_tpu_torch.models.crbe import obstacle_masks, robin_terms
+from airpollution_tpu_torch.models.crbe import (
+    assemble_canvas,
+    obstacle_masks,
+    robin_terms,
+)
 from airpollution_tpu_torch.models.multispecies import (
     half_step_exponential,
     make_species_lift,
@@ -335,12 +339,13 @@ def _keep_last(prepare):
     return prepared
 
 
-def _prepare_canvas_operator(pattern, perm, dmask, blocks, ops, dtype):
+def _prepare_canvas_operator(md, perm, dmask, blocks, ops, dtype):
     """``(C blocks, interval)``: the (n_blocks, 21, rows, n) extended
     blocks of the canvas operator of ``ops`` (masked mass on the reduced
     Dirichlet set ``dmask``) and the Chebyshev interval of the ELL system,
     the estimate of the serial canvas routes (CRBESolver,
     MultiSpeciesSolver)."""
+    pattern = stencil_mod.get_pattern(md)
     coeffs = stencil_mod.extract_coefficients(pattern, ops.system.vals)
     mass_fam = torch.where(dmask[perm],
                            torch.zeros_like(ops.mass_diag[perm]),
@@ -361,6 +366,22 @@ def _canvas_setup(md, problem):
     if dead is not None:
         dmask = dmask | dead
     return dmask, dead
+
+
+def _prepare_canvas_at(md, problem, dt, order, stiffness_convention,
+                       pattern, perm, dmask, blocks, coeff_time, dtype):
+    """``(C blocks, interval)`` of the operator at ``coeff_time``, from
+    models/crbe.assemble_canvas (no ELL operator), with the interval of the
+    serial time-varying chunks (fused_hbm.canvas_interval), so that block
+    and whole-canvas chunks take the same one."""
+    coeffs, mass_raw_fam, diag_fam = assemble_canvas(
+        md, problem, dt, order, stiffness_convention, coeff_time=coeff_time)
+    mass_fam = torch.where(dmask[perm], torch.zeros_like(mass_raw_fam),
+                           mass_raw_fam)
+    C = fused_hbm.canvas_operator(pattern, coeffs, mass_fam, 1.0 / diag_fam,
+                                  dtype)
+    return blocks.split(C), fused_hbm.canvas_interval(pattern, coeffs,
+                                                       diag_fam)
 
 
 def build_canvas_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1,
@@ -385,10 +406,12 @@ def build_canvas_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1,
     The Chebyshev interval is the serial canvas routes' ELL estimate.
 
     ``solve(ops, u0, t0=0.0, coeff_time=None)``: ``n_steps`` steps (default
-    nt - 1) from time ``t0``. ``coeff_time`` (the JAX package's
-    per-chunk canvas assembly for time-varying coefficients) needs
-    models/unsteady and models/crbe.assemble_canvas, which this package
-    does not have yet, and raises NotImplementedError.
+    nt - 1) from time ``t0``. With ``coeff_time`` (a number) the operator
+    is not ``ops`` (pass None) but models/crbe.assemble_canvas of the
+    problem at that time, with the interval of the serial time-varying
+    chunks (fused_hbm.canvas_interval): one chunk of
+    models/unsteady.solve_time_varying(mesh=...). The stack of the last
+    ``coeff_time`` is kept.
     """
     robin = getattr(problem, "robin_sides", None) or None
     g_on = False
@@ -405,7 +428,7 @@ def build_canvas_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1,
         n_steps = md.nt - 1
     _check_common(md, snapshot_every, n_steps, source_quadrature,
                   "canvas halo solver")
-    pattern = stencil_mod.get_pattern(md)
+    pattern = stencil_mod.family_pattern(md)
     perm, inv = _perm_tensors(md)
     c = pattern.c
     use_ka = order == 2
@@ -417,19 +440,23 @@ def build_canvas_hbm_halo_solver(mesh, mesh_data, problem, dt, *, order=1,
     dmask, dead = _canvas_setup(md, problem)
     lift_at = lifting.make_lift(problem, md.midpoints, dmask, zero_mask=dead)
     n_states = 2 if extrapolate else 1
-    prepared = _keep_last(partial(_prepare_canvas_operator, pattern,
-                                  perm, dmask, blocks))
+    prepared = _keep_last(partial(_prepare_canvas_operator, md, perm, dmask,
+                                  blocks))
+    prepared_at = _keep_last(
+        lambda _ops, coeff_time, dtype: _prepare_canvas_at(
+            md, problem, dt, order, stiffness_convention, pattern, perm,
+            dmask, blocks, coeff_time, dtype))
 
     def solve(ops, u0, t0=0.0, coeff_time=None):
-        if coeff_time is not None:
-            raise NotImplementedError(
-                "coeff_time (per-chunk canvas assembly for time-varying "
-                "coefficients, models/unsteady) is not ported yet")
-        if ops is None:
-            raise ValueError("the canvas block solver needs assembled "
-                             "GlobalOperators")
         dtype = u0.dtype
-        Cb, bounds = prepared(ops, dtype)
+        if coeff_time is not None:
+            Cb, bounds = prepared_at(None, float(coeff_time), dtype)
+        elif ops is None:
+            raise ValueError("the canvas block solver needs assembled "
+                             "GlobalOperators (or a coeff_time= for the "
+                             "direct canvas assembly)")
+        else:
+            Cb, bounds = prepared(ops, dtype)
         if dead is not None:
             u0 = torch.where(dead, torch.zeros_like(u0), u0)
         cheb = fused_solver.cheb_scalars(bounds, iters, dtype, device)
@@ -546,8 +573,8 @@ def build_multispecies_hbm_halo_solver(mesh, mesh_data, problem, dt, *,
     dmask, dead = _canvas_setup(md, sp0)
     lift = make_species_lift(p, md.midpoints, dmask, dead)
     E_half = half_step_exponential(p.R, dt)
-    prepared = _keep_last(partial(_prepare_canvas_operator, pattern,
-                                  perm, dmask, blocks))
+    prepared = _keep_last(partial(_prepare_canvas_operator, md, perm, dmask,
+                                  blocks))
 
     def solve(ops, C0):
         if ops is None:

@@ -6,10 +6,13 @@ the class flags the solver routes on and the per-DOF hooks (variable
 winds and diffusion, Robin walls, obstacles), the Gaussian-plume
 ``Problem`` (its closed form is IC, boundary data and oracle at once), the
 square-pulse release, the rotating plume (the oracle of the variable-wind
-solve), the Gaussian emitter, the ``MultiSpeciesProblem`` container of
-K species coupled by linear chemistry, and the box ``Domain``. Methods
-take tensors of any device and dtype and return tensors on the same
-device and dtype.
+solve), the plume released off the origin, the anisotropic plume (a
+constant diffusion tensor), the turning wind (the oracle of the
+time-varying solve, models/unsteady), the Gaussian emitter, the
+``MultiSpeciesProblem`` container of K species coupled by linear
+chemistry, and the box ``Domain``; :func:`exact_robin_g` makes Robin data
+from a closed form. Methods take tensors of any device and dtype and
+return tensors on the same device and dtype.
 
 The plume (utils/common.py:47-50 of the reference):
 ``exp(-((x - vx t)^2 + (y - vy t)^2) / (4 D t + sigma^2)) / (pi (4 D t + sigma^2))``
@@ -80,6 +83,33 @@ def _is_zero(x) -> bool:
     return isinstance(x, (int, float)) and x == 0.0
 
 
+def _as(x, like):
+    """``x`` (a number or a tensor parameter) as a tensor of ``like``'s
+    dtype and device; a tensor keeps its graph."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device)
+
+
+def exact_robin_g(problem, xy, t, side):
+    """Manufactured Robin data from a problem's analytical solution:
+    ``g = alpha c_ex + D dc_ex/dn`` on ``side``, so that the closed form
+    satisfies ``-D dc/dn = alpha c - g`` exactly. The normal derivative is
+    the autograd of ``analytical_solution`` at each point (each value
+    depends on its own point only), built with ``create_graph`` while grad
+    mode is on, so that a fit can differentiate through it. ``t`` is a
+    scalar or one time per point (N,)."""
+    alpha = problem.robin_sides[side]
+    nx, ny = SIDE_NORMALS[side]
+    ts = _as(t, xy).expand(xy.shape[:1])
+    keep_graph = torch.is_grad_enabled()
+    with torch.enable_grad():
+        p = xy if xy.requires_grad else xy.detach().requires_grad_(True)
+        c = problem.analytical_solution(torch.cat([p, ts[:, None]], dim=1))
+        (grad,) = torch.autograd.grad(c.sum(), p, create_graph=keep_graph)
+    dcdn = nx * grad[:, 0] + ny * grad[:, 1]
+    g = alpha * c + problem.D * dcdn
+    return g if keep_graph else g.detach()
+
+
 class AdDifProblem(abc.ABC):
     """Abstract 2D advection-diffusion(-reaction) problem.
 
@@ -100,8 +130,9 @@ class AdDifProblem(abc.ABC):
     # diffusion_at at triangle centroids, and only the per-DOF (stencil,
     # canvas) paths solve such problems.
     variable_coefficients = False
-    # True when v or D vary in time (refused by CRBESolver, as in the JAX
-    # package, which solves them in quasi-static time chunks).
+    # True when v or D vary in time: the hooks then take a time argument,
+    # CRBESolver refuses the problem, and models/unsteady.solve_time_varying
+    # reassembles the operator per time chunk (quasi-static).
     time_varying = False
     # Robin sides: None keeps every boundary DOF Dirichlet; a dict
     # {side: alpha} imposes -D dc/dn = alpha c - g on the named sides,
@@ -253,6 +284,26 @@ class Problem(AdDifProblem):
     def source_term(self, xyt):
         _check_xyt(xyt)
         return torch.zeros_like(xyt[..., 0])
+
+
+class ShiftedPlumeProblem(Problem):
+    """The Gaussian plume released at ``center = (cx, cy)``: it tracks
+    ``(cx + vx t, cy + vy t)``. Each parameter may be a tensor
+    (:func:`param`)."""
+
+    def __init__(self, v=(1.0, 0.5), D=0.1, sigma=1.0, center=(0.0, 0.0),
+                 reaction=0.0):
+        super().__init__(v, D, sigma, reaction)
+        self.cx = param(center[0])
+        self.cy = param(center[1])
+
+    def analytical_solution(self, xyt):
+        _check_xyt(xyt)
+        x, y, t = xyt[..., 0], xyt[..., 1], xyt[..., 2]
+        denom = 4.0 * self.D * t + self.sigma ** 2
+        num = ((x - self.cx - self.v[0] * t) ** 2
+               + (y - self.cy - self.v[1] * t) ** 2)
+        return _plume(num, denom, self.reaction, t)
 
 
 class SquarePulseProblem(AdDifProblem):
@@ -552,6 +603,137 @@ class RotatingPlumeProblem(AdDifProblem):
         eta = self.cy + torch.sin(th) * dx + torch.cos(th) * dy
         denom = 4.0 * self.D * t + self.sigma ** 2
         num = (xi - self.x0) ** 2 + (eta - self.y0) ** 2
+        return _plume(num, denom, self.reaction, t)
+
+    def initial_condition_fn(self, xy):
+        _check_xy(xy)
+        t0 = torch.zeros(xy.shape[:-1] + (1,), dtype=xy.dtype,
+                         device=xy.device)
+        return self.analytical_solution(torch.cat([xy, t0], dim=-1))
+
+    def boundary_fn(self, xyt):
+        return self.analytical_solution(xyt)
+
+    def source_term(self, xyt):
+        return torch.zeros_like(xyt[..., 0])
+
+
+def _diag2(a, b):
+    """``diag(a, b)`` as a (2, 2) tensor: float64 from numbers, else the
+    dtype and device of the tensor among them (whose graph it keeps)."""
+    ref = next((x for x in (a, b) if isinstance(x, torch.Tensor)), None)
+    like = ref if ref is not None else torch.zeros((), dtype=torch.float64)
+    return torch.diag(torch.stack([_as(a, like), _as(b, like)]))
+
+
+class AnisotropicPlumeProblem(AdDifProblem):
+    """Gaussian plume under the diffusion tensor ``D = diag(Dx, Dy)``:
+
+        c = exp(-(x - vx t)^2 / sx - (y - vy t)^2 / sy)
+            / (pi sqrt(sx sy)) * exp(-reaction t),
+        sx = 4 Dx t + sigma^2,  sy = 4 Dy t + sigma^2.
+
+    ``self.D`` is the (2, 2) tensor, which assembly integrates as
+    ``grad phi . D grad phi`` (models/crbe.local_matrices) and the PINN
+    residual contracts with the Hessian. A constant tensor keeps the
+    operator translation-invariant, so the uniform fused routes take it.
+    ``Dx``, ``Dy``, ``sigma`` and ``reaction`` may be tensors
+    (:func:`param`)."""
+
+    zero_source = True
+
+    def __init__(self, v=(1.0, 0.5), Dx=0.1, Dy=0.01, sigma=1.0,
+                 reaction=0.0):
+        super().__init__(v, 0.0, reaction)
+        self.D = _diag2(Dx, Dy)
+        self.Dx = param(Dx)
+        self.Dy = param(Dy)
+        self.sigma = param(sigma)
+
+    def analytical_solution(self, xyt):
+        _check_xyt(xyt)
+        x, y, t = xyt[..., 0], xyt[..., 1], xyt[..., 2]
+        sx = 4.0 * self.Dx * t + self.sigma ** 2
+        sy = 4.0 * self.Dy * t + self.sigma ** 2
+        num = (x - self.v[0] * t) ** 2 / sx + (y - self.v[1] * t) ** 2 / sy
+        plume = torch.exp(-num) / (math.pi * torch.sqrt(sx * sy))
+        if _is_zero(self.reaction):
+            return plume
+        return plume * torch.exp(-self.reaction * t)
+
+    def initial_condition_fn(self, xy):
+        _check_xy(xy)
+        t0 = torch.zeros(xy.shape[:-1] + (1,), dtype=xy.dtype,
+                         device=xy.device)
+        return self.analytical_solution(torch.cat([xy, t0], dim=-1))
+
+    def boundary_fn(self, xyt):
+        return self.analytical_solution(xyt)
+
+    def source_term(self, xyt):
+        return torch.zeros_like(xyt[..., 0])
+
+
+class TurningWindProblem(AdDifProblem):
+    """Gaussian puff in a wind uniform in space that turns in time,
+    ``v(t) = speed (cos(phi0 + omega_t t), sin(phi0 + omega_t t))``: the
+    oracle of the time-varying solve (models/unsteady). The puff is carried
+    along the integrated trajectory ``X(t) = (speed / omega_t) (sin(phi0 +
+    omega_t t) - sin(phi0), cos(phi0) - cos(phi0 + omega_t t))`` while it
+    diffuses, so
+
+        c = exp(-|x - x0 - X(t)|^2 / (4 D t + sigma^2))
+            / (pi (4 D t + sigma^2)) * exp(-reaction t).
+
+    Each parameter may be a tensor (:func:`param`); ``omega_t = 0`` is the
+    straight wind, taken by a ``where`` with a safe denominator so that
+    the gradient stays finite there."""
+
+    zero_source = True
+    variable_coefficients = True
+    time_varying = True
+
+    def __init__(self, speed=1.0, omega_t=0.5, phi0=0.0, D=0.1, sigma=1.0,
+                 x0=0.0, y0=0.0, reaction=0.0):
+        # No constant wind: a constant-coefficient consumer fails.
+        super().__init__(None, D, reaction)
+        self.speed = param(speed)
+        self.omega_t = param(omega_t)
+        self.phi0 = param(phi0)
+        self.sigma = param(sigma)
+        self.x0 = param(x0)
+        self.y0 = param(y0)
+
+    def velocity_at(self, xy, t=None):
+        """The wind at ``t`` (0 when None; a scalar, or one time per point)
+        at every point: (N, 2)."""
+        t = _as(0.0 if t is None else t, xy)
+        phi = self.phi0 + self.omega_t * t
+        shape = torch.broadcast_shapes(xy.shape[:-1], t.shape)
+        return torch.stack([(self.speed * torch.cos(phi)).expand(shape),
+                            (self.speed * torch.sin(phi)).expand(shape)],
+                           dim=-1)
+
+    def _displacement(self, t):
+        w = _as(self.omega_t, t)
+        ph0 = _as(self.phi0, t)
+        straight = w == 0
+        # Both branches are evaluated (and differentiated): the safe
+        # denominator keeps the discarded one finite.
+        safe_w = torch.where(straight, torch.ones_like(w), w)
+        ph = ph0 + w * t
+        Xc = (torch.sin(ph) - torch.sin(ph0)) * self.speed / safe_w
+        Yc = (torch.cos(ph0) - torch.cos(ph)) * self.speed / safe_w
+        X0 = self.speed * t * torch.cos(ph0)
+        Y0 = self.speed * t * torch.sin(ph0)
+        return torch.where(straight, X0, Xc), torch.where(straight, Y0, Yc)
+
+    def analytical_solution(self, xyt):
+        _check_xyt(xyt)
+        x, y, t = xyt[..., 0], xyt[..., 1], xyt[..., 2]
+        Xt, Yt = self._displacement(t)
+        denom = 4.0 * self.D * t + self.sigma ** 2
+        num = (x - self.x0 - Xt) ** 2 + (y - self.y0 - Yt) ** 2
         return _plume(num, denom, self.reaction, t)
 
     def initial_condition_fn(self, xy):

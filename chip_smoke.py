@@ -83,9 +83,23 @@ Phases, each printing one JSON line:
     whole-canvas B2 solve; B9 on C1 against C1's B4 solve, and C3 on 2
     blocks with strided rows (dead DOFs exactly 0); B10 on M1's chain
     against M1's B6 solve;
-13. the kernels line (launches on each path, errors, times, bounds; for
-    B3 and B7 also the host's time to enqueue one launch and the device
-    time alone, from a CUDA graph of 200 launches replayed).
+13. slice 12, time-varying winds (models/unsteady.solve_time_varying,
+    scripts/torch_port_unsteady_scale.py's rows, the turning wind): W1,
+    1025^2 (nt=2001, a chunk every 100 steps, CN, Chebyshev-8) on B4 with
+    a fresh stack per chunk and the chunks' intervals on B3: warm steps/s,
+    one chunk's assembly and interval against its B4 sweep, the halved
+    chunk (<= 5e-3), a chunk's B4 step against its plain version, and at
+    513^2 the fused chunks against the scan-Chebyshev chunks (f64 on the
+    same intervals <= 1e-4; f32 each with its own estimate, reported);
+    W2, the 513^2 row on 4 row blocks (B9, <= 1e-6 of the whole canvas);
+    W3, a misfit's gradient in the turning rate through the
+    differentiable fused chunks (B4-raw) at 257^2 against the plain
+    polynomial (<= 2e-5) and a central difference (<= 5e-3);
+14. the PINN (slice 11), then the kernels line (launches on each path,
+    errors, times, bounds; for B3 and B7 also the host's time to enqueue
+    one launch and the device time alone, from a CUDA graph of 200
+    launches replayed; for B4, B4-raw and B9 the launches of slice 12's
+    paths apart as ``time_varying_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -4104,6 +4118,330 @@ def phase_pinn_levers(md):
     return out
 
 
+# Slice 12, time-varying winds (models/unsteady): the rows of
+# scripts/torch_port_unsteady_scale.py, (mesh size, nt, reassemble_every),
+# and the gradient cell.
+W_ROWS = {513: (1001, 50), 1025: (2001, 100)}
+W_ITERS = 8
+W_HALVED_TOL = 5e-3
+W_FUSED_VS_SCAN_TOL = 1e-4
+# W3 at 257^2: nt=257, not 65, where Chebyshev-8 diverges (dt |v| / h = 1,
+# D dt / h^2 = 1.9; max|u| 6e4 at T in the port and its plain version).
+W3 = dict(ms=257, nt=257, every=16, omega_t=0.5, omega_obs=0.4, step=3e-3)
+
+
+def unsteady_scale():
+    """scripts/torch_port_unsteady_scale.py (problem, solve arguments,
+    timing, the chunk breakdown)."""
+    from scripts import torch_port_unsteady_scale as mod
+
+    return mod
+
+
+def phase_w1():
+    """W1: the turning wind at 1025^2 (nt=2001, a chunk every 100 steps;
+    CN, Chebyshev-8, extrapolated, fused_hbm, f32), a fresh B4 stack per
+    chunk. The run with a chunk every 50 steps first (the warm-up, and the
+    halving check, <= 5e-3), then the timed run: warm steps/s with the
+    reassembly, B4's launches (2,000), final_max, rel_l2, one middle
+    chunk's seconds in assembly and interval against its B4 sweep, and
+    that chunk's B4 step against plain_canvas_step on its stack
+    (TOL["float32"]). Then 513^2 (nt=1001, every 50): the fused chunks
+    against the scan-Chebyshev chunks at the same k, in f32 each with its
+    own interval estimate (reported), and in f64 on the fused chunks'
+    intervals (IntervalTape; <= 1e-4 of max|u|), with the f32 run against
+    the f64 one (reported). The chunks' interval estimates run on B3 (a
+    matvec and its transpose per power iteration). Returns (B4 launches, B3 launches, the largest
+    B4 error, the 513^2 fused state, its mesh data)."""
+    import torch
+
+    from airpollution_tpu_torch.models.crbe import assemble_canvas
+    from airpollution_tpu_torch.models.unsteady import solve_time_varying
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver, stencil
+
+    sc = unsteady_scale()
+    p = sc.problem()
+    out = {"phase": "w1_time_varying", "card": card_line(), "k": W_ITERS}
+    nt, every = W_ROWS[1025]
+    n_steps = nt - 1
+    md = sc.mesh_data(1025, nt)
+    out.update({"ms": 1025, "nt": nt, "reassemble_every": every,
+                "dofs": md.number_of_segments})
+    halved, out["halved_first_solve_s"] = sc.timed(
+        lambda: solve_time_varying(p, md, **sc.chunk_kwargs(
+            every // 2, W_ITERS)), md.device)
+    reset_counts()
+    u, secs = sc.timed(lambda: solve_time_varying(
+        p, md, **sc.chunk_kwargs(every, W_ITERS)), md.device)
+    launches = launches_of("B4")
+    b3 = launches_of("B3")
+    out.update({"warm_solve_s": secs, "steps_per_s": n_steps / secs,
+                "b4_launches": launches, "b3_launches": b3,
+                "chunks": n_steps // every})
+    check(b3 > 0, "W1: the interval estimate launched no B3")
+    check(launches == n_steps, f"W1: {launches} B4 launches, not {n_steps}")
+    check(bool(torch.isfinite(u).all()), "W1: the solve is not finite")
+    out["final_max"] = float(u.abs().max())
+    out["rel_l2"] = sc.rel_l2(u[0], md, p)
+    out["halved_chunk_rel_maxdiff"] = rel_max(halved, u)
+    check(out["halved_chunk_rel_maxdiff"] <= W_HALVED_TOL,
+          f"W1: halving reassemble_every moves the answer by "
+          f"{out['halved_chunk_rel_maxdiff']:.3e} > {W_HALVED_TOL}")
+    out["chunk"] = sc.chunk_breakdown(md, p, every, W_ITERS)
+    # One chunk's B4 launch against plain_canvas_step on its stack.
+    dt = float(md.domain.T) / n_steps
+    pattern = stencil.family_pattern(md)
+    t0 = (n_steps // every // 2) * every * dt
+    with torch.no_grad():
+        coeffs, mass, diag = assemble_canvas(md, p, dt, 2,
+                                             coeff_time=t0 + 0.5 * every * dt)
+        perm = torch.as_tensor(pattern.perm.astype("int64"),
+                               device=md.device)
+        mass = torch.where(md.boundary_mask[perm], torch.zeros_like(mass),
+                           mass)
+        C = fused_hbm.canvas_operator(pattern, coeffs, mass, 1.0 / diag,
+                                      torch.float32)
+        cheb = fused_solver.cheb_scalars(
+            fused_hbm.canvas_interval(pattern, coeffs, diag), W_ITERS,
+            torch.float32, md.device)
+        u3 = fused_solver.to_canvases(pattern, u[0][perm])
+        up3 = fused_solver.to_canvases(pattern, halved[0][perm])
+        masks = fused_solver.rect_masks(u3.shape[-1], torch.float32,
+                                        md.device)
+        ref, _ = fused_hbm.plain_canvas_step(C, cheb, W_ITERS, u3, up3, True,
+                                             masks)
+        got, got_up = torch.empty_like(u3), torch.empty_like(u3)
+        halt = torch.tensor(-1, dtype=torch.int32, device=md.device)
+        fused_hbm.canvas_kernel_step(
+            C, cheb, W_ITERS, u3, up3, got, got_up, True,
+            (1, pattern.c, 1, pattern.c), halt,
+            fused_hbm.canvas_plan(W_ITERS, True, torch.float32))
+        torch.cuda.synchronize()
+        abs_e, rel, _ = rel_err(got, ref)
+    out["b4_chunk_step_rel_vs_plain"] = rel
+    check(rel <= TOL["float32"], f"W1: a chunk's B4 step vs plain rel err "
+          f"{rel:.3e}")
+    del md, halved, u, C, u3, up3, ref, got, got_up
+    # 513^2: fused chunks against the scan-Chebyshev chunks, in f32 with
+    # each route's own interval estimate (reported), and in f64 on the
+    # same intervals (gated): in f32, rounding alone moves this row's
+    # answer by ~6e-4 (fused f32 against fused f64, the same intervals).
+    nt5, every5 = W_ROWS[513]
+    md5 = sc.mesh_data(513, nt5)
+    kw5 = sc.chunk_kwargs(every5, W_ITERS)
+    scan_kw = dict(kw5, matvec_impl="scan", solver="chebyshev")
+    fused, s_fused = sc.timed(lambda: solve_time_varying(p, md5, **kw5),
+                              md5.device)
+    scan, s_scan = sc.timed(lambda: solve_time_varying(p, md5, **scan_kw),
+                            md5.device)
+    md64 = sc.mesh_data(513, nt5, dtype=torch.float64)
+    tape = IntervalTape()
+    with tape.record():
+        fused64 = solve_time_varying(p, md64, **kw5)
+    with tape.replay():
+        scan64, s_scan64 = sc.timed(
+            lambda: solve_time_varying(p, md64, **scan_kw), md64.device)
+    out.update({"ms_513_fused_solve_s": s_fused,
+                "ms_513_scan_solve_s": s_scan,
+                "ms_513_scan_f64_solve_s": s_scan64,
+                "ms_513_final_max": float(fused.abs().max()),
+                "ms_513_rel_l2": sc.rel_l2(fused[0], md5, p),
+                "ms_513_fused_vs_scan_own_intervals_rel": rel_max(fused, scan),
+                "ms_513_fused_f32_vs_f64_rel": rel_max(fused.double(),
+                                                       fused64),
+                "ms_513_fused_vs_scan_f64_same_intervals_rel": rel_max(
+                    fused64, scan64)})
+    check(out["ms_513_fused_vs_scan_f64_same_intervals_rel"]
+          <= W_FUSED_VS_SCAN_TOL,
+          f"W1 513^2: fused vs scan-Chebyshev chunks (f64, same intervals) "
+          f"{out['ms_513_fused_vs_scan_f64_same_intervals_rel']:.3e} > "
+          f"{W_FUSED_VS_SCAN_TOL}")
+    del md64, fused64, scan64
+    emit(out)
+    return launches, b3, abs_e, fused, md5
+
+
+class IntervalTape:
+    """The per-chunk Chebyshev intervals of a fused time-varying solve
+    (fused_hbm.canvas_interval), recorded in order, then handed to the
+    scan chunks' loops (run_time_loop's ``bounds``) in the same order: the
+    two routes then run one algorithm on the same intervals, as PERF.md
+    section 2's fused-vs-scan gate compares them (the steady cells share
+    the solver's interval)."""
+
+    def __init__(self):
+        self.bounds = []
+
+    @contextlib.contextmanager
+    def record(self):
+        from airpollution_tpu_torch.ops import fused_hbm
+
+        real = fused_hbm.canvas_interval
+
+        def recorded(*a):
+            self.bounds.append(real(*a))
+            return self.bounds[-1]
+
+        fused_hbm.canvas_interval = recorded
+        try:
+            yield
+        finally:
+            fused_hbm.canvas_interval = real
+
+    @contextlib.contextmanager
+    def replay(self):
+        from airpollution_tpu_torch.models import unsteady
+
+        real = unsteady.run_time_loop
+        taped = iter(self.bounds)
+
+        def replayed(ops, u0, **kw):
+            return real(ops, u0, **dict(kw, bounds=next(taped)))
+
+        unsteady.run_time_loop = replayed
+        try:
+            yield
+        finally:
+            unsteady.run_time_loop = real
+
+
+def phase_w2(fused, md):
+    """W2: W1's 513^2 row on 4 row blocks of one card,
+    solve_time_varying(mesh=...), which is B9 with a stack rebuilt from
+    assemble_canvas at each chunk (coeff_time), against W1's whole-canvas
+    fused chunks (<= 1e-6 of max|u|; bitwise reported)."""
+    import torch
+
+    from airpollution_tpu_torch.models.unsteady import solve_time_varying
+    from airpollution_tpu_torch.parallel import make_mesh
+
+    sc = unsteady_scale()
+    nt, every = W_ROWS[513]
+    n_steps = nt - 1
+    out = {"phase": "w2_time_varying_blocks", "card": card_line(),
+           "ms": 513, "nt": nt, "reassemble_every": every, "k": W_ITERS,
+           "blocks": BLOCK_MESH["mp"]}
+    reset_counts()
+    got, secs = sc.timed(lambda: solve_time_varying(
+        sc.problem(), md, mesh=make_mesh(BLOCK_MESH),
+        **sc.chunk_kwargs(every, W_ITERS)), md.device)
+    launches = launches_of("B9")
+    check(launches == BLOCK_MESH["mp"] * n_steps and launches_of("B4") == 0,
+          f"W2: {launches} B9 launches, not {BLOCK_MESH['mp'] * n_steps}")
+    diff = max_rel(got, fused)
+    out.update({"solve_s": secs, "steps_per_s": n_steps / secs,
+                "b9_launches": launches,
+                "max_block_minus_whole_rel": diff,
+                "bitwise_equal": bool(torch.equal(got, fused))})
+    check(diff <= BLOCK_TOL, f"W2: max|block - whole| {diff:.3e}")
+    emit(out)
+    return launches
+
+
+@contextlib.contextmanager
+def plain_raw_sweeps():
+    """The differentiable fused chunks with their B4-raw sweeps replaced by
+    linalg's plain Chebyshev polynomial on the stencil matvec (forward
+    and transposed): the same chunks, intervals and loop on the plain
+    path."""
+    from airpollution_tpu_torch.ops import fused_hbm
+
+    real = fused_hbm.raw_solve_pair
+    fused_hbm.raw_solve_pair = lambda *a, **k: (None, None)
+    try:
+        yield
+    finally:
+        fused_hbm.raw_solve_pair = real
+
+
+def phase_w3():
+    """W3: the gradient of a misfit through the differentiable fused
+    chunks (B4-raw forward and adjoint) at 257^2, nt=257, a chunk every 16
+    steps (CN, Chebyshev-8, extrapolated, f32): d/d omega_t of
+    sum((u_T - c_obs)^2), c_obs the closed form at T of a turning rate of
+    0.4, at omega_t = 0.5. Held against the same chunks on the plain
+    polynomial (<= 2e-5 relative) and against a central difference of the
+    forward fused chunks (step 3e-3, <= 5e-3); the scan route's gradient
+    (matvec_impl="scan", Chebyshev-8 with its own interval estimate on the
+    ELL operator) is reported beside them. sum(u_T^2) is not the loss:
+    the puff's L2 norm does not change as the wind turns, so its
+    derivative is below float32's resolution and, in float64, dominated
+    by the intervals' dependence on omega_t, which the adjoint holds
+    fixed."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.unsteady import solve_time_varying
+
+    sc = unsteady_scale()
+    md = sc.mesh_data(W3["ms"], W3["nt"])
+    t_col = torch.full((md.number_of_segments, 1), float(md.domain.T),
+                       device=md.device)
+    obs = apt.TurningWindProblem(
+        speed=1.0, omega_t=W3["omega_obs"], D=0.3).analytical_solution(
+            torch.cat([md.midpoints, t_col], dim=1))
+    kw = sc.chunk_kwargs(W3["every"], W_ITERS)
+
+    def loss(u):
+        return torch.sum((u[-1] - obs) ** 2)
+
+    def grad(**extra):
+        om = torch.tensor(W3["omega_t"], device=md.device,
+                          requires_grad=True)
+        p = apt.TurningWindProblem(speed=1.0, omega_t=om, D=0.3)
+        u = solve_time_varying(p, md, differentiable=True,
+                               **dict(kw, **extra))
+        (g,) = torch.autograd.grad(loss(u), om)
+        return float(g)
+
+    out = {"phase": "w3_time_varying_gradient", "card": card_line(),
+           "ms": W3["ms"], "nt": W3["nt"], "reassemble_every": W3["every"],
+           "k": W_ITERS, "omega_t": W3["omega_t"]}
+    reset_counts()
+    g, secs = sc.timed(grad, md.device)
+    launches = launches_of("B4-raw")
+    check(launches > 0, "W3: the fused gradient launched no B4-raw")
+    with plain_raw_sweeps():
+        g_plain = grad()
+    check(launches_of("B4-raw") == launches,
+          "W3: the plain twin launched B4-raw")
+    g_scan = grad(matvec_impl="scan", solver="chebyshev")
+    h = W3["step"]
+
+    def forward(w):
+        with torch.no_grad():
+            return float(loss(solve_time_varying(apt.TurningWindProblem(
+                speed=1.0, omega_t=w, D=0.3), md, **kw)).double())
+
+    fd = (forward(W3["omega_t"] + h) - forward(W3["omega_t"] - h)) / (2 * h)
+    out.update({"grad_fused": g, "grad_plain": g_plain, "grad_scan": g_scan,
+                "central_difference": fd, "fused_gradient_s": secs,
+                "b4_raw_launches": launches,
+                "rel_vs_plain": abs(g - g_plain) / abs(g_plain),
+                "rel_vs_scan_route": abs(g - g_scan) / abs(g_scan),
+                "rel_vs_central_difference": abs(g - fd) / abs(fd)})
+    check(out["rel_vs_plain"] <= 2e-5,
+          f"W3: fused vs plain gradient {out['rel_vs_plain']:.3e} > 2e-5")
+    check(out["rel_vs_central_difference"] <= 5e-3,
+          f"W3: fused gradient vs central difference "
+          f"{out['rel_vs_central_difference']:.3e} > 5e-3")
+    emit(out)
+    return launches
+
+
+def phase_time_varying():
+    """Slice 12: W1, W2 and W3, then their launches on the kernels' paths
+    and the phases' seconds."""
+    t0 = time.perf_counter()
+    b4, b3, b4_err, fused, md = phase_w1()
+    b9 = phase_w2(fused, md)
+    del fused, md
+    raw = phase_w3()
+    emit({"phase": "time_varying", "card": card_line(),
+          "seconds": time.perf_counter() - t0})
+    return {"B4": b4, "B3": b3, "B9": b9, "B4-raw": raw}, b4_err
+
+
 def phase_pinn(domain):
     """Slice 11: the PINN's card-against-CPU check, its widest cell and its
     levers cell, then the pinn line."""
@@ -4245,6 +4583,12 @@ def main() -> int:
     del md_2049
     launches["B9"] = phase_b9_blocks(c1_be, meshes[(257, "float32")],
                                      problems, domain)
+    # Slice 12: time-varying winds, B4, B9 and B4-raw with a fresh stack
+    # per chunk.
+    w_launches, w_b4_err = phase_time_varying()
+    worst["B4"] = max(worst["B4"], w_b4_err)
+    for kid, n in w_launches.items():
+        launches[kid] += n
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -4257,6 +4601,8 @@ def main() -> int:
             "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": by, "library_ms": library,
             **(extra[0] if extra else {}),
+            **({"time_varying_launches": w_launches[kid]}
+               if kid in w_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -214,8 +214,13 @@ def test_canvas_guards():
     u0 = torch.zeros(md.number_of_segments, dtype=torch.float64)
     with pytest.raises(ValueError, match="GlobalOperators"):
         solver(None, u0)
-    with pytest.raises(NotImplementedError, match="coeff_time"):
-        solver(None, u0, coeff_time=0.5)
+    # With coeff_time the stack comes from assemble_canvas, not from ops.
+    from airpollution_tpu_torch.models.crbe import assemble
+
+    ops = assemble(md, _pulse(), 0.1, 1)
+    u0 = _pulse().initial_condition_fn(md.midpoints)
+    assert rel_diff(solver(None, u0, coeff_time=0.5),
+                    solver(ops, u0).numpy()) <= 1e-8
     with pytest.raises(ValueError, match="divisor"):
         build_canvas_hbm_halo_solver(mesh, md, _pulse(), 0.1,
                                      snapshot_every=3)

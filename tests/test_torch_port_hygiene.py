@@ -40,6 +40,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.models.crbe",
     "airpollution_tpu_torch.models.multispecies",
     "airpollution_tpu_torch.models.pinn",
+    "airpollution_tpu_torch.models.unsteady",
     "airpollution_tpu_torch.ops.fused_hbm",
     "airpollution_tpu_torch.ops.fused_solver",
     "airpollution_tpu_torch.ops.fused_stencil",
@@ -73,6 +74,9 @@ def test_port_imports_no_jax():
         import chip_smoke
         import scripts.torch_port_source_inversion
         import scripts.torch_port_pinn_experiments
+        import scripts.torch_port_unsteady_scale
+        import scripts.torch_port_unsteady_wind
+        import scripts.torch_port_unsteady_checks
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu")
                or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
@@ -88,6 +92,9 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "scripts" / "torch_port_production_scenario.py")
     files.append(REPO / "scripts" / "torch_port_source_inversion.py")
     files.append(REPO / "scripts" / "torch_port_pinn_experiments.py")
+    files.append(REPO / "scripts" / "torch_port_unsteady_scale.py")
+    files.append(REPO / "scripts" / "torch_port_unsteady_wind.py")
+    files.append(REPO / "scripts" / "torch_port_unsteady_checks.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -309,7 +316,7 @@ def test_other_entry_points_raise_on_unported_input():
 
     md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
                        device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="coeff_time"):
         crbe.assemble(md, _TimeVarying(), 0.1, 1)
     with pytest.raises(ValueError, match="patch"):
         CRBESolver(tapt.Domain(), tapt.Problem(), md, assembly="patch",

@@ -9,8 +9,6 @@ the others its kernel is replaced, for the test, by the same polynomial
 through jax's linalg.chebyshev (what the kernel is tested against in
 tests/test_fused_adjoint.py), which keeps the suite fast."""
 
-from functools import partial
-
 import numpy as np
 import pytest
 
@@ -20,9 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from airpollution_tpu.diagnostics import inverse as jinv  # noqa: E402
-from airpollution_tpu.ops import linalg as jlinalg  # noqa: E402
 from airpollution_tpu.ops import pallas_hbm as jhbm  # noqa: E402
-from airpollution_tpu.ops import stencil as jstencil  # noqa: E402
 from airpollution_tpu.problems import (  # noqa: E402
     GaussianSourceProblem as JSource,
     Problem as JProblem,
@@ -33,22 +29,9 @@ from airpollution_tpu_torch import interop  # noqa: E402
 from airpollution_tpu_torch.diagnostics import inverse as tinv  # noqa: E402
 from airpollution_tpu_torch.ops import fused_hbm  # noqa: E402
 
-from torch_port_helpers import mesh_pair, rel_diff  # noqa: E402
+from torch_port_helpers import jax_plain_raw, mesh_pair, rel_diff  # noqa: E402
 
 F64 = torch.float64
-
-
-def _jax_plain_raw(pattern, coeffs, inv_diag_fam, b_fam, *, n_iters, bounds,
-                   interpret=False, **_):
-    """The raw_b kernel's polynomial p(A) mask(b) through linalg.chebyshev
-    (interior-rectangle mask: H rows 0 and n-1, V columns 0 and n-1)."""
-    n, c = pattern.n, pattern.c
-    mH = jnp.ones((n, c)).at[0].set(0.0).at[n - 1].set(0.0)
-    mV = jnp.ones((c, n)).at[:, 0].set(0.0).at[:, n - 1].set(0.0)
-    mask = jnp.concatenate([mH.ravel(), mV.ravel(), jnp.ones(c * c)])
-    return jlinalg.chebyshev(
-        partial(jstencil.stencil_matvec, pattern, coeffs), mask * b_fam,
-        bounds=bounds, iters=n_iters, precond=lambda r: inv_diag_fam * r).x
 
 
 def _plume(lib, th):
@@ -87,7 +70,7 @@ def test_solve_primal_and_gradient_match_jax(monkeypatch, pname, engine,
     within 1e-7 of JAX's."""
     if engine == "fused":
         monkeypatch.setattr(jhbm, "chebyshev_apply_canvas_hbm",
-                            _jax_plain_raw)
+                            jax_plain_raw)
     jmd, tmd = mesh_pair(9, nt=9)
     make, theta = PROBLEMS[pname]
     kw = dict(ENGINES[engine], time_scheme_order=order,
@@ -121,7 +104,7 @@ def test_solve_primal_and_gradient_match_jax(monkeypatch, pname, engine,
 def test_u0_gradient_matches_jax(monkeypatch):
     """The gradient in an overriding initial state (the 4D-Var control)
     through the fused engine, against JAX's."""
-    monkeypatch.setattr(jhbm, "chebyshev_apply_canvas_hbm", _jax_plain_raw)
+    monkeypatch.setattr(jhbm, "chebyshev_apply_canvas_hbm", jax_plain_raw)
     jmd, tmd = mesh_pair(9, nt=9)
     u0 = np.random.default_rng(4).standard_normal(jmd.number_of_segments)
     kw = dict(engine="fused_hbm", chebyshev_iters=24)
@@ -147,7 +130,7 @@ def test_fused_engine_keeps_robin_rows(monkeypatch):
     gradient) as on an all-Dirichlet problem. The JAX package's fused
     engine masks with the Dirichlet rectangle and sits ~5e-3 from its scan
     here (a fault of the reference, ROADMAP.md C)."""
-    monkeypatch.setattr(jhbm, "chebyshev_apply_canvas_hbm", _jax_plain_raw)
+    monkeypatch.setattr(jhbm, "chebyshev_apply_canvas_hbm", jax_plain_raw)
     jmd, tmd = mesh_pair(17, nt=17)
     out = {}
     for engine, kw in (("scan", dict(tol=1e-12, maxiter=500)),

@@ -1,6 +1,9 @@
 """Shared set-up of the port's parity tests (tests/test_torch_port_*.py):
-one structured mesh in both packages, and the JAX package's assembled
-operator carried across as numpy arrays."""
+one structured mesh in both packages, the JAX package's assembled
+operator carried across as numpy arrays, and a stand-in for the JAX raw_b
+kernel."""
+
+from functools import partial
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,6 +11,8 @@ import pytest
 import torch
 
 import airpollution_tpu as japt
+from airpollution_tpu.ops import linalg as jlinalg
+from airpollution_tpu.ops import stencil as jstencil
 import airpollution_tpu_torch as tapt
 from airpollution_tpu_torch.interop import operators_from_numpy
 
@@ -33,6 +38,22 @@ def port_operators(jops):
         ka=ell(jops.ka), system=ell(jops.system),
         system_diag=np.asarray(jops.system_diag), device="cpu",
     )
+
+
+def jax_plain_raw(pattern, coeffs, inv_diag_fam, b_fam, *, n_iters, bounds,
+                  interpret=False, **_):
+    """The JAX raw_b kernel's polynomial p(A) mask(b) through
+    linalg.chebyshev (interior-rectangle mask: H rows 0 and n-1, V columns
+    0 and n-1), what that kernel is tested against in
+    tests/test_fused_adjoint.py: a test patches it over
+    ``pallas_hbm.chebyshev_apply_canvas_hbm`` to skip interpret mode."""
+    n, c = pattern.n, pattern.c
+    mH = jnp.ones((n, c)).at[0].set(0.0).at[n - 1].set(0.0)
+    mV = jnp.ones((c, n)).at[:, 0].set(0.0).at[:, n - 1].set(0.0)
+    mask = jnp.concatenate([mH.ravel(), mV.ravel(), jnp.ones(c * c)])
+    return jlinalg.chebyshev(
+        partial(jstencil.stencil_matvec, pattern, coeffs), mask * b_fam,
+        bounds=bounds, iters=n_iters, precond=lambda r: inv_diag_fam * r).x
 
 
 def rel_diff(a, b):
