@@ -11,10 +11,13 @@ transposed one (``"reference"``).
 
 Solve paths (``matvec_impl``):
 
-- ``"ell"`` / ``"stencil"`` / ``"pallas"``: the step loop in Python, each
-  step solved with BiCGStab or Chebyshev on the ELL SpMV, the
-  family-layout stencil, or the stencil as kernel B3
-  (ops/fused_stencil.py). This is the correctness oracle.
+- ``"ell"`` / ``"stencil"`` / ``"pallas"`` / ``"uniform"``: the step loop
+  in Python, each step solved with BiCGStab or Chebyshev on the ELL SpMV,
+  the family-layout stencil, the stencil as kernel B3
+  (ops/fused_stencil.py), or the translation-invariant uniform operator
+  (15 scalars, ops/uniform.py). This is the correctness oracle. On the
+  stencil paths ``preconditioner="spectral"`` preconditions with the
+  inverse FFT symbol of the interior operator (ops/spectral.py).
 - ``"fused"`` / ``"fused_hbm"`` (CRBESolver._fused_plan): on the
   translation-invariant uniform operator, the whole loop in one launch of
   kernel B1 (ops/fused_solver.py; Chebyshev or BiCGStab) while the state
@@ -25,22 +28,29 @@ Solve paths (``matvec_impl``):
   BiCGStab the whole loop in kernel B5 (ops/fused_solver.py). Sources and
   inhomogeneous Robin flux data reach B1, B2 and B4 as load planes
   (ops/loads.py); B5 is zero-source. ``snapshot_every`` runs one kernel
-  sweep per snapshot chunk. ``assembly="patch"`` (and ``"auto"`` past 6M
-  DOFs) takes the uniform routes' 21 scalars from a congruent patch mesh
-  (ops/uniform.patch_constants) and assembles no global operator.
+  sweep per snapshot chunk.
+
+Past :data:`LARGE_MESH_DOFS` edge DOFs on a structured mesh with constant
+coefficients, ``matvec_impl="auto"`` takes the uniform scan route, and
+``assembly="auto"`` on the uniform routes (``"uniform"``, ``"fused"``,
+``"fused_hbm"``) takes the operator's 21 scalars from a congruent patch
+mesh (ops/uniform.patch_constants), assembling no global operator. At
+that size a float32 BiCGStab solve goes through the large-mesh policy
+(CRBESolver._apply_large_mesh_solver_policy): Chebyshev with an
+iteration count from the measured convergence factor, or a tolerance
+floored at float32's rounding level.
 
 A ``time_varying`` problem is refused here: models/unsteady solves it in
 chunks, each assembled at its midpoint (``assemble(..., coeff_time=)``, or
 the canvas operator straight from the local matrices,
 :func:`assemble_canvas`).
 
-Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
-solver that this package does not have yet raise ``NotImplementedError``
-instead of taking another path.
+Everything runs on ``device`` (default: the CUDA card).
 """
 
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from functools import partial
@@ -64,6 +74,12 @@ from airpollution_tpu_torch.problems import (
     robin_g_xy_provided,
 )
 
+#: Edge DOFs past which ``matvec_impl="auto"`` takes the uniform operator
+#: and ``assembly="auto"`` the patch scalars (global assembly of a 2049^2
+#: mesh exhausted a 24 GB accelerator in the JAX package), and past which
+#: a float32 BiCGStab solve goes through the large-mesh policy.
+LARGE_MESH_DOFS = 6_000_000
+
 
 class ElementCR:
     """The Crouzeix-Raviart reference element (analytic constants): shape
@@ -77,6 +93,11 @@ class ElementCR:
     def get_shape_functions(self, local_coords):
         x, y = local_coords
         return np.array([-1 + 2 * (x + y), 1 - 2 * x, 1 - 2 * y])
+
+    def get_jacobian(self):
+        """The per-triangle Jacobians live in :func:`local_matrices`; the
+        reference's method is an empty stub."""
+        return None
 
     def get_shape_function_derivatives(self):
         return np.array([[2.0, 2.0], [-2.0, 0.0], [0.0, -2.0]])
@@ -716,19 +737,12 @@ class CRBESolver:
             and preconditioner != "spectral"
             and getattr(mesh_data, "structured_n", None) is not None
             and mesh_data.structured_n >= 3
-            and mesh_data.number_of_segments > 6_000_000
+            and mesh_data.number_of_segments > LARGE_MESH_DOFS
         ):
-            # The JAX solver routes 'auto' to the uniform operator here.
+            # Global assembly would not fit at this size; on a structured
+            # mesh with constant coefficients the uniform operator is
+            # exact, and patch assembly takes its scalars.
             matvec_impl = "uniform"
-        if matvec_impl == "uniform":
-            raise NotImplementedError(
-                "matvec_impl='uniform' is not ported yet; use 'stencil', "
-                "'pallas', 'ell', 'fused' or 'fused_hbm'"
-            )
-        if preconditioner == "spectral":
-            raise NotImplementedError(
-                "preconditioner='spectral' is not ported yet"
-            )
         self.domain = domain
         self.problem = problem
         self.mesh_data = mesh_data
@@ -757,6 +771,7 @@ class CRBESolver:
         self._ops = None
         self._pattern = None
         self._patch_cache = None
+        self._large_mesh_policy_applied = False
         self._reset_operator_state()
         self._use_patch()  # refuse an invalid assembly now
         if fused:
@@ -802,16 +817,41 @@ class CRBESolver:
             self.build_global_matrices()
         return self._ops
 
+    @property
+    def global_mass_diag(self):
+        return self._require_ops().mass_diag
+
+    @property
+    def global_stiffness(self):
+        return self._require_ops().stiffness
+
+    @property
+    def global_advection(self):
+        return self._require_ops().advection
+
     # --- time stepping ---
 
     def set_initial_condition(self):
         """IC sampled at edge midpoints (crbe.py:364-365)."""
         return self.problem.initial_condition_fn(self.mesh_data.midpoints)
 
+    def boundary_values(self, t):
+        """The dense boundary-lift vector at time ``t`` (crbe.py:367-379):
+        the exact boundary data on Dirichlet DOFs, zero elsewhere (Robin
+        DOFs are unknowns and take no lift)."""
+        md = self.mesh_data
+        t_col = torch.full((md.midpoints.shape[0], 1), float(t),
+                           dtype=md.midpoints.dtype, device=self.device)
+        vals = self.problem.boundary_fn(torch.cat([md.midpoints, t_col],
+                                                  dim=1))
+        dmask = robin_terms(md, self.problem)[0]
+        return torch.where(dmask, vals, torch.zeros_like(vals))
+
     def _use_stencil(self) -> bool:
         if self.matvec_impl == "ell":
             return False
-        if self.matvec_impl in ("stencil", "pallas", "fused", "fused_hbm"):
+        if self.matvec_impl in ("stencil", "uniform", "pallas", "fused",
+                                "fused_hbm"):
             if self.mesh_data.structured_n is None:
                 raise ValueError("stencil matvec requires a structured mesh "
                                  "(create_mesh-produced)")
@@ -826,28 +866,32 @@ class CRBESolver:
     def _use_patch(self) -> bool:
         """Patch assembly: the uniform operator's scalars from a congruent
         patch mesh (ops/uniform.patch_constants) instead of the assembled
-        global operator. Needs the fused uniform routes (B1, B2); chosen by
-        ``assembly="auto"`` past 6M DOFs, where global assembly would not
-        fit the card. Raises ValueError for ``assembly="patch"`` on any
-        other route."""
+        global operator. Needs a uniform route ('uniform', or 'fused' /
+        'fused_hbm' on the uniform operator) and a non-spectral
+        preconditioner (the spectral one reads the assembled operator);
+        chosen by ``assembly="auto"`` past :data:`LARGE_MESH_DOFS`, where
+        global assembly would not fit the card. Raises ValueError for
+        ``assembly="patch"`` on any other route."""
         if self.assembly == "full":
             return False
         md = self.mesh_data
-        eligible = (self.matvec_impl in ("fused", "fused_hbm")
+        eligible = (self.matvec_impl in ("uniform", "fused", "fused_hbm")
                     and md.structured_n is not None and md.structured_n >= 3
-                    and self.fused_operator != "canvas"
                     and self.preconditioner != "spectral"
                     and not self._variable_coefficients
                     and not self._robin and not self._obstacles)
+        if self.matvec_impl in ("fused", "fused_hbm"):
+            eligible = eligible and self.fused_operator != "canvas"
         if self.assembly == "patch":
             if not eligible:
                 raise ValueError(
-                    "assembly='patch' requires a structured mesh and the "
-                    "fused uniform operator (matvec_impl='fused' or "
-                    "'fused_hbm', fused_operator != 'canvas', constant "
-                    "coefficients, no Robin walls or obstacles)")
+                    "assembly='patch' requires a structured mesh, the "
+                    "uniform operator (matvec_impl='uniform', 'fused' or "
+                    "'fused_hbm'; fused also needs fused_operator != "
+                    "'canvas'; constant coefficients, no Robin walls or "
+                    "obstacles) and a non-spectral preconditioner")
             return True
-        return eligible and md.number_of_segments > 6_000_000
+        return eligible and md.number_of_segments > LARGE_MESH_DOFS
 
     def _patch_pieces(self):
         """``(spec_lite, sys_consts, ka_consts, mass_c, sys_diag_c)`` of the
@@ -890,6 +934,10 @@ class CRBESolver:
             bounds=self._fixed_bounds,
         )
         if self.matvec_impl in ("fused", "fused_hbm"):
+            if self.preconditioner == "spectral":
+                raise ValueError(
+                    "the fused kernels precondition with Jacobi; use "
+                    "matvec_impl='stencil' for the spectral preconditioner")
             return self._build_fused_fn(store_solutions, collect_iters)
 
         k_snap = self.snapshot_every
@@ -904,6 +952,11 @@ class CRBESolver:
             return sols[::k_snap] if stride else sols
 
         if not self._use_stencil():
+            if self.preconditioner == "spectral":
+                raise ValueError(
+                    "the spectral preconditioner requires the structured "
+                    "stencil path (matvec_impl='stencil')")
+
             def solve_ell(ops, u0):
                 sols, iters = run_time_loop(ops, u0, mesh_data=self.mesh_data,
                                             **base)
@@ -911,34 +964,85 @@ class CRBESolver:
 
             return solve_ell
 
-        # Stencil path: the whole loop in family layout, permuted back.
-        pattern = self._stencil_pattern()
+        # Stencil paths: the whole loop in family layout, permuted back.
+        md = self.mesh_data
+        patch = self._use_patch()
+        pattern = None if patch else self._stencil_pattern()
         perm, inv = self._family_perm_tensors()
-        _, dead = obstacle_masks(self.mesh_data, self.problem)
-        fam_view = stencil_mod.family_view(self.mesh_data, pattern.perm,
-                                           dead)
-        kernel = self.matvec_impl == "pallas"
-        if kernel:
-            from airpollution_tpu_torch.ops import fused_stencil
+        _, dead = obstacle_masks(md, self.problem)
+        fam_view = stencil_mod.family_view(
+            md, stencil_mod.get_family_perm(md)[0], dead)
+        if self.matvec_impl == "uniform":
+            family_ops = self._uniform_family_ops(pattern, perm)
+            if self.solver_method == "chebyshev" and self._fixed_bounds is None:
+                # The interval the applicability check estimated on this
+                # same operator (the loop would estimate it again).
+                base["bounds"] = self._cheb_bounds
+        else:
+            kernel = self.matvec_impl == "pallas"
+            if kernel:
+                from airpollution_tpu_torch.ops import fused_stencil
 
-            if not fused_stencil.fits_vmem(pattern):
-                raise ValueError(
-                    "mesh too large for matvec_impl='pallas' (kernel B3 "
-                    "keeps the JAX package's VMEM budget); use "
-                    "matvec_impl='stencil'"
-                )
+                if not fused_stencil.fits_vmem(pattern):
+                    raise ValueError(
+                        "mesh too large for matvec_impl='pallas' (kernel B3 "
+                        "keeps the JAX package's VMEM budget); use "
+                        "matvec_impl='stencil'"
+                    )
+
+            def family_ops(ops):
+                return stencil_mod.family_operators(
+                    pattern, ops, self.time_scheme_order, kernel)
 
         def solve_stencil(ops, u0):
-            ops_fam, matvec, ka_matvec = stencil_mod.family_operators(
-                pattern, ops, self.time_scheme_order, kernel
-            )
+            ops_fam, matvec, ka_matvec = family_ops(ops)
+            precond = None
+            if self.preconditioner == "spectral":
+                from airpollution_tpu_torch.ops import spectral
+
+                precond = spectral.spectral_preconditioner(
+                    pattern, stencil_mod.extract_coefficients(
+                        pattern, ops.system.vals))
             sols_fam, iters = run_time_loop(
                 ops_fam, u0[perm], mesh_data=fam_view, matvec=matvec,
-                ka_matvec=ka_matvec, **base,
+                ka_matvec=ka_matvec, precond=precond, **base,
             )
             return stride_rows(sols_fam)[:, inv], iters, None
 
         return solve_stencil
+
+    def _uniform_family_ops(self, pattern, perm):
+        """``ops -> (ops_fam, matvec, ka_matvec)`` of the uniform scan route:
+        from the assembled operator's 15 scalars, or with patch assembly
+        (``pattern`` None) from the patch scalars alone, with the mass and
+        diagonal vectors made from their 3 family constants and no global
+        operator (``ops`` is None). Dirichlet rows of those vectors are
+        read only after the loop's row masking."""
+        if pattern is not None:
+            spec = uniform_mod.build_uniform_spec(pattern)
+
+            def family_ops(ops):
+                return uniform_mod.uniform_family_operators(
+                    spec, pattern, ops, self.time_scheme_order)
+
+            return family_ops
+        spec, sys_c, ka_c, mass_c, diag_c = self._patch_pieces()
+        bmask_fam = self.mesh_data.boundary_mask[perm]
+
+        def family_ops(_ops):
+            matvec = linalg.BoundMatvec(
+                lambda x, c: uniform_mod.uniform_matvec(spec, c, x), sys_c)
+            ka_matvec = (partial(uniform_mod.uniform_matvec, spec, ka_c,
+                                 boundary="drop")
+                         if self.time_scheme_order == 2 else None)
+            ops_fam = GlobalOperators(
+                mass_diag=uniform_mod.family_const_vector(spec, mass_c),
+                stiffness=None, advection=None, ka=None, system=None,
+                system_diag=uniform_mod.family_diag_vector(spec, diag_c,
+                                                           bmask_fam))
+            return ops_fam, matvec, ka_matvec
+
+        return family_ops
 
     def _fused_plan(self, method=None):
         """``(uniform, kernel)`` of the fused route for ``method`` (default
@@ -1168,10 +1272,10 @@ class CRBESolver:
             matvec = partial(uniform_mod.uniform_matvec, spec, consts)
             scale = 1.0 / torch.sqrt(diag)
             example = torch.zeros_like(diag)
-        elif (self.matvec_impl in ("fused", "fused_hbm")
+        elif (self.matvec_impl in ("uniform", "fused", "fused_hbm")
                 and not self._variable_coefficients
                 and not self._robin and not self._obstacles
-                and md.structured_n >= 3):
+                and self._use_stencil() and md.structured_n >= 3):
             # Family-layout uniform matvec: the same spectrum (similarity
             # by permutation) at a fraction of the ELL gather's cost.
             pattern = self._stencil_pattern()
@@ -1275,16 +1379,81 @@ class CRBESolver:
         )
         self.solver_method = "bicgstab"
 
+    def _apply_large_mesh_solver_policy(self, ops):
+        """Past :data:`LARGE_MESH_DOFS`, once per solver, a float32
+        BiCGStab solve gets a configuration that can finish: its relative
+        residual target ``tol |b|`` is out of float32's reach at that size,
+        so BiCGStab would run ``solver_maxiter`` iterations every step.
+
+        - If the Chebyshev applicability check passes, switch to Chebyshev
+          with k = min(24, max(chebyshev_iters, ceil(log 1e-4 / log
+          factor))) iterations: a 1e-4 residual reduction per step, far
+          below the discretisation error at these sizes.
+        - Else keep BiCGStab and floor the tolerance at float32's rounding
+          level ``sqrt(N) eps / 4``.
+
+        A float64 solve can reach tight tolerances and is left as it is."""
+        if self.mesh_data.midpoints.dtype != torch.float32:
+            return
+        n = self.mesh_data.number_of_segments
+        try:
+            self._check_chebyshev_applicable(ops, warn=False)
+            factor = self._cheb_factor
+        except (ValueError, RuntimeError):
+            factor = 1.0  # no estimate: keep BiCGStab, floor its tolerance
+        if factor < linalg.CHEBYSHEV_FACTOR_GATE:
+            k = int(min(24.0, max(
+                self.chebyshev_iters,
+                math.ceil(math.log(1e-4) / math.log(max(factor, 1e-6))),
+            )))
+            warnings.warn(
+                f"auto-switching solver_method to 'chebyshev' "
+                f"(chebyshev_iters={k}) at {n} DOFs: BiCGStab's float32 "
+                f"residual tolerance {self.solver_tol:g} is unreachable "
+                f"at this size, and the Chebyshev convergence factor "
+                f"{factor:.3f} passes the applicability check. "
+                f"Construct the solver with solver_method='chebyshev' "
+                f"(or a larger solver_tol) to silence this.",
+                stacklevel=3,
+            )
+            self.solver_method = "chebyshev"
+            self.chebyshev_iters = k
+        else:
+            floor = math.sqrt(n) * float(np.finfo(np.float32).eps) / 4
+            if self.solver_tol < floor:
+                warnings.warn(
+                    f"raising solver_tol {self.solver_tol:g} -> {floor:.2e} "
+                    f"at {n} DOFs: the float32 residual target is "
+                    f"unreachable below ~sqrt(N)*eps and BiCGStab would "
+                    f"burn maxiter every step (Chebyshev fallback not "
+                    f"applicable: convergence factor {factor:.3f}).",
+                    stacklevel=3,
+                )
+                self.solver_tol = floor
+
+    def _large_mesh_policy_due(self) -> bool:
+        return (self.solver_method == "bicgstab"
+                and self.mesh_data.number_of_segments > LARGE_MESH_DOFS
+                and not self._large_mesh_policy_applied)
+
     def solve(self, store_solutions: bool = True, collect_iters: bool = False):
         """Run the full time horizon; returns (nt, n_seg) solutions (or the
         (1, n_seg) final state when ``store_solutions=False``)."""
         ops = None if self._use_patch() else self._require_ops()
+        if self._large_mesh_policy_due():
+            self._large_mesh_policy_applied = True
+            self._apply_large_mesh_solver_policy(ops)
         if self.solver_method == "chebyshev":
             reroute = self.chebyshev_policy == "reroute"
             self._check_chebyshev_applicable(ops, warn=not reroute)
             if reroute:
                 if not self._cheb_factor < linalg.CHEBYSHEV_FACTOR_GATE:
                     self._reroute_divergent_chebyshev()
+                    # Rerouted to BiCGStab: at the large-mesh size its
+                    # float32 tolerance floor still applies.
+                    if self._large_mesh_policy_due():
+                        self._large_mesh_policy_applied = True
+                        self._apply_large_mesh_solver_policy(ops)
                 elif not self._cheb_warn_evaluated:
                     self._cheb_warn_evaluated = True
                     self._warn_cheb_factor()

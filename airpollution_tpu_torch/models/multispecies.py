@@ -23,8 +23,9 @@ Routes (``MultiSpeciesSolver``):
 - ``splitting="commute"`` (what 'auto' picks for shared transport and no
   sources, where it is exact): K single-species ``CRBESolver`` solves on
   one assembly, then the ``expm(-R t)`` mixture of their rows.
-- Strang on ``matvec_impl="ell"`` / ``"stencil"``: the loop of
-  :func:`run_multispecies_loop` in Python.
+- Strang on ``matvec_impl="ell"`` / ``"stencil"`` / ``"uniform"``: the
+  loop of :func:`run_multispecies_loop` in Python, on the ELL operator,
+  the family-layout stencil or the 15-scalar uniform operator.
 - Strang on ``matvec_impl="fused_hbm"``: one launch of kernel B6 per step
   (``ops/fused_hbm.fused_multispecies_canvas_hbm``), or K launches of B4
   with ``fuse_chemistry=False``; emission loads built in torch.
@@ -52,6 +53,7 @@ from airpollution_tpu_torch.models.crbe import (CRBESolver, GlobalOperators,
                                                 robin_terms)
 from airpollution_tpu_torch.ops import fused_hbm, linalg, sparse
 from airpollution_tpu_torch.ops import stencil as stencil_mod
+from airpollution_tpu_torch.ops import uniform as uniform_mod
 from airpollution_tpu_torch.problems import expm64, mix_species
 
 __all__ = ["MultiSpeciesSolver", "run_multispecies_loop", "stack_operators"]
@@ -331,11 +333,6 @@ class MultiSpeciesSolver:
         ):
             raise ValueError("snapshot_every must be a positive divisor "
                              "of nt-1")
-        if matvec_impl == "uniform":
-            raise NotImplementedError(
-                "matvec_impl='uniform' is not ported yet; use 'stencil', "
-                "'ell' or 'fused_hbm'"
-            )
         self.snapshot_every = snapshot_every
         self.chebyshev_policy = chebyshev_policy
         self.fuse_chemistry = fuse_chemistry
@@ -564,15 +561,24 @@ class MultiSpeciesSolver:
 
             return solve_ell
 
-        # Family-layout stencil (shared transport): the (K, N) state is
-        # permuted into family order once per solve.
+        # Family-layout stencil or uniform operator (shared transport):
+        # the (K, N) state is permuted into family order once per solve.
         pattern = stencil_mod.get_pattern(md)
         perm, inv = self._perm_tensors(pattern)
         fam_view = stencil_mod.family_view(md, pattern.perm)
+        if self.matvec_impl == "uniform":
+            spec = uniform_mod.build_uniform_spec(pattern)
+
+            def family_ops(ops):
+                return uniform_mod.uniform_family_operators(
+                    spec, pattern, ops, self.time_scheme_order)
+        else:
+            def family_ops(ops):
+                return stencil_mod.family_operators(
+                    pattern, ops, self.time_scheme_order)
 
         def solve_stencil(ops, C0):
-            ops_fam, matvec, ka_matvec = stencil_mod.family_operators(
-                pattern, ops, self.time_scheme_order)
+            ops_fam, matvec, ka_matvec = family_ops(ops)
             sols_fam = run_multispecies_loop(
                 ops_fam, C0[:, perm], mesh_data=fam_view, matvec=matvec,
                 ka_matvec=ka_matvec, **base)[0]

@@ -2,9 +2,10 @@
 of ``airpollution_tpu/ops/linalg.py``.
 
 ``matvec`` is a closure (ELL SpMV or the family-layout stencils), or a
-:class:`BoundMatvec` that names the tensors it is built from. BiCGStab
-stops on the residual norm, which it reads on the host once per iteration;
-Chebyshev runs a fixed number of iterations with no inner products. The
+:class:`BoundMatvec` that names the tensors it is built from. BiCGStab and
+CG stop on the residual norm, which they read on the host once per
+iteration, restarted GMRES once per cycle; Chebyshev runs a fixed number
+of iterations with no inner products. The
 transposes that the spectral estimates and the adjoint solves need come
 from the vector-Jacobian product of the linear map (a backward pass
 through one recorded application), which for a linear map is exactly
@@ -33,6 +34,97 @@ class SolveResult(NamedTuple):
 
 def _identity(x):
     return x
+
+
+def cg(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    precond: Optional[Callable] = None,
+) -> SolveResult:
+    """Preconditioned conjugate gradient for SPD systems; stops when
+    ``||r|| <= max(tol ||b||, atol)`` or after ``maxiter`` iterations."""
+    M = precond or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = max(tol * float(torch.linalg.norm(b)), atol)
+    r = b - matvec(x)
+    z = M(r)
+    p = z
+    rz = torch.dot(r, z)
+    k = 0
+    while k < maxiter and float(torch.linalg.norm(r)) > target:
+        Ap = matvec(p)
+        alpha = rz / torch.dot(p, Ap)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = M(r)
+        rz_new = torch.dot(r, z)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        k += 1
+    return SolveResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))
+
+
+def gmres(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    restart: int = 20,
+    maxiter: int = 50,
+    precond: Optional[Callable] = None,
+) -> SolveResult:
+    """Restarted GMRES(m), right-preconditioned, as the JAX version: each
+    cycle builds a ``restart``-vector Arnoldi basis (Gram-Schmidt against
+    the whole basis, division guards instead of early exits) and solves
+    the small Hessenberg least-squares problem by its regularised normal
+    equations. ``maxiter`` counts restart cycles; the stopping test is the
+    true residual ``||b - A x|| <= max(tol ||b||, atol)``."""
+    M = precond or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    n = b.shape[0]
+    m = restart
+    target = max(tol * float(torch.linalg.norm(b)), atol)
+    eps = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+
+    def guard(a):
+        return torch.where(a == 0, eps, a)
+
+    rows = torch.arange(m + 1, device=b.device)
+
+    def cycle(x):
+        r = b - matvec(x)
+        beta = torch.linalg.norm(r)
+        V = torch.zeros((m + 1, n), dtype=b.dtype, device=b.device)
+        V[0] = r / guard(beta)
+        H = torch.zeros((m + 1, m), dtype=b.dtype, device=b.device)
+        for j in range(m):
+            w = matvec(M(V[j]))
+            h = torch.where(rows <= j, V @ w, 0.0)
+            w = w - h @ V
+            hnorm = torch.linalg.norm(w)
+            h[j + 1] = hnorm
+            H[:, j] = h
+            V[j + 1] = w / guard(hnorm)
+        e1 = torch.zeros(m + 1, dtype=b.dtype, device=b.device)
+        e1[0] = beta
+        A_small = H.T @ H + 1e-30 * torch.eye(m, dtype=b.dtype,
+                                              device=b.device)
+        y = torch.linalg.solve(A_small, H.T @ e1)
+        return x + M(y @ V[:m])
+
+    k = 0
+    while k < maxiter and float(torch.linalg.norm(b - matvec(x))) > target:
+        x = cycle(x)
+        k += 1
+    return SolveResult(x=x, iterations=k,
+                       residual_norm=torch.linalg.norm(b - matvec(x)))
 
 
 def bicgstab(

@@ -164,7 +164,8 @@ def uniform_matvec(spec: UniformSpec, consts, x_fam, *,
 
     ``boundary="identity"``: y = x on Dirichlet rows (the row-masked
     system). ``boundary="drop"``: y = 0 there (the unmasked K+A of the
-    Crank-Nicolson RHS, whose boundary rows the loop discards).
+    Crank-Nicolson RHS, whose boundary rows the loop discards). ``x_fam``
+    is (N,) or (..., N), e.g. one row per species.
     """
     if boundary not in ("identity", "drop"):
         raise ValueError(f"unknown boundary mode {boundary!r}")
@@ -183,7 +184,9 @@ def uniform_matvec(spec: UniformSpec, consts, x_fam, *,
     else:
         yH = torch.where(h_bnd, torch.zeros_like(yH), yH)
         yV = torch.where(v_bnd, torch.zeros_like(yV), yV)
-    return torch.cat([yH.reshape(-1), yV.reshape(-1), yD.reshape(-1)])
+    lead = tuple(x_fam.shape[:-1])
+    return torch.cat([yH.reshape(lead + (-1,)), yV.reshape(lead + (-1,)),
+                      yD.reshape(lead + (-1,))], dim=-1)
 
 
 def uniform_family_operators(spec: UniformSpec, pattern: StencilPattern,

@@ -95,11 +95,24 @@ Phases, each printing one JSON line:
     W3, a misfit's gradient in the turning rate through the
     differentiable fused chunks (B4-raw) at 257^2 against the plain
     polynomial (<= 2e-5) and a central difference (<= 5e-3);
-14. the PINN (slice 11), then the kernels line (launches on each path,
+14. slice 13, the command line (``airpollution_tpu_torch.cli``, run in
+    this process through ``cli.main``): X1, ``solve --mesh_size 2049 --nt
+    1001`` with the parser's defaults ('auto' -> the uniform scan route
+    with patch assembly -> the large-mesh policy), its route, steps/s,
+    rel_l2 and seconds to the first step, no kernel launched; the fused
+    route at the same size and k on B2 (|delta rel_l2| <= 5e-4), and at
+    513^2 in f64 on one shared interval (<= 1e-10 of max|u|); X2,
+    BiCGStab with the spectral preconditioner against Jacobi at 1025^2
+    (iterations per step, steps/s; <= 1e-5 of max|u|); X3, ``solve`` BE
+    and CN with saved fields, ``invert`` and ``fit-source`` on them,
+    ``multispecies`` on the uniform route against B6, ``solve
+    --matvec_impl fused`` on B1, and ``pinn`` with checkpoints;
+15. the PINN (slice 11), then the kernels line (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
-    paths apart as ``time_varying_launches``).
+    paths apart as ``time_varying_launches``, for B1, B2 and B6 those of
+    slice 13's as ``cli_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1067,11 +1080,11 @@ def phase_robin_obstacle(md, md65, problem, domain):
     ref.solve(store_solutions=False)
     out.update({"b3_launches": b3, "b3_max_pallas_minus_stencil":
                 max_diff(pal, ref)})
-    # C3b's speed: warm solves of each (the first ones above built the
+    # C3b's speed: a warm solve of each (the first ones above built the
     # operators and warmed every kernel).
     for tag, solver in (("pallas", pal), ("stencil", ref)):
         rates(out, f"b3_{tag}_", md65.nt - 1,
-              timed_solves(solver, 2, warm_up=False))
+              timed_solves(solver, 1, warm_up=False))
     check(b3 > 0, "C3b: the scan path did not launch kernel B3")
     check(out["b3_max_pallas_minus_stencil"] <= 1e-4,
           f"C3b: max|pallas - stencil| "
@@ -3029,7 +3042,7 @@ def phase_u1(md, domain):
         s = cheb if tag == "chebyshev_be" else CRBESolver(
             domain, problem, md, matvec_impl="auto", **kw)
         reset_counts()
-        times = timed_solves(s, 2, warm_up=False)
+        times = timed_solves(s, 1, warm_up=False)
         check(s.solver_method == kw.get("solver_method", "bicgstab"),
               f"U1 {tag}: rerouted to {s.solver_method}")
         launches = launches_of("B7a")
@@ -4442,6 +4455,319 @@ def phase_time_varying():
     return {"B4": b4, "B3": b3, "B9": b9, "B4-raw": raw}, b4_err
 
 
+# Slice 13: the command line and the routes it exposes.
+X1 = dict(mesh_size=2049, nt=1001)
+X1_F64_MS = 513
+X1_F64_NT = 201  # the f64 comparison's horizon (1001 cost ~18 s more)
+X1_F64_TOL = 1e-10  # fused against scan, f64, one shared interval
+X1_REL_L2_TOL = 5e-4  # |delta rel_l2| at 2049^2, f32, each its own interval
+X2_TOL = 1e-5  # spectral against Jacobi, of max|u|
+X2_SOLVER_TOL = 1e-9
+X2_MAXITER = 50
+X2_NT = 201
+X3_MS_TOL = 1e-4  # multispecies uniform against fused_hbm: final masses
+# The inverse subcommands cost ~0.4 s per Adam step and 8 time steps on
+# the card (host-bound eager autograd), so X3 fits with fewer steps than
+# the JAX package's tests/test_cli.py, under its gates: invert from its
+# D0 in 30 steps (60 there); fit-source on a 9-step trajectory (17
+# there) from a start nearer the emitter (q0 1, (0, 0) there) in 50
+# steps (500 there).
+X3_INVERT = ["--steps", 30, "--lr", 0.3]
+X3_FIT_SOURCE = ["--sensors", 40, "--steps", 50, "--lr", 0.15, "--q0", 1.5,
+                 "--xy0", -3.0, 2.0]
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` in this process: (its return value, its JSON line,
+    wall seconds). The line is also printed, as the command prints it."""
+    import io
+
+    from airpollution_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = cli.main([str(a) for a in argv])
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    return result, json.loads(text.strip().splitlines()[-1]), wall
+
+
+def phase_x1_default_route(domain):
+    """X1: ``python -m airpollution_tpu_torch solve --mesh_size 2049 --nt
+    1001`` with the parser's defaults, through ``cli.main``: 'auto' ->
+    the uniform scan route with patch assembly -> BiCGStab -> the
+    large-mesh policy (float32). Its route, steps/s, rel_l2 and the
+    seconds outside the timed solve (mesh set-up, patch scalars, the
+    interval; and the error norms after it); no kernel launches on that
+    route. Then the fused route at the same size and k (fused_hbm,
+    Chebyshev, kernel B2) on its own interval and on the scan's, and at
+    513^2 in float64 (nt=X1_F64_NT) the fused route against the uniform
+    scan on one shared interval. Returns B2's launches."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    t0 = time.perf_counter()
+    reset_counts()
+    scan, line, wall = run_cli(["solve", "--mesh_size", X1["mesh_size"],
+                                "--nt", X1["nt"]])
+    scan_launches = {kid: launches_of(kid) for kid in KERNELS}
+    check(not any(scan_launches.values()),
+          f"X1: the uniform scan route launched kernels {scan_launches}")
+    md = scan.mesh_data
+    n_steps = md.nt - 1
+    cheb = scan.solver_method == "chebyshev"
+    out = {"phase": "x1_default_route_2049", "card": card_line(),
+           "argv": f"solve --mesh_size {X1['mesh_size']} --nt {X1['nt']}",
+           "dofs": md.number_of_segments, "nt": md.nt,
+           "matvec_impl": scan.matvec_impl,
+           "assembly": "patch" if scan._use_patch() else "full",
+           "solver_method": scan.solver_method,
+           "chebyshev_iters": scan.chebyshev_iters if cheb else None,
+           "solver_tol": scan.solver_tol,
+           "cheb_factor": getattr(scan, "_cheb_factor", None),
+           "cheb_bounds": list(scan._cheb_bounds) if cheb else None,
+           "policy_applied": scan._large_mesh_policy_applied,
+           "steps_per_s": n_steps / scan.solve_time,
+           "solve_s": scan.solve_time, "rel_l2": line["rel_l2"],
+           "seconds_to_first_step": wall - scan.solve_time}
+    check(scan.matvec_impl == "uniform" and scan._use_patch()
+          and scan._large_mesh_policy_applied,
+          f"X1: 'auto' took {scan.matvec_impl}, patch {scan._use_patch()}, "
+          f"policy {scan._large_mesh_policy_applied}")
+    u_scan = scan.solutions[-1]
+    check(bool(torch.isfinite(u_scan).all()), "X1: non-finite scan state")
+    k = scan.chebyshev_iters if cheb else B8_ITERS
+    problem = scan.problem
+    b2 = 0
+    for tag, bounds in (("own", None), ("shared", scan._cheb_bounds)):
+        if tag == "shared" and (bounds is None or tuple(bounds) == tuple(
+                out["fused_own_cheb_bounds"])):
+            # The fused route estimated the scan's interval bit for bit:
+            # its own run is the shared-interval run.
+            out["shared_is_own"] = bounds is not None
+            for key in ("max_abs_diff", "max_rel_diff"):
+                out[f"fused_shared_{key}"] = out[f"fused_own_{key}"]
+            continue
+        fused = CRBESolver(domain, problem, md, matvec_impl="fused_hbm",
+                           solver_method="chebyshev", chebyshev_iters=k,
+                           cheb_bounds=bounds)
+        reset_counts()
+        fused.solve(store_solutions=False)
+        b2 += launches_of("B2")
+        check(fused.fused_kernel == "B2" and launches_of("B2") == n_steps,
+              f"X1 fused {tag}: {launches_of('B2')} B2 launches")
+        u = fused.solutions[-1]
+        rel = fused.compute_errors(problem.analytical_solution)[0]
+        out.update({
+            f"fused_{tag}_rel_l2": rel,
+            f"fused_{tag}_steps_per_s": n_steps / fused.solve_time,
+            f"fused_{tag}_max_abs_diff": float((u - u_scan).abs().max()),
+            f"fused_{tag}_max_rel_diff": max_rel(u, u_scan)})
+        if tag == "own":
+            out["fused_own_cheb_bounds"] = list(fused._cheb_bounds)
+            out["delta_rel_l2"] = abs(rel - line["rel_l2"])
+        del fused, u
+    del scan, u_scan, md
+    # 513^2, float64: fused (B2) against the uniform scan, one interval.
+    md64 = apt.MeshData(apt.create_mesh(X1_F64_MS, 20.0), domain,
+                        nt=X1_F64_NT, dtype=torch.float64)
+    ref = CRBESolver(domain, problem, md64, matvec_impl="uniform",
+                     solver_method="chebyshev", chebyshev_iters=k)
+    ref.solve(store_solutions=False)
+    fused = CRBESolver(domain, problem, md64, matvec_impl="fused_hbm",
+                       solver_method="chebyshev", chebyshev_iters=k,
+                       cheb_bounds=ref._cheb_bounds)
+    fused.set_operators(ref._ops)
+    reset_counts()
+    fused.solve(store_solutions=False)
+    b2 += launches_of("B2")
+    out["f64_513_max_rel_diff"] = max_rel(fused.solutions[-1],
+                                          ref.solutions[-1])
+    out["f64_513_k"] = k
+    out["f64_513_nt"] = X1_F64_NT
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    check(out["delta_rel_l2"] <= X1_REL_L2_TOL,
+          f"X1: |rel_l2 fused - scan| {out['delta_rel_l2']:.3e} at 2049^2")
+    check(out["f64_513_max_rel_diff"] <= X1_F64_TOL,
+          f"X1: f64 513^2 fused vs scan {out['f64_513_max_rel_diff']:.3e}")
+    return b2
+
+
+def phase_x2_spectral(domain):
+    """X2: BiCGStab with the spectral preconditioner against Jacobi at
+    1025^2 (full assembly, the stencil scan path, nt=X2_NT, maxiter
+    X2_MAXITER) in float64 at solver_tol X2_SOLVER_TOL, so that the
+    solver's tolerance, summed over the steps, stays under the gate: the
+    two answers within X2_TOL of max|u|; iterations per step and steps/s
+    of each."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+
+    t0 = time.perf_counter()
+    md = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=X2_NT,
+                      dtype=torch.float64)
+    problem = apt.Problem(sigma=1.0)
+    out = {"phase": "x2_spectral_1025", "card": card_line(), "ms": 1025,
+           "nt": md.nt, "dofs": md.number_of_segments, "dtype": "float64",
+           "solver_tol": X2_SOLVER_TOL}
+    ops, states = None, {}
+    for pc in ("jacobi", "spectral"):
+        s = CRBESolver(domain, problem, md, matvec_impl="stencil",
+                       preconditioner=pc, solver_tol=X2_SOLVER_TOL,
+                       solver_maxiter=X2_MAXITER)
+        if ops is None:
+            ops = s.build_global_matrices()
+        else:
+            s.set_operators(ops)
+        reset_counts()
+        s.solve(store_solutions=False, collect_iters=True)
+        check(not any(launches_of(kid) for kid in KERNELS),
+              f"X2 {pc}: the stencil scan launched a kernel")
+        its = s.solver_iterations
+        states[pc] = s.solutions[-1]
+        out.update({f"{pc}_mean_iters": statistics.fmean(its),
+                    f"{pc}_max_iters": max(its),
+                    f"{pc}_steps_per_s": (md.nt - 1) / s.solve_time})
+        check(bool(torch.isfinite(states[pc]).all()), f"X2 {pc}: non-finite")
+    out["max_rel_diff"] = max_rel(states["spectral"], states["jacobi"])
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    check(out["max_rel_diff"] <= X2_TOL,
+          f"X2: spectral vs Jacobi {out['max_rel_diff']:.3e} of max|u|")
+
+
+def phase_x3_cli():
+    """X3: the command line end to end, small: ``solve`` BE with --save
+    and CN with --save_all, a sourced strided trajectory, ``invert`` and
+    ``fit-source`` on the saved fields (recovery gates of the JAX
+    package's tests/test_cli.py), ``multispecies --matvec_impl uniform``
+    against ``--matvec_impl fused_hbm`` (Strang, Chebyshev, kernel B6),
+    and ``pinn --epochs 200 --checkpoint_dir``; ``solve --matvec_impl
+    fused`` at 65^2 (kernel B1). The line is printed before its gates are
+    read. Returns {kernel id: launches} (B1, B6)."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    out = {"phase": "x3_cli", "card": card_line()}
+    gates = []
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = Path(tmp)
+        _, be, _ = run_cli(["solve", "--mesh_size", 8, "--nt", 8, "--D",
+                            0.3, "--save", tmp / "obs.npz"])
+        _, cn, _ = run_cli(["solve", "--mesh_size", 6, "--nt", 5, "--order",
+                            2, "--extrapolate", "--save", tmp / "f.npz",
+                            "--save_all"])
+        rows = np.load(tmp / "f.npz")
+        out.update({"solve_be_rel_l2": be["rel_l2"],
+                    "solve_cn_rel_l2": cn["rel_l2"],
+                    "solve_cn_rows": rows["solutions"].shape[0]})
+        gates.append((math.isfinite(be["rel_l2"])
+                      and math.isfinite(cn["rel_l2"])
+                      and rows["solutions"].shape[0] == 5 and "times" in rows,
+                      "X3: solve BE/CN lines or the saved trajectory"))
+        reset_counts()
+        fused, fline, _ = run_cli(["solve", "--mesh_size", 65, "--nt", 65,
+                                   "--matvec_impl", "fused",
+                                   "--solver_method", "chebyshev",
+                                   "--extrapolate"])
+        b1 = launches_of("B1")
+        out.update({"solve_fused_kernel": fused.fused_kernel,
+                    "solve_fused_b1_launches": b1,
+                    "solve_fused_rel_l2": fline["rel_l2"]})
+        gates.append((fused.fused_kernel == "B1" and b1 == 1
+                      and math.isfinite(fline["rel_l2"]),
+                      f"X3: solve --matvec_impl fused took "
+                      f"{fused.fused_kernel} with {b1} B1 launches"))
+        _, inv, wall = run_cli(["invert", "--mesh_size", 8, "--nt", 8,
+                                "--observed", tmp / "obs.npz", "--D0", 0.08]
+                               + X3_INVERT)
+        out.update({"invert_D_est": inv["D_est"], "invert_s": wall})
+        gates.append((abs(inv["D_est"] - 0.3) / 0.3 < 0.15
+                      and inv["misfit_last"] < inv["misfit_first"],
+                      f"X3: invert recovered D {inv['D_est']}, not 0.3"))
+        _, src, _ = run_cli(["solve", "--problem", "gaussian_source", "--q",
+                             2.0, "--xs", -4.0, "--ys", 2.5, "--sigma_s",
+                             2.0, "--mesh_size", 16, "--nt", 9,
+                             "--snapshot_every", 2, "--save",
+                             tmp / "src.npz", "--save_all"])
+        gates.append((src["rel_l2"] is None
+                      and np.load(tmp / "src.npz")["solutions"].shape[0] == 5,
+                      "X3: the sourced strided trajectory"))
+        _, fit, wall = run_cli(["fit-source", "--observed", tmp / "src.npz",
+                                "--mesh_size", 16, "--nt", 9, "--sigma_s",
+                                2.0] + X3_FIT_SOURCE)
+        out.update({"fit_source_q": fit["q"], "fit_source_xs": fit["xs"],
+                    "fit_source_ys": fit["ys"], "fit_source_s": wall})
+        gates.append((fit["n_snapshots"] == 4 and fit["n_sensors"] == 40
+                      and abs(fit["q"] - 2.0) / 2.0 < 0.1
+                      and abs(fit["xs"] + 4.0) < 0.3
+                      and abs(fit["ys"] - 2.5) < 0.3
+                      and fit["misfit_last"] < fit["misfit_first"] * 1e-2,
+                      f"X3: fit-source recovered {fit}"))
+        chem = ["multispecies", "--mesh_size", 65, "--nt", 65,
+                "--splitting", "strang", "--solver_method", "chebyshev",
+                "--source_q", 2.0]
+        reset_counts()
+        uni, uline, _ = run_cli(chem + ["--matvec_impl", "uniform"])
+        gates.append((not any(launches_of(kid) for kid in KERNELS),
+                      "X3: multispecies uniform launched a kernel"))
+        reset_counts()
+        fus, fline, _ = run_cli(chem + ["--matvec_impl", "fused_hbm"])
+        b6 = launches_of("B6")
+        gates.append((b6 == 64, f"X3: {b6} B6 launches for 64 steps"))
+        mass_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(uline["final_masses"], fline["final_masses"]))
+        out.update({"multispecies_mass_rel_diff": mass_rel,
+                    "multispecies_max_rel_diff": max_rel(
+                        uni.solutions[-1], fus.solutions[-1]),
+                    "multispecies_b6_launches": b6,
+                    "multispecies_uniform_steps_per_s":
+                        uline["steps_per_sec"],
+                    "multispecies_fused_steps_per_s": fline["steps_per_sec"]})
+        gates.append((mass_rel <= X3_MS_TOL,
+                      f"X3: multispecies masses uniform vs fused "
+                      f"{mass_rel:.3e}"))
+        _, pinn, _ = run_cli(["pinn", "--mesh_size", 16, "--nt", 16,
+                              "--epochs", 200, "--checkpoint_dir",
+                              tmp / "ck"])
+        out.update({"pinn_final_loss": pinn["final_loss"],
+                    "pinn_epochs_run": pinn["epochs_run"],
+                    "pinn_train_time_s": pinn["train_time_s"]})
+        gates.append((pinn["epochs_run"] == 200
+                      and math.isfinite(pinn["final_loss"])
+                      and (tmp / "ck" / "pinn_latest.npz").exists(),
+                      "X3: pinn epochs, loss or checkpoint"))
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for cond, msg in gates:
+        check(cond, msg)
+    return {"B1": b1, "B6": b6}
+
+
+def phase_cli(domain):
+    """Slice 13: X1-X3, then the cli line. Returns {kernel id: launches}
+    of the new phases' fused routes (B2 in X1, B1 and B6 in X3)."""
+    t0 = time.perf_counter()
+    launches = {"B2": phase_x1_default_route(domain)}
+    phase_x2_spectral(domain)
+    launches.update(phase_x3_cli())
+    emit({"phase": "cli", "card": card_line(),
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def phase_pinn(domain):
     """Slice 11: the PINN's card-against-CPU check, its widest cell and its
     levers cell, then the pinn line."""
@@ -4589,6 +4915,11 @@ def main() -> int:
     worst["B4"] = max(worst["B4"], w_b4_err)
     for kid, n in w_launches.items():
         launches[kid] += n
+    # Slice 13: the command line, the uniform scan route at 2049^2 and
+    # the spectral preconditioner.
+    cli_launches = phase_cli(domain)
+    for kid, n in cli_launches.items():
+        launches[kid] += n
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -4603,6 +4934,8 @@ def main() -> int:
             **(extra[0] if extra else {}),
             **({"time_varying_launches": w_launches[kid]}
                if kid in w_launches else {}),
+            **({"cli_launches": cli_launches[kid]}
+               if kid in cli_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

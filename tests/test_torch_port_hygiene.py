@@ -24,6 +24,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "airpollution_tpu_torch",
     "airpollution_tpu_torch._build",
+    "airpollution_tpu_torch.cli",
     "airpollution_tpu_torch.device",
     "airpollution_tpu_torch.diagnostics",
     "airpollution_tpu_torch.diagnostics.inverse",
@@ -52,6 +53,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.ops.loads",
     "airpollution_tpu_torch.ops.sampling",
     "airpollution_tpu_torch.ops.sparse",
+    "airpollution_tpu_torch.ops.spectral",
     "airpollution_tpu_torch.ops.stencil",
     "airpollution_tpu_torch.ops.uniform",
     "airpollution_tpu_torch.parallel",
@@ -77,6 +79,7 @@ def test_port_imports_no_jax():
         import scripts.torch_port_unsteady_scale
         import scripts.torch_port_unsteady_wind
         import scripts.torch_port_unsteady_checks
+        import scripts.torch_port_large_mesh_policy
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu")
                or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
@@ -95,6 +98,7 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "scripts" / "torch_port_unsteady_scale.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_wind.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_checks.py")
+    files.append(REPO / "scripts" / "torch_port_large_mesh_policy.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -141,6 +145,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tapt.MultiSpeciesSolver(tapt.Domain(), chem, md, device="meta")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tapt.PINN([3, 4, 1], tapt.Problem(), tapt.Domain())
+
+
+def test_command_line_raises_without_cuda(tmp_path):
+    """``python -m airpollution_tpu_torch`` takes the card unless
+    APT_PLATFORM=cpu is set, and with no card raises instead of falling
+    back to the CPU."""
+    env = {k: v for k, v in os.environ.items() if k != "APT_PLATFORM"}
+    env.update(CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    cmd = [sys.executable, "-m", "airpollution_tpu_torch", "solve",
+           "--mesh_size", "5", "--nt", "3"]
+    out = subprocess.run(cmd, cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+    assert not out.stdout.strip()
+    out = subprocess.run(cmd, cwd=tmp_path, env=dict(env, APT_PLATFORM="cpu"),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert '"method": "crbe"' in out.stdout.strip().splitlines()[-1]
 
 
 def test_pinn_unported_methods_raise():
@@ -227,12 +249,9 @@ FUSED_CHEB = dict(matvec_impl="fused", solver_method="chebyshev")
      ValueError),
     (dict(problem=_TimeVarying()), ValueError),
     (dict(assembly="patch", matvec_impl="stencil"), ValueError),
-    (dict(preconditioner="spectral", matvec_impl="stencil"),
-     NotImplementedError),
-    (dict(matvec_impl="uniform"), NotImplementedError),
 ], ids=["fused_hbm-bicgstab", "canvas-bicgstab-sourced",
         "robin_g_xy-bicgstab", "variable-uniform-operator", "time-varying",
-        "patch", "spectral", "uniform"])
+        "patch"])
 def test_out_of_scope_options_raise(kw, exc):
     with pytest.raises(exc):
         _unported(**kw)
@@ -275,10 +294,12 @@ def _emitter():
     (dict(assembly="patch", **FUSED_CHEB), "B1"),
     (dict(assembly="patch", matvec_impl="fused_hbm",
           solver_method="chebyshev"), "B2"),
+    (dict(preconditioner="spectral", matvec_impl="stencil"), None),
+    (dict(matvec_impl="uniform"), None),
 ], ids=["canvas", "robin", "obstacles", "variable-coefficients", "pallas",
         "assemble-robin", "fused-bicgstab", "fused-sourced",
         "fused_hbm-sourced", "robin_g_xy-fused", "snapshot_every",
-        "patch-fused", "patch-fused_hbm"])
+        "patch-fused", "patch-fused_hbm", "spectral", "uniform"])
 def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
     from airpollution_tpu_torch.models import crbe
 
@@ -303,8 +324,14 @@ def test_ported_options_solve_on_the_plain_kernels(monkeypatch, kw, kernel):
     n_rows = (s.mesh_data.nt - 1) // s.snapshot_every + 1 if store else 1
     assert out.shape == (n_rows, s.mesh_data.number_of_segments)
     assert bool(torch.isfinite(out).all())
-    assert getattr(s, "fused_kernel", "B3") == kernel
-    assert plain[kernel], f"the plain version of {kernel} was not used"
+    if kernel is None:
+        # Plain array code on its route: no fused plan, no kernel B1-B5.
+        assert not hasattr(s, "fused_kernel")
+        assert not any(plain[k] for k in ("B1", "B1-BiCGStab", "B2", "B4",
+                                          "B5"))
+    else:
+        assert getattr(s, "fused_kernel", "B3") == kernel
+        assert plain[kernel], f"the plain version of {kernel} was not used"
     assert all(k.launches == 0 for k in (
         fused_stencil.KERNEL, fused_solver.KERNEL, fused_solver.LOAD_KERNEL,
         fused_solver.BICGSTAB_KERNEL, fused_solver.CANVAS_KERNEL,
@@ -368,8 +395,14 @@ def test_multispecies_cpu_tensors_take_the_plain_kernels(monkeypatch, fuse,
 def test_multispecies_unported_options_raise():
     from airpollution_tpu_torch.models import multispecies
 
-    with pytest.raises(NotImplementedError):
-        _multispecies(matvec_impl="uniform")
+    # matvec_impl="uniform" is ported: the Strang loop on the 15-scalar
+    # operator gives the stencil loop's answer.
+    got = _multispecies(matvec_impl="uniform", splitting="strang",
+                        solver_tol=1e-12).solve(store_solutions=False)
+    want = _multispecies(matvec_impl="stencil", splitting="strang",
+                         solver_tol=1e-12).solve(store_solutions=False)
+    assert float((got - want).abs().max()) <= 1e-10 * float(
+        want.abs().max())
     # The commute route rides the port's CRBESolver and its snapshot_every.
     s = _multispecies(_chemistry(sourced=False), snapshot_every=4)
     assert s.splitting == "commute"

@@ -102,3 +102,77 @@ def test_divergence_helpers_match_jax():
             assert got == want, (ref, scale)
     msg = t_linalg.divergence_message("CRBESolver fused solve", 64, 1000, 4)
     assert "step ~64/1000" in msg and "chebyshev_iters=4" in msg
+
+
+def _random_spd(n, rng):
+    A = rng.normal(size=(n, n))
+    return A @ A.T + n * np.eye(n)
+
+
+def _dense_system(kind):
+    """The dense systems of tests/test_linalg.py: an SPD matrix (cg) and a
+    diagonally dominant nonsymmetric one (gmres), with their RHS."""
+    if kind == "spd":
+        rng = np.random.default_rng(0)
+        A = _random_spd(40, rng)
+    else:
+        rng = np.random.default_rng(5)
+        A = rng.normal(size=(50, 50)) * 0.1 + np.diag(rng.uniform(2, 3, 50))
+    return A, rng.normal(size=A.shape[0])
+
+
+@pytest.mark.parametrize("kw", [dict(tol=1e-12), dict(tol=1e-14, maxiter=3),
+                                dict(tol=1e-12, precond=True)],
+                         ids=["converged", "maxiter", "jacobi"])
+def test_cg_matches_jax(kw):
+    A, b = _dense_system("spd")
+    kw = dict(kw)
+    jpc = tpc = None
+    if kw.pop("precond", False):
+        jpc = j_linalg.jacobi_preconditioner(jnp.asarray(np.diag(A)))
+        tpc = t_linalg.jacobi_preconditioner(torch.tensor(np.diag(A)))
+    j = j_linalg.cg(lambda x: jnp.asarray(A) @ x, jnp.asarray(b),
+                    precond=jpc, **kw)
+    t = t_linalg.cg(lambda x: torch.tensor(A) @ x, torch.tensor(b),
+                    precond=tpc, **kw)
+    assert t.iterations == int(j.iterations)
+    assert rel_diff(t.x, j.x) <= TOL
+    if "maxiter" in kw:
+        assert t.iterations == kw["maxiter"]
+    else:
+        np.testing.assert_allclose(t.x.numpy(), np.linalg.solve(A, b),
+                                   rtol=1e-8)
+
+
+@pytest.mark.parametrize("kw", [dict(tol=1e-10, restart=25, maxiter=20),
+                                dict(tol=1e-14, restart=6, maxiter=2)],
+                         ids=["converged", "maxiter"])
+def test_gmres_matches_jax(kw):
+    A, b = _dense_system("nonsymmetric")
+    j = j_linalg.gmres(lambda x: jnp.asarray(A) @ x, jnp.asarray(b),
+                       precond=j_linalg.jacobi_preconditioner(
+                           jnp.asarray(np.diag(A))), **kw)
+    t = t_linalg.gmres(lambda x: torch.tensor(A) @ x, torch.tensor(b),
+                       precond=t_linalg.jacobi_preconditioner(
+                           torch.tensor(np.diag(A))), **kw)
+    assert t.iterations == int(j.iterations)
+    assert rel_diff(t.x, j.x) <= TOL
+    assert float(t.residual_norm) == pytest.approx(float(j.residual_norm),
+                                                   rel=1e-6, abs=1e-14)
+
+
+def test_gmres_inside_fem_step_matches_jax(operator):
+    """GMRES on the masked CRBE system of the shared operator, against the
+    JAX GMRES and the port's BiCGStab."""
+    jops, tops, b = operator
+    jmv, tmv, _, _ = _pieces(jops, tops)
+    kw = dict(tol=1e-11, restart=30, maxiter=30)
+    j = j_linalg.gmres(jmv, jnp.asarray(b), precond=j_linalg.
+                       jacobi_preconditioner(jops.system_diag), **kw)
+    t = t_linalg.gmres(tmv, torch.tensor(b), precond=t_linalg.
+                       jacobi_preconditioner(tops.system_diag), **kw)
+    assert rel_diff(t.x, j.x) <= TOL
+    ref = t_linalg.bicgstab(tmv, torch.tensor(b), tol=1e-12,
+                            precond=t_linalg.jacobi_preconditioner(
+                                tops.system_diag))
+    assert rel_diff(t.x, ref.x.numpy()) <= 1e-8
