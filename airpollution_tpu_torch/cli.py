@@ -11,10 +11,13 @@ subcommands, arguments, defaults and JSON lines.
 - ``invert``: recover the diffusion coefficient from a field saved by
   ``solve --save``.
 - ``fit-source``: locate and size an emitter from a saved trajectory.
+- ``fit-ic``: 4D-Var, the full initial field from a saved trajectory.
+- ``fit-deposition`` / ``fit-exchange``: wall deposition velocities, or
+  (v_d, c_comp) pairs, from a trajectory saved by ``solve --robin``.
 
-``fit-ic``, ``ensemble``, ``fit-deposition``, ``fit-exchange`` and ``fno``
-parse as in the JAX package and raise ``NotImplementedError``: their
-modules are not ported yet (``ROADMAP.md`` A6, A7, A8).
+``ensemble`` and ``fno`` parse as in the JAX package and raise
+``NotImplementedError``: their modules are not ported yet (``ROADMAP.md``
+A7, A8).
 
 Everything runs on the CUDA card, and raises without one; with
 ``APT_PLATFORM=cpu`` in the environment it runs on the CPU.
@@ -408,8 +411,6 @@ def cmd_fit_source(args):
     """Emission-source identification from a saved observation
     trajectory: the command-line face of diagnostics.inverse.fit_source
     (scripts/torch_port_source_inversion.py is the scripted run)."""
-    import numpy as np
-
     from airpollution_tpu_torch.diagnostics import inverse
     from airpollution_tpu_torch.io.checkpoint import load_field
 
@@ -424,12 +425,7 @@ def cmd_fit_source(args):
         raise SystemExit("observed .npz carries no times array")
     obs, idx = _trajectory_rows(domain, args, observed, times,
                                 "fit-source")
-    sensors = None
-    if args.sensors and args.sensors < md.number_of_segments:
-        rng = np.random.default_rng(args.sensor_seed)
-        sensors = np.sort(rng.choice(md.number_of_segments, args.sensors,
-                                     replace=False))
-        obs = obs[:, sensors]
+    sensors, obs = _sensor_rows(args, md, obs)
     result, losses = inverse.fit_source(
         obs, md, snapshot_indices=idx, sensor_indices=sensors,
         v=tuple(args.v), D=args.D, sigma_s=args.sigma_s, q0=args.q0,
@@ -446,17 +442,131 @@ def cmd_fit_source(args):
     }))
 
 
+def _sensor_rows(args, md, obs):
+    """``(sensors, obs)``: ``--sensors`` random stations drawn from the DOF
+    midpoints (numpy's generator on ``--sensor_seed``, as the JAX CLI
+    draws them) and the observed columns there; all DOFs for 0."""
+    import numpy as np
+
+    if args.sensors and args.sensors < md.number_of_segments:
+        rng = np.random.default_rng(args.sensor_seed)
+        sensors = np.sort(rng.choice(md.number_of_segments, args.sensors,
+                                     replace=False))
+        return sensors, obs[:, sensors]
+    return None, obs
+
+
+def _robin_trajectory(args, cmd):
+    """Domain, the CLI problem with ``--robin``'s walls, mesh data and the
+    observed rows of a saved trajectory, for fit-deposition and
+    fit-exchange."""
+    from airpollution_tpu_torch.io.checkpoint import load_field
+
+    domain, problem = _domain_problem(args)
+    if not args.robin:
+        raise SystemExit(f"{cmd} needs --robin side=...,side=... naming "
+                         "the walls to estimate")
+    problem.robin_sides = _parse_robin(args.robin)
+    md = _mesh_data(args, domain)
+    observed, times = load_field(args.observed)
+    if observed.ndim != 2 or times is None:
+        raise SystemExit(
+            f"{cmd} needs a trajectory .npz with times "
+            "(solve --robin ... --save --save_all)"
+        )
+    obs, idx = _trajectory_rows(domain, args, observed, times, cmd)
+    return problem, md, obs, idx
+
+
+def cmd_fit_ic(args):
+    """4D-Var initial-condition estimation from a saved observation
+    trajectory: the command-line face of
+    diagnostics.inverse.fit_initial_condition (transport from the problem
+    flags; the control is the full initial field)."""
+    import torch
+
+    from airpollution_tpu_torch.diagnostics import inverse
+    from airpollution_tpu_torch.io.checkpoint import load_field, save_field
+
+    domain, problem = _domain_problem(args)
+    md = _mesh_data(args, domain)
+    observed, times = load_field(args.observed)
+    if observed.ndim != 2 or times is None:
+        raise SystemExit(
+            "fit-ic needs a trajectory .npz with times "
+            "(solve --save --save_all)"
+        )
+    # _trajectory_rows drops the t=0 row: observing u0 directly would
+    # make the fit a copy instead of a deconvolution.
+    obs, idx = _trajectory_rows(domain, args, observed, times, "fit-ic")
+    sensors, obs = _sensor_rows(args, md, obs)
+    u0_est, losses = inverse.fit_initial_condition(
+        obs, md, problem, snapshot_indices=idx, sensor_indices=sensors,
+        steps=args.steps, lr=args.lr, smoothness=args.smoothness,
+        nonnegative=args.nonnegative,
+    )
+    out = {
+        "method": "fit_ic", "n_dofs": int(md.number_of_segments),
+        "n_sensors": int(len(sensors)) if sensors is not None
+        else int(md.number_of_segments),
+        "n_snapshots": len(idx), "smoothness": args.smoothness,
+        "misfit_first": float(losses[0]), "misfit_last": float(losses[-1]),
+        "steps": args.steps,
+    }
+    u0_true = problem.initial_condition_fn(md.midpoints)
+    out["rel_l2_vs_problem_ic"] = float(
+        torch.linalg.norm(u0_est - u0_true) / torch.linalg.norm(u0_true))
+    if args.save:
+        save_field(args.save, u0_est)
+        print(f"saved recovered initial field to {args.save}",
+              file=sys.stderr)
+    print(json.dumps(out))
+
+
+def cmd_fit_deposition(args):
+    """Deposition-velocity estimation from a saved trajectory: the
+    command-line face of diagnostics.inverse.fit_deposition."""
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    problem, md, obs, idx = _robin_trajectory(args, "fit-deposition")
+    alphas, losses = inverse.fit_deposition(
+        obs, md, problem, alpha0=args.alpha0, snapshot_indices=idx,
+        steps=args.steps, lr=args.lr,
+    )
+    print(json.dumps({
+        "method": "fit_deposition", "alphas": alphas,
+        "n_snapshots": len(idx),
+        "misfit_first": float(losses[0]), "misfit_last": float(losses[-1]),
+        "steps": args.steps,
+    }))
+
+
+def cmd_fit_exchange(args):
+    """Joint (v_d, c_comp) surface-exchange estimation from a saved
+    trajectory: the command-line face of
+    diagnostics.inverse.fit_surface_exchange."""
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    problem, md, obs, idx = _robin_trajectory(args, "fit-exchange")
+    out, losses = inverse.fit_surface_exchange(
+        obs, md, problem, alpha0=args.alpha0, c_comp0=args.c_comp0,
+        snapshot_indices=idx, steps=args.steps, lr=args.lr,
+    )
+    print(json.dumps({
+        "method": "fit_surface_exchange",
+        "exchange": {s: {"v_d": v, "c_comp": c}
+                     for s, (v, c) in out.items()},
+        "n_snapshots": len(idx),
+        "misfit_first": float(losses[0]), "misfit_last": float(losses[-1]),
+        "steps": args.steps,
+    }))
+
+
 #: Subcommands whose modules are not ported yet, with the ROADMAP.md item
 #: that ports each.
 UNPORTED = {
-    "fit-ic": ("diagnostics.inverse.fit_initial_condition",
-               "A6 (items 14-16)"),
     "ensemble": ("diagnostics.ensemble.ensemble_forecast and "
                  "place_sensors", "A7 (item 17)"),
-    "fit-deposition": ("diagnostics.inverse.fit_deposition",
-                       "A6 (items 14-16)"),
-    "fit-exchange": ("diagnostics.inverse.fit_surface_exchange",
-                     "A6 (items 14-16)"),
     "fno": ("models/fno.py", "A8 (item 18)"),
 }
 
@@ -701,7 +811,7 @@ def build_parser():
                     help="softplus reparameterization of the field")
     sp.add_argument("--save", default="",
                     help="save the recovered initial field to .npz")
-    sp.set_defaults(fn=cmd_unported)
+    sp.set_defaults(fn=cmd_fit_ic)
 
     sp = sub.add_parser(
         "fit-deposition",
@@ -718,7 +828,7 @@ def build_parser():
     sp.add_argument("--alpha0", type=float, default=0.1)
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--lr", type=float, default=0.05)
-    sp.set_defaults(fn=cmd_unported)
+    sp.set_defaults(fn=cmd_fit_deposition)
 
     sp = sub.add_parser(
         "fit-exchange",
@@ -736,7 +846,7 @@ def build_parser():
     sp.add_argument("--c_comp0", type=float, default=0.0)
     sp.add_argument("--steps", type=int, default=200)
     sp.add_argument("--lr", type=float, default=0.05)
-    sp.set_defaults(fn=cmd_unported)
+    sp.set_defaults(fn=cmd_fit_exchange)
     return p
 
 

@@ -398,6 +398,28 @@ def assemble_canvas(mesh_data, problem, dt: float, time_scheme_order: int,
     return tuple(out), mass_fam, system_diag_fam
 
 
+#: Tensors a differentiable step keeps for its backward, in vectors of the
+#: state's size: at most 47 (a rotating wind's per-DOF operator under the
+#: gradient, CN, fused engine; measured with
+#: torch.autograd.graph.saved_tensors_hooks at 33^2), rounded up.
+STEP_SAVED_VECTORS = 64
+
+
+def checkpoint_steps(n_steps: int, state: torch.Tensor) -> bool:
+    """Whether a differentiable loop checkpoints each of its ``n_steps``
+    steps (keeping one state a step and re-running the step in the
+    backward) instead of keeping every step's saved tensors: always on
+    the CPU; on the card when ``n_steps`` steps of
+    :data:`STEP_SAVED_VECTORS` vectors of ``state``'s size would take more
+    than half its free memory. The gradient is the same either way, bit
+    for bit: the re-run computes what the first run computed."""
+    if state.device.type != "cuda":
+        return True
+    free, _ = torch.cuda.mem_get_info(state.device)
+    need = n_steps * STEP_SAVED_VECTORS * state.numel() * state.element_size()
+    return need > free // 2
+
+
 def _ell_matvec(A):
     """The ELL SpMV on ``A``'s pattern as a :class:`linalg.BoundMatvec`
     body."""
@@ -412,7 +434,8 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
                   extrapolate_warm_start=False, precond=None,
                   solver="bicgstab", chebyshev_iters=8,
                   source_quadrature="mass_lumped", t0=0.0, bounds=None,
-                  cheb_solve_impl=None, cheb_transpose_solve_impl=None):
+                  robin_g_const=None, cheb_solve_impl=None,
+                  cheb_transpose_solve_impl=None):
     """The implicit time-stepping loop (crbe.py:383-433 semantics).
 
     Each step forms the RHS, masks Dirichlet rows, and solves the fixed
@@ -420,7 +443,10 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     with ``extrapolate_warm_start``). Boundary values are added to the
     output only. Robin DOFs are unknowns (their ``alpha |e|`` term is in
     the operator) and take the ``g |e|`` load; obstacle dead DOFs join the
-    masked set with a zero lift and a zero initial value. ``mesh_data``
+    masked set with a zero lift and a zero initial value.
+    ``robin_g_const``: per-side g values (tensors, say) overriding
+    ``problem.robin_g`` in that load (the surface-exchange fit
+    differentiates through them, diagnostics/inverse). ``mesh_data``
     may be a family-layout view (stencil.FamilyView). ``bounds``: the
     Chebyshev interval; estimated with power_bounds when None. Returns
     ``(solutions, iterations)``.
@@ -434,12 +460,13 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     in b). ``matvec`` must then be a linalg.BoundMatvec (the default ELL
     one is), since the operator's gradient comes from its tensors; the
     Chebyshev interval and the preconditioner carry no gradient (JAX's
-    ``stop_gradient``). Each step is checkpointed
-    (``torch.utils.checkpoint``, non-reentrant) while grad mode is on, so
-    the reverse pass keeps one state per step and re-runs each step once;
-    torch's checkpoint does not take forward-mode AD, so forward-mode
-    callers run under ``torch.no_grad()`` (posterior_covariance does), where
-    no checkpoint is made. ``cheb_solve_impl`` /
+    ``stop_gradient``). While grad mode is on, each step is checkpointed
+    (``torch.utils.checkpoint``, non-reentrant) where
+    :func:`checkpoint_steps` says so, so that the reverse pass keeps one
+    state per step and re-runs each step once; torch's checkpoint does not
+    take forward-mode AD, so forward-mode callers run under
+    ``torch.no_grad()`` (posterior_covariance does), where no checkpoint
+    is made. ``cheb_solve_impl`` /
     ``cheb_transpose_solve_impl``: optional ``(rhs, bounds=) -> x`` fused
     replacements of the primal and adjoint Chebyshev sweeps (kernel B4's
     raw mode, diagnostics/inverse._solve); they must apply the same
@@ -468,7 +495,10 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
             # One-point edge quadrature: g(mid_e, t) |e| on Robin DOFs.
             load = torch.zeros_like(lengths)
             for side in robin_items:
-                g = problem.robin_g(midpoints, t, side)
+                if robin_g_const is not None and side in robin_g_const:
+                    g = robin_g_const[side]
+                else:
+                    g = problem.robin_g(midpoints, t, side)
                 load = load + torch.where(side_masks[side], lengths * g, 0.0)
             return load
 
@@ -560,7 +590,8 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
         u_new, its = solve(b, torch.where(bmask, zero, guess))
         return u_new, (u_new + lift_at(t) if store_solutions else None), its
 
-    checkpointed = differentiable and torch.is_grad_enabled()
+    checkpointed = (differentiable and torch.is_grad_enabled()
+                    and checkpoint_steps(nt - 1, u0))
     u, u_prev = u0, u0
     snaps = [u0] if store_solutions else None
     iters = [] if collect_iters else None

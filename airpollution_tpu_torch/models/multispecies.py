@@ -32,8 +32,10 @@ Routes (``MultiSpeciesSolver``):
 
 Boundary semantics follow the single-species loop: the loop evolves the
 homogeneous state and the Dirichlet lift is added to stored rows only.
-Everything runs on ``device`` (default: the CUDA card). Parts of the JAX
-solver this package does not have yet raise ``NotImplementedError``.
+Everything runs on ``device`` (default: the CUDA card).
+:func:`run_multispecies_loop` with ``differentiable=True`` and a traced
+``R`` is the loop under diagnostics/inverse.solve_multispecies_snapshots
+and fit_chemistry.
 """
 
 from __future__ import annotations
@@ -45,12 +47,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from airpollution_tpu_torch.device import resolve_device
 from airpollution_tpu_torch.mesh.data import structured_grid
 from airpollution_tpu_torch.models.crbe import (CRBESolver, GlobalOperators,
-                                                assemble, obstacle_masks,
-                                                robin_terms)
+                                                _ell_matvec, assemble,
+                                                checkpoint_steps,
+                                                obstacle_masks, robin_terms)
 from airpollution_tpu_torch.ops import fused_hbm, linalg, sparse
 from airpollution_tpu_torch.ops import stencil as stencil_mod
 from airpollution_tpu_torch.ops import uniform as uniform_mod
@@ -74,12 +78,13 @@ def half_step_exponential(R, dt) -> torch.Tensor:
     return expm64(-(0.5 * dt) * torch.as_tensor(R, dtype=torch.float64))
 
 
-def make_species_lift(problem, midpoints, bmask, dead=None):
+def make_species_lift(problem, midpoints, bmask, dead=None, R=None):
     """``lift(t)``: the (K, N) boundary values at time t on the masked DOFs
     ``bmask``, 0 inside and on the obstacle dead DOFs ``dead`` (pinned to 0
-    inside the solid, never lifted)."""
+    inside the solid, never lifted). ``R``: a mechanism overriding the
+    problem's in the boundary values (the oracle's mixture)."""
     def lift(t):
-        vals = problem.boundary_values(midpoints, t)
+        vals = problem.boundary_values(midpoints, t, R=R)
         zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
         lifted = torch.where(bmask[None, :], vals, zero)
         if dead is not None:
@@ -107,16 +112,21 @@ def run_multispecies_loop(ops: GlobalOperators, C0, *, mesh_data, problem,
     operator with ``power_bounds`` when None. Chebyshev solves the K
     species as one (K, N) batch; BiCGStab solves them one after another,
     each stopping on its own residual.
+
+    ``differentiable=True`` (BiCGStab only, as in the JAX package) makes
+    every transport solve a linalg.differentiable_solve (``matvec`` must
+    then be a linalg.BoundMatvec; the ELL default is) and checkpoints each
+    step while grad mode is on (as models/crbe.checkpoint_steps decides),
+    so the gradient flows through the coupled
+    loop to the operators' tensors and to ``R``: a (K, K) tensor
+    overriding ``problem.R``, whose half-step exponential is
+    problems.expm64 (torch operations, differentiable) and which also
+    enters the lift where the boundary values are the oracle's.
     """
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True (the implicit-function adjoint through the "
-            "coupled loop) is not ported yet"
-        )
-    if R is not None:
-        raise NotImplementedError(
-            "the R= override of the mechanism (chemistry-rate fitting) is "
-            "not ported yet"
+    if differentiable and solver != "bicgstab":
+        raise ValueError(
+            "differentiable=True requires solver='bicgstab' (the "
+            "implicit-function VJP wraps the Krylov solve)"
         )
     md = mesh_data
     midpoints = md.midpoints
@@ -139,20 +149,23 @@ def run_multispecies_loop(ops: GlobalOperators, C0, *, mesh_data, problem,
     if source_quadrature not in ("mass_lumped", "reference"):
         raise ValueError(f"unknown source_quadrature {source_quadrature!r}")
 
-    E_half = half_step_exponential(problem.R, dt).to(dtype=C0.dtype,
-                                                     device=C0.device)
+    E_half = half_step_exponential(problem.R if R is None else R,
+                                   dt).to(dtype=C0.dtype, device=C0.device)
     mass = ops.mass_diag if stacked else ops.mass_diag[None, :]
     if stacked:
         mv = partial(sparse.ell_matvec_stacked, ops.system)
         ka_mv = partial(sparse.ell_matvec_stacked, ops.ka)
         # Each species' (matvec, diagonal), for its interval and BiCGStab.
-        per_species = [
-            (partial(sparse.ell_matvec, sparse.unstack_ell(ops.system, k)),
-             ops.system_diag[k])
-            for k in range(K)]
+        per_species = []
+        for k in range(K):
+            A_k = sparse.unstack_ell(ops.system, k)
+            per_species.append((linalg.BoundMatvec(_ell_matvec(A_k),
+                                                   A_k.vals),
+                                ops.system_diag[k]))
     else:
         if matvec is None:
-            matvec = partial(sparse.ell_matvec, ops.system)
+            matvec = linalg.BoundMatvec(_ell_matvec(ops.system),
+                                        ops.system.vals)
             ka_matvec = partial(sparse.ell_matvec, ops.ka)
         mv, ka_mv = matvec, ka_matvec
         per_species = [(mv, ops.system_diag)] * K
@@ -184,14 +197,21 @@ def run_multispecies_loop(ops: GlobalOperators, C0, *, mesh_data, problem,
                                     iters=chebyshev_iters,
                                     precond=precond).x
     else:
-        preconds = [linalg.jacobi_preconditioner(d) for _, d in per_species]
+        preconds = [linalg.jacobi_preconditioner(
+            d.detach() if differentiable else d) for _, d in per_species]
+
+        def solve_one(k, b, x0):
+            m = per_species[k][0]
+            if differentiable:
+                return linalg.differentiable_solve(
+                    m, b, x0=x0, tol=tol, maxiter=maxiter,
+                    precond=preconds[k])
+            return linalg.bicgstab(m, b, x0=x0, tol=tol, maxiter=maxiter,
+                                   precond=preconds[k]).x
 
         def solve_species(B, X0):
-            return torch.stack([
-                linalg.bicgstab(m, B[k], x0=X0[k], tol=tol, maxiter=maxiter,
-                                precond=preconds[k]).x
-                for k, (m, _) in enumerate(per_species)
-            ])
+            return torch.stack([solve_one(k, B[k], X0[k])
+                                for k in range(K)])
 
     zero_source = getattr(problem, "zero_source", False)
 
@@ -214,19 +234,31 @@ def run_multispecies_loop(ops: GlobalOperators, C0, *, mesh_data, problem,
                 B = B + dt * mass * s
         return torch.where(bmask[None, :], zero, B)
 
-    lift = make_species_lift(problem, midpoints, bmask, dead)
-    C = C0
-    snaps = [C0] if store_solutions else None
-    for i in range(1, nt):
-        t = t0 + dt * i
+    lift = make_species_lift(problem, midpoints, bmask, dead, R=R)
+
+    def step(C, t):
         # Chemistry half-step, implicit transport, chemistry half-step:
         # every stored row is a whole-step state.
         Ch = mix_species(E_half, C)
         B = rhs(Ch, t)
         X0 = torch.where(bmask[None, :], zero, Ch)
-        C = mix_species(E_half, solve_species(B, X0))
+        C_new = mix_species(E_half, solve_species(B, X0))
+        return C_new, (C_new + lift(t) if store_solutions else None)
+
+    # The reverse pass keeps one state per step and re-runs each step once
+    # (the JAX loop's jax.checkpoint) where the saved tensors would not fit.
+    checkpointed = (differentiable and torch.is_grad_enabled()
+                    and checkpoint_steps(nt - 1, C0))
+    C = C0
+    snaps = [C0] if store_solutions else None
+    for i in range(1, nt):
+        t = t0 + dt * i
+        if checkpointed:
+            C, out = checkpoint(step, C, t, use_reentrant=False)
+        else:
+            C, out = step(C, t)
         if store_solutions:
-            snaps.append(C + lift(t))
+            snaps.append(out)
     if store_solutions:
         return torch.stack(snaps), None
     return (C + lift(t0 + dt * (nt - 1)))[None], None

@@ -415,13 +415,22 @@ def raw_plan(n_iters: int, dtype) -> CanvasPlan:
                          f"mode's shared-memory budget in {dtype}") from None
 
 
-def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None):
+def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None,
+                     index=None):
     """``p(A) mask(b)`` in family layout with a prebuilt raw stack ``C``
     (:func:`raw_operator`) and Chebyshev scalars ``cheb``: one launch of
-    B4's raw mode on a CUDA tensor, its plain version on a CPU tensor."""
+    B4's raw mode on a CUDA tensor, its plain version on a CPU tensor.
+    ``index``: fused_solver.canvas_index of the pattern (built here when
+    not given; a caller that applies the polynomial every time step keeps
+    one), through which the conversions to and from the canvases are one
+    scatter and one gather."""
     n, c = pattern.n, pattern.c
     rect = tuple(rect) if rect is not None else (1, c, 1, c)
-    b = fused_solver.to_canvases(pattern, b_fam.to(C.dtype))
+    if index is None:
+        index = fused_solver.canvas_index(pattern, C.device)
+    b = torch.zeros(3 * n * n, dtype=C.dtype, device=C.device)
+    b[index] = b_fam.to(C.dtype)
+    b = b.view(3, n, n)
     if b.is_cuda:
         x = torch.empty_like(b)
         canvas_raw_kernel(C, cheb, n_iters, b, x, rect,
@@ -429,7 +438,7 @@ def apply_canvas_raw(pattern, C, b_fam, *, n_iters: int, cheb, rect=None):
     else:
         masks = fused_solver.rect_masks(n, b.dtype, b.device, rect)
         x = plain_canvas_raw(C, cheb, n_iters, b, masks)
-    return fused_solver.from_canvases(pattern, x)
+    return x.reshape(-1)[index]
 
 
 def chebyshev_apply_canvas_hbm(pattern, coeffs, inv_diag_fam, b_fam, *,
@@ -464,6 +473,7 @@ def raw_solve_pair(pattern, coeffs, inv_diag_fam, n_iters: int, dtype,
     C = raw_operator(pattern, coeffs, inv_diag_fam, dtype)
     C_T = raw_operator(pattern, stencil.transpose_coefficients(coeffs),
                        inv_diag_fam, dtype)
+    index = fused_solver.canvas_index(pattern, C.device)
     last = {}
 
     def scalars(bounds):
@@ -475,11 +485,11 @@ def raw_solve_pair(pattern, coeffs, inv_diag_fam, n_iters: int, dtype,
 
     def solve_impl(rhs, bounds):
         return apply_canvas_raw(pattern, C, rhs, n_iters=n_iters,
-                                cheb=scalars(bounds), rect=rect)
+                                cheb=scalars(bounds), rect=rect, index=index)
 
     def transpose_impl(rhs, bounds):
         return apply_canvas_raw(pattern, C_T, rhs, n_iters=n_iters,
-                                cheb=scalars(bounds), rect=rect)
+                                cheb=scalars(bounds), rect=rect, index=index)
 
     return solve_impl, transpose_impl
 

@@ -134,6 +134,20 @@ def from_canvases(spec, u3):
                       u3[2, :c, :c].reshape(-1)])
 
 
+def canvas_index(spec, device) -> torch.Tensor:
+    """Flat positions in the (3, n, n) canvases of a family-layout
+    vector's entries, in its order: through it the conversions of
+    :func:`to_canvases` and :func:`from_canvases` are one scatter into
+    zeros and one gather, two host dispatches instead of ten, for a caller
+    that converts every time step (fused_hbm.apply_canvas_raw under
+    raw_solve_pair)."""
+    n, c = spec.n, spec.c
+    plane = torch.arange(n * n, device=device).reshape(n, n)
+    return torch.cat([plane[:, :c].reshape(-1),
+                      n * n + plane[:c, :].reshape(-1),
+                      2 * n * n + plane[:c, :c].reshape(-1)])
+
+
 def cheb_scalars(bounds, n_iters, dtype, device):
     """The Chebyshev recurrence as the kernels take it: 1/theta, then
     a_k = rho_{k+1} rho_k and b_k = 2 rho_{k+1} / delta for k < n_iters.

@@ -535,7 +535,8 @@ def expm64(A) -> torch.Tensor:
     and the JAX package's ``expm``, torch 2.13 on the CPU), an error every
     chemistry half-step would repeat."""
     A = torch.as_tensor(A, dtype=torch.float64).cpu()
-    norm = float(torch.linalg.matrix_norm(A, ord=1)) if A.numel() else 0.0
+    norm = (float(torch.linalg.matrix_norm(A.detach(), ord=1))
+            if A.numel() else 0.0)
     squarings = max(0, math.ceil(math.log2(norm / 0.5))) if norm > 0 else 0
     X = A / 2.0 ** squarings
     term = torch.eye(A.shape[0], dtype=torch.float64)

@@ -56,8 +56,11 @@ Phases, each printing one JSON line:
    split a step into), k = 12 and 8, over the coefficients and their
    transpose, with the adjoint dot-product test; gradients through the
    fused engine (engine="fused_hbm", Chebyshev-24) at 129^2, f64, nt=129,
-   BE and CN, for Problem(D) and the emitter's (log q, xs, ys), against
-   the scan engine and central differences; I1, the production source
+   BE, for Problem(D) and the emitter's (log q, xs, ys), and (slice 14,
+   F2) the deposition log alphas, the exchange log alphas and
+   compensation points (CN), a rotating wind's omega and a full initial
+   field, against the scan engine and central differences; I1, the
+   production source
    inversion of scripts/torch_port_source_inversion.py at 513^2, nt=128
    (96 sensors, 8 snapshots, 1% noise, 120 Adam steps, the posterior),
    whose solves run on B4's raw mode;
@@ -107,12 +110,23 @@ Phases, each printing one JSON line:
     and CN with saved fields, ``invert`` and ``fit-source`` on them,
     ``multispecies`` on the uniform route against B6, ``solve
     --matvec_impl fused`` on B1, and ``pinn`` with checkpoints;
-15. the PINN (slice 11), then the kernels line (launches on each path,
+15. slice 14, the rest of the inverse layer (diagnostics/inverse.py; F2,
+    its f64 gradients, are phase 9's cases): F1, fit_surface_exchange,
+    fit_wind and fit_initial_condition at I1's 513^2, nt=128 (f32, B4's
+    raw mode over the per-DOF canvases; the 4D-Var roughness on B7a),
+    each fit's gradient through B4-raw against its plain polynomial
+    (<= 2e-5) and 5 Adam steps that lower the loss; F3, the
+    differentiable multispecies solve's d/dR, fit_chemistry and
+    receptor_footprint (B7a) at 17^2, f64, card against CPU (<= 1e-10);
+    F4, ``fit-ic``, ``fit-deposition`` and ``fit-exchange`` through the
+    command line (the JAX CLI's keys, a falling misfit);
+16. the PINN (slice 11), then the kernels line (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
     paths apart as ``time_varying_launches``, for B1, B2 and B6 those of
-    slice 13's as ``cli_launches``).
+    slice 13's as ``cli_launches``, for B3, B4-raw and B7a those of slice
+    14's as ``inverse_fits_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -122,6 +136,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -2620,50 +2635,113 @@ def grad_rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def phase_grad_129(md):
-    """Gradients through the fused engine on the card: 129^2, f64,
-    nt=129 (dt |v| / h ~ 0.28, where Chebyshev-24 converges tightly, as
-    the JAX test at 17^2, nt=17), BE and CN, of sum(u_T^2) in D for
-    Problem(D=0.1) and in (log q, xs, ys) for the emitter. The fused
-    engine (B4's raw mode, forward and adjoint) within 2e-5 of the scan
-    engine (BiCGStab to 1e-10), and its component along itself within
-    5e-3 of a central difference of its own loss (step 1e-3)."""
-    import math
+# Slice 14's cases of phase_grad_129 (F2): the Robin walls of the
+# deposition and exchange cases, their traced parameters' values, and the
+# rotating wind (C1's problem: dt |v| / h <= 0.35 at 129^2, nt=129, where
+# Chebyshev-24 converges).
+F2_SIDES = ("right", "top")
+F2_LOG_ALPHA = (math.log(0.4), math.log(0.2))
+F2_C_COMP = (0.05, 0.2)
+F2_WIND = dict(omega=0.05, D=0.3)
 
+
+def f2_walled():
+    """The deposition and exchange cases' problem: a square pulse carried
+    toward Robin walls on the right and top."""
+    import airpollution_tpu_torch as apt
+
+    p = apt.SquarePulseProblem(v=(0.5, 0.3), D=0.3, lo=4.0, hi=16.0)
+    p.robin_sides = dict(zip(F2_SIDES, (0.4, 0.2)))
+    return p
+
+
+def grad_129_cases(md):
+    """phase_grad_129's cases: name -> (th -> (problem, solve keywords),
+    starting parameters, time scheme orders). The plume's D and the
+    emitter's (log q, xs, ys) in BE (slice 5); slice 14's deposition log
+    alphas, exchange log alphas and compensation points (in CN, the
+    phase's CN gradient gate), the rotating wind's omega, and the full
+    initial field of the 4D-Var control."""
     import torch
 
     import airpollution_tpu_torch as apt
-    from airpollution_tpu_torch.diagnostics import inverse
-
-    f64 = torch.float64
 
     def plume(th):
-        return apt.Problem(D=th[0])
+        return apt.Problem(D=th[0]), {}
 
     def emitter(th):
         return apt.GaussianSourceProblem(
             q=torch.exp(th[0]), xs=th[1], ys=th[2],
-            sigma_s=I1_SOURCE["sigma_s"])
+            sigma_s=I1_SOURCE["sigma_s"]), {}
 
-    cases = {"plume_D": (plume, [0.1]),
-             "emitter_logq_xs_ys": (emitter, [math.log(I1_SOURCE["q"]),
-                                              I1_SOURCE["xs"],
-                                              I1_SOURCE["ys"]])}
+    walled = f2_walled()
+
+    def deposition(th):
+        return walled, {"robin_alpha": {
+            s: torch.exp(th[i]) for i, s in enumerate(F2_SIDES)}}
+
+    def exchange(th):
+        alphas = {s: torch.exp(th[i]) for i, s in enumerate(F2_SIDES)}
+        return walled, {"robin_alpha": alphas, "robin_g_const": {
+            s: alphas[s] * th[2 + i] for i, s in enumerate(F2_SIDES)}}
+
+    def wind(th):
+        return apt.RotatingPlumeProblem(omega=th[0],
+                                        D=F2_WIND["D"]), {}
+
+    plain = apt.Problem()
+
+    def ic(th):
+        return plain, {"u0": th}
+
+    return {
+        "plume_D": (plume, [0.1], (1,)),
+        "emitter_logq_xs_ys": (emitter, [math.log(I1_SOURCE["q"]),
+                                         I1_SOURCE["xs"], I1_SOURCE["ys"]],
+                               (1,)),
+        "deposition_log_alpha": (deposition, list(F2_LOG_ALPHA), (1,)),
+        "exchange_log_alpha_c_comp": (exchange, list(F2_LOG_ALPHA)
+                                      + list(F2_C_COMP), (2,)),
+        "wind_omega": (wind, [F2_WIND["omega"]], (1,)),
+        "ic_u0": (ic, plain.initial_condition_fn(md.midpoints), (1,)),
+    }
+
+
+def phase_grad_129(md):
+    """Gradients through the fused engine on the card: 129^2, f64,
+    nt=129 (dt |v| / h ~ 0.28, where Chebyshev-24 converges tightly, as
+    the JAX test at 17^2, nt=17), of sum(u_T^2) in each case's parameters
+    (grad_129_cases: BE, the exchange case CN). The fused engine (B4's raw
+    mode, forward and adjoint; the Robin and wind cases on the per-DOF
+    canvases) within 2e-5 of the scan engine (BiCGStab to 1e-10), and its
+    component along itself within 5e-3 of a central difference of its own
+    loss (step 1e-3). Returns B4-raw's launches: (all, slice 14's)."""
+    import torch
+
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    f64 = torch.float64
     out = {"phase": "grad_129_fused_vs_scan", "card": card_line(),
            "ms": 129, "nt": md.nt, "k": 24}
-    launches = 0
-    for cname, (make, theta) in cases.items():
-        for order in (1, 2):
+    launches = slice14 = 0
+    t_start = time.perf_counter()
+    for cname, (make, theta, orders) in grad_129_cases(md).items():
+        for order in orders:
             tag = f"{cname}_{'be' if order == 1 else 'cn'}"
 
             def loss(th, engine, **kw):
-                u = inverse.solve_final_state(make(th), md, engine=engine,
-                                              time_scheme_order=order, **kw)
+                problem, extra = make(th)
+                u = inverse.solve_final_state(problem, md, engine=engine,
+                                              time_scheme_order=order,
+                                              **extra, **kw)
                 return torch.sum(u ** 2)
 
+            def start():
+                return torch.as_tensor(theta, dtype=f64,
+                                       device=md.device).clone()
+
             def grad(engine, **kw):
-                th = torch.tensor(theta, dtype=f64, device=md.device,
-                                  requires_grad=True)
+                th = start().requires_grad_(True)
                 (g,) = torch.autograd.grad(loss(th, engine, **kw), th)
                 return g
 
@@ -2673,6 +2751,8 @@ def phase_grad_129(md):
             torch.cuda.synchronize()
             fused_s = time.perf_counter() - t0
             launches += launches_of("B4-raw")
+            if cname not in ("plume_D", "emitter_logq_xs_ys"):
+                slice14 += launches_of("B4-raw")
             check(launches_of("B4-raw") > 0,
                   f"{tag}: the fused gradient launched no B4-raw")
             t0 = time.perf_counter()
@@ -2683,11 +2763,15 @@ def phase_grad_129(md):
             # the scan comparison checks every component.
             e = g_fused / torch.linalg.norm(g_fused)
             with torch.no_grad():
-                th = torch.tensor(theta, dtype=f64, device=md.device)
-                fd = (loss(th + 1e-3 * e, "fused_hbm", chebyshev_iters=24)
-                      - loss(th - 1e-3 * e, "fused_hbm",
+                fd = (loss(start() + 1e-3 * e, "fused_hbm",
+                           chebyshev_iters=24)
+                      - loss(start() - 1e-3 * e, "fused_hbm",
                              chebyshev_iters=24)) / 2e-3
-            out[f"{tag}_grad_fused"] = g_fused.tolist()
+            if g_fused.numel() <= 4:
+                out[f"{tag}_grad_fused"] = g_fused.tolist()
+            else:
+                out[f"{tag}_grad_fused_norm"] = float(
+                    torch.linalg.norm(g_fused))
             out[f"{tag}_rel_vs_scan"] = grad_rel(g_fused, g_scan)
             out[f"{tag}_rel_vs_central_difference"] = float(
                 abs(torch.dot(g_fused, e) - fd) / abs(fd))
@@ -2700,8 +2784,10 @@ def phase_grad_129(md):
                   f"{tag}: fused gradient vs central difference "
                   f"{out[f'{tag}_rel_vs_central_difference']:.3e} > 5e-3")
     out["b4_raw_launches"] = launches
+    out["b4_raw_launches_slice14"] = slice14
+    out["seconds"] = time.perf_counter() - t_start
     emit(out)
-    return launches
+    return launches, slice14
 
 
 def phase_i1():
@@ -3869,7 +3955,7 @@ def patch_inputs(md, k, dtype):
 
 # The paper's widest PINN, [3, 64 x 4, 1] tanh at the ms=128 collocation
 # budget (experiments/common.py schedules: 16,000 epochs, patience 1,000,
-# lr 1e-4, lambda (180, 80, 80)), cut to 2,000 epochs for time; and the
+# lr 1e-4, lambda (180, 80, 80)), cut to 1,000 epochs for time; and the
 # levers row of results_snapshot/df_pinn_training_results_levers.csv
 # ("fourier64+causal+wide64x4+lbfgs1000") at the ms=64 budget, cut to
 # 1,000 Adam epochs and 50 L-BFGS steps.
@@ -3877,15 +3963,15 @@ PINN_LAYERS = [3, 64, 64, 64, 64, 1]
 PINN_LAMBDA = {"pde": 180.0, "ic": 80.0, "bc": 80.0}
 PINN_WIDE = dict(mesh_size=128, batch={"pde": 34744, "ic": 6949,
                                        "bc": 6949},
-                 lr=1e-4, patience=1000, epochs=2000, scheduled_epochs=16000)
+                 lr=1e-4, patience=1000, epochs=1000, scheduled_epochs=16000)
 PINN_LEVERS = dict(mesh_size=64, batch={"pde": 8595, "ic": 1719,
                                         "bc": 1719},
                    lr=1e-4, patience=1000, epochs=1000, lbfgs_steps=50,
                    fourier_features=64, causal_eps=1.0,
                    scheduled_lbfgs_steps=1000)
-# The widest cell's loss must fall at least this factor over its 2,000
-# epochs: it fell 8,138-fold and 8,485-fold in the first two runs on an
-# H100 (PERF.md section 6), so a tenth of that leaves room for rounding.
+# The widest cell's loss must fall at least this factor: a tenth of the
+# 8,138-fold and 8,485-fold falls of its first two 2,000-epoch runs on an
+# H100 (PERF.md section 6); over 1,000 epochs it fell 2,544-fold.
 PINN_LOSS_DROP = 800.0
 PINN_OBSTACLES = ((-6.0, -1.0, -4.0, 3.0), (4.0, 9.0, 2.0, 5.0))
 
@@ -4469,10 +4555,11 @@ X3_MS_TOL = 1e-4  # multispecies uniform against fused_hbm: final masses
 # The inverse subcommands cost ~0.4 s per Adam step and 8 time steps on
 # the card (host-bound eager autograd), so X3 fits with fewer steps than
 # the JAX package's tests/test_cli.py, under its gates: invert from its
-# D0 in 30 steps (60 there); fit-source on a 9-step trajectory (17
-# there) from a start nearer the emitter (q0 1, (0, 0) there) in 50
-# steps (500 there).
-X3_INVERT = ["--steps", 30, "--lr", 0.3]
+# D0 in 10 steps at lr 0.15 (60 at 0.3 there; at 0.3, 10 steps overshoot
+# to D ~0.63); fit-source on a 9-step trajectory (17 there) from a start
+# nearer the emitter (q0 1, (0, 0) there) in 50 steps (500 there; 30 end
+# at q ~1.74, outside its gate).
+X3_INVERT = ["--steps", 10, "--lr", 0.15]
 X3_FIT_SOURCE = ["--sensors", 40, "--steps", 50, "--lr", 0.15, "--q0", 1.5,
                  "--xy0", -3.0, 2.0]
 
@@ -4786,6 +4873,378 @@ def phase_pinn(domain):
           "seconds": time.perf_counter() - t0})
 
 
+# Slice 14: the rest of the inverse layer (diagnostics/inverse.py), F1-F4.
+# F1 runs I1's mesh and horizon (513^2, nt=128, f32, engine "auto" -> B4's
+# raw mode) with its 8 snapshot rows, 5 Adam steps per fit.
+F1 = dict(mesh_size=513, nt=128, steps=5)
+F1_SIDES = ("right", "top")
+# tests/test_robin.py's exchange twin, scaled up: truth alphas and
+# compensation points, 1% multiplicative noise, the start; D 0.1 (I1's:
+# D dt / h^2 = 1.3), not the twin's 1.0, whose D dt / h^2 = 12.9 at this
+# mesh and horizon diverges on Chebyshev-12 with the extrapolated warm
+# start (the loss reached 1.6e28 on an H100).
+F1_EXCHANGE = dict(D=0.1, alphas=(0.6, 0.15), c_comp=(0.05, 0.2),
+                   alpha0=0.25, c_comp0=0.0, lr=0.05, noise=0.01)
+# The wind fit: omega 0.1 (not the JAX test's 0.15: at 513^2, nt=128 the
+# rotation's corner Courant number dt |v| / h is 2.85 at 0.1 and 3.4 at
+# 0.12, where the Chebyshev solve diverges already,
+# scripts/torch_port_wind_fit_stability.py), D 0.08, the start 0.05 and a
+# 3-point grid below the truth.
+F1_WIND = dict(omega=0.1, D=0.08, sigma=1.5, x0=5.0, y0=0.0, omega0=0.05,
+               grid=(0.02, 0.05, 0.08), lr=0.01)
+# 4D-Var of the JAX test's plume (tests/test_inverse.py:293), from a zero
+# field; lr below the field's amplitude (max u0 = 1/(4 pi)).
+F1_IC = dict(v=(1.0, 0.5), D=0.1, sigma=2.0, lr=0.002, smoothness=1e-4)
+F_GRAD_TOL = 2e-5  # B4-raw against its plain polynomial, as W3
+F3_TOL = 1e-10  # card against CPU, f64
+F3_R = ((0.25, 0.0), (-0.25, 0.1))
+F3_R_START = ((0.2, 0.01), (-0.2, 0.15))
+# F4: the JAX CLI's keys of each line (airpollution_tpu/cli.py).
+F4_KEYS = {
+    "fit_ic": {"method", "n_dofs", "n_sensors", "n_snapshots", "smoothness",
+               "misfit_first", "misfit_last", "steps",
+               "rel_l2_vs_problem_ic"},
+    "fit_deposition": {"method", "alphas", "n_snapshots", "misfit_first",
+                       "misfit_last", "steps"},
+    "fit_surface_exchange": {"method", "exchange", "n_snapshots",
+                             "misfit_first", "misfit_last", "steps"},
+}
+
+
+def f1_exchange(md, idx):
+    """The exchange fit: (observations, gradient at the start, the fit)."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    c = F1_EXCHANGE
+    p = apt.SquarePulseProblem(v=(0.0, 0.0), D=c["D"], lo=10.0, hi=20.0)
+    p.robin_sides = dict(zip(F1_SIDES, c["alphas"]))
+    g_true = {s: a * cc for s, a, cc in zip(F1_SIDES, c["alphas"],
+                                            c["c_comp"])}
+    with torch.no_grad():
+        obs = inverse.solve_snapshots(p, md, indices=idx,
+                                      robin_g_const=g_true)
+    rng = np.random.default_rng(0)
+    obs = obs * (1.0 + c["noise"] * torch.as_tensor(
+        rng.standard_normal(tuple(obs.shape)), dtype=obs.dtype,
+        device=obs.device))
+
+    def grad():
+        la = torch.full((2,), math.log(c["alpha0"]), device=md.device,
+                        requires_grad=True)
+        cc = torch.full((2,), c["c_comp0"], device=md.device,
+                        requires_grad=True)
+        alphas = {s: torch.exp(la[i]) for i, s in enumerate(F1_SIDES)}
+        g = {s: alphas[s] * cc[i] for i, s in enumerate(F1_SIDES)}
+        pred = inverse.solve_snapshots(p, md, indices=idx,
+                                       robin_alpha=alphas, robin_g_const=g)
+        return torch.cat(torch.autograd.grad(
+            torch.mean((pred - obs) ** 2), (la, cc)))
+
+    def fit(on_step):
+        out, losses = inverse.fit_surface_exchange(
+            obs, md, p, alpha0=c["alpha0"], c_comp0=c["c_comp0"],
+            snapshot_indices=idx, steps=F1["steps"], lr=c["lr"],
+            on_step=on_step)
+        return {s: {"v_d": v, "c_comp": cc} for s, (v, cc) in out.items()}, \
+            losses
+
+    return grad, fit
+
+
+def f1_wind(md, idx):
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    c = F1_WIND
+    release = dict(sigma=c["sigma"], x0=c["x0"], y0=c["y0"])
+    with torch.no_grad():
+        obs = inverse.solve_snapshots(apt.RotatingPlumeProblem(
+            omega=c["omega"], D=c["D"], **release), md, indices=idx)
+
+    def grad():
+        om = torch.tensor(c["omega0"], device=md.device, requires_grad=True)
+        pred = inverse.solve_snapshots(apt.RotatingPlumeProblem(
+            omega=om, D=c["D"], **release), md, indices=idx)
+        (g,) = torch.autograd.grad(torch.mean((pred - obs) ** 2), om)
+        return g.reshape(1)
+
+    def fit(on_step):
+        return inverse.fit_wind(
+            obs, md, snapshot_indices=idx, omega0=c["omega0"], D=c["D"],
+            steps=F1["steps"], lr=c["lr"], omega_grid=c["grid"],
+            on_step=on_step, **release)
+
+    return grad, fit
+
+
+def f1_ic(md, idx):
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+    from airpollution_tpu_torch.models.crbe import assemble
+    from airpollution_tpu_torch.ops import sparse
+
+    c = F1_IC
+    p = apt.Problem(v=c["v"], D=c["D"], sigma=c["sigma"])
+    with torch.no_grad():
+        obs = inverse.solve_snapshots(p, md, indices=idx)
+    n = md.number_of_segments
+    K1 = assemble(md, apt.Problem(v=(0.0, 0.0), D=1.0), 1.0, 1).stiffness
+
+    def grad():
+        # The 4D-Var objective at half the true field: B7a forward and
+        # transposed in the roughness term.
+        u0 = (0.5 * p.initial_condition_fn(md.midpoints)).requires_grad_()
+        pred = inverse.solve_snapshots(p, md, indices=idx, u0=u0)
+        loss = (torch.mean((pred - obs) ** 2)
+                + c["smoothness"] * (u0 @ sparse.ell_matvec(K1, u0)) / n)
+        (g,) = torch.autograd.grad(loss, u0)
+        return g
+
+    def fit(on_step):
+        u0, losses = inverse.fit_initial_condition(
+            obs, md, p, snapshot_indices=idx, steps=F1["steps"],
+            lr=c["lr"], smoothness=c["smoothness"], on_step=on_step)
+        true = p.initial_condition_fn(md.midpoints)
+        return {"rel_l2_vs_true_ic": float(torch.linalg.norm(u0 - true)
+                                           / torch.linalg.norm(true))}, \
+            losses
+
+    return grad, fit
+
+
+def phase_f1():
+    """F1: fit_surface_exchange, fit_wind (with its omega grid) and
+    fit_initial_condition at I1's mesh and horizon (513^2, nt=128, f32,
+    engine "auto": B4's raw mode forward and adjoint over the per-DOF
+    canvases, with the traced Robin alphas and the wind in them; the
+    4D-Var roughness on B7a forward and transposed). For each fit: the
+    misfit's gradient at the start through B4-raw against the same
+    through its plain polynomial (<= F_GRAD_TOL), B4-raw launched (and
+    B7a for the 4D-Var fit), then F1["steps"] Adam steps that must lower
+    the loss; seconds and launches per Adam step. Returns {kernel id:
+    launches}."""
+    import statistics as st
+
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from scripts import torch_port_source_inversion as si
+
+    t_start = time.perf_counter()
+    md = apt.MeshData(apt.create_mesh(F1["mesh_size"], 20.0), apt.Domain(),
+                      nt=F1["nt"])
+    idx = si.snapshot_indices(md.nt)
+    out = {"phase": "f1_inverse_fits_513", "card": card_line(),
+           "ms": F1["mesh_size"], "nt": F1["nt"], "k": 12,
+           "snapshots": idx, "adam_steps": F1["steps"]}
+    launches = {"B4-raw": 0, "B7a": 0, "B3": 0}
+    gates = []
+    for name, setup in (("exchange", f1_exchange), ("wind", f1_wind),
+                        ("ic", f1_ic)):
+        t0 = time.perf_counter()
+        reset_counts()
+        grad, fit = setup(md, idx)
+        g = grad()
+        raw, b7 = launches_of("B4-raw"), launches_of("B7a")
+        with plain_raw_sweeps():
+            g_plain = grad()
+        rel = grad_rel(g, g_plain)
+        stamps, counts = [], []
+
+        def on_step(i, loss):
+            stamps.append(time.perf_counter())
+            counts.append((launches_of("B4-raw"), launches_of("B7a")))
+
+        torch.cuda.synchronize()
+        fit_t0 = time.perf_counter()
+        result, losses = fit(on_step)
+        per_step = [b - a for a, b in zip([fit_t0] + stamps, stamps)]
+        step_launches = [(b[0] - a[0], b[1] - a[1])
+                         for a, b in zip(counts, counts[1:])]
+        for kid in launches:
+            launches[kid] += launches_of(kid)
+        out[name] = {
+            "grad_norm": float(torch.linalg.norm(g)),
+            "grad_rel_vs_plain": rel, "grad_b4_raw_launches": raw,
+            "grad_b7a_launches": b7, **result,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "s_per_adam_step_median": st.median(per_step),
+            "s_per_adam_step": per_step,
+            "b4_raw_launches_per_adam_step": step_launches[-1][0],
+            "b7a_launches_per_adam_step": step_launches[-1][1],
+            "b3_launches": launches_of("B3"),
+            "seconds": time.perf_counter() - t0}
+        gates += [
+            (rel <= F_GRAD_TOL, f"F1 {name}: gradient through B4-raw vs "
+                                f"plain {rel:.3e} > {F_GRAD_TOL}"),
+            (raw > 0 and step_launches[-1][0] > 0,
+             f"F1 {name}: B4-raw not launched"),
+            (all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+             f"F1 {name}: loss {losses[0]:.4e} -> {losses[-1]:.4e}")]
+        if name == "ic":
+            gates.append((b7 > 0 and step_launches[-1][1] > 0,
+                          "F1 ic: the roughness launched no B7a"))
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_start
+    emit(out)
+    for cond, msg in gates:
+        check(cond, msg)
+    return launches
+
+
+def f3_run(device):
+    """F3's computations on one device at 17^2, nt=17, f64: the
+    multispecies snapshots and d sum(u^2)/dR, three Adam steps of
+    fit_chemistry (the chain's log-rates), and two receptors' footprints
+    (the ELL loop: B7a on the card)."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+
+    f64 = torch.float64
+    domain = apt.Domain(T=4.0)
+    md = apt.MeshData(apt.create_mesh(17, 20.0), domain, nt=17, dtype=f64,
+                      device=device)
+    species = (apt.Problem(sigma=1.0), apt.Problem(sigma=2.0))
+    msp = apt.MultiSpeciesProblem(species, np.asarray(F3_R))
+    idx = [4, 8, 12, 16]
+    kw = dict(tol=1e-12, maxiter=500)
+    R = torch.tensor(F3_R_START, dtype=f64, device=device,
+                     requires_grad=True)
+    u = inverse.solve_multispecies_snapshots(msp, md, R=R, indices=idx, **kw)
+    (gR,) = torch.autograd.grad(torch.sum(u ** 2), R)
+    with torch.no_grad():
+        obs = inverse.solve_multispecies_snapshots(msp, md, indices=idx,
+                                                   **kw)
+
+    def make_R(params):
+        r1, r2 = torch.exp(params["log_r1"]), torch.exp(params["log_r2"])
+        return torch.stack([torch.stack([r1, 0.0 * r1]),
+                            torch.stack([-r1, r2])])
+
+    R_fit, _, losses = inverse.fit_chemistry(
+        obs, md, species, make_R=make_R,
+        init_params={"log_r1": math.log(0.1), "log_r2": math.log(0.3)},
+        snapshot_indices=idx, steps=3, lr=0.05, **kw)
+    launches = launches_of("B7a")
+    F = inverse.receptor_footprint(
+        md, domain, apt.Problem(v=(1.0, 0.5), D=0.2),
+        [md.number_of_segments // 2, 7], **kw)
+    return ({"u": u.detach(), "dR": gR, "R_fit": R_fit,
+             "losses": torch.tensor(losses), "footprint": F},
+            launches_of("B7a") - launches)
+
+
+def phase_f3():
+    """F3 (no kernel of its own): the differentiable multispecies solve's
+    gradient in R, fit_chemistry and receptor_footprint at 17^2, nt=17,
+    f64, on the card against the same on the CPU (<= F3_TOL relative);
+    B7a launched by the footprint's ELL loop. Returns its B7a launches."""
+    t0 = time.perf_counter()
+    reset_counts()
+    card, b7 = f3_run("cuda")
+    cpu, _ = f3_run("cpu")
+    rel = {k: float((card[k].cpu() - cpu[k]).abs().max()
+                    / cpu[k].abs().max()) for k in card}
+    out = {"phase": "f3_multispecies_adjoint_footprint_17",
+           "card": card_line(), "card_vs_cpu": rel,
+           "dR": card["dR"].tolist(), "R_fit": card["R_fit"].tolist(),
+           "losses": card["losses"].tolist(), "footprint_b7a_launches": b7,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    for k, v in rel.items():
+        check(v <= F3_TOL, f"F3 {k}: card vs CPU {v:.3e} > {F3_TOL}")
+    check(b7 > 0, "F3: the footprint launched no B7a")
+    check(card["losses"][-1] < card["losses"][0],
+          "F3: fit_chemistry's loss did not fall")
+    return b7
+
+
+def phase_f4():
+    """F4: ``fit-ic``, ``fit-deposition`` and ``fit-exchange`` through the
+    command line (cli.main) at X3's sizes, 5 Adam steps each (f32, the
+    scan engine): each line has the JAX CLI's keys (F4_KEYS) and a falling
+    misfit. The exchange trajectory (a compensation-point wall) is made
+    with inverse.solve_snapshots, as the JAX CLI test makes it."""
+    import tempfile
+
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import inverse
+    from airpollution_tpu_torch.io.checkpoint import save_field
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    pulse = ["--problem", "square_pulse", "--v", 0, 0, "--D", 1.0]
+    out = {"phase": "f4_cli_fits", "card": card_line()}
+    lines = {}
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        tmp = Path(tmp)
+        run_cli(["solve", "--mesh_size", 10, "--nt", 9, "--sigma", 2.0,
+                 "--save", tmp / "traj.npz", "--save_all"])
+        _, lines["fit_ic"], out["fit_ic_s"] = run_cli([
+            "fit-ic", "--mesh_size", 10, "--nt", 9, "--sigma", 2.0,
+            "--observed", tmp / "traj.npz", "--steps", 5, "--lr", 0.002,
+            "--smoothness", 1e-4])
+        run_cli(["solve", "--mesh_size", 8, "--nt", 9, *pulse, "--robin",
+                 "right=0.5,top=0.5", "--save", tmp / "dep.npz",
+                 "--save_all"])
+        _, lines["fit_deposition"], out["fit_deposition_s"] = run_cli([
+            "fit-deposition", "--mesh_size", 8, "--nt", 9, *pulse,
+            "--robin", "right=0.5,top=0.5", "--observed", tmp / "dep.npz",
+            "--alpha0", 0.2, "--steps", 5, "--lr", 0.1])
+        md = apt.MeshData(apt.create_mesh(8, 20.0), apt.Domain(), nt=9)
+        p = apt.SquarePulseProblem(v=(0.0, 0.0), D=1.0)
+        p.robin_sides = {"right": 0.5}
+        with torch.no_grad():
+            obs = inverse.solve_snapshots(p, md,
+                                          robin_g_const={"right": 0.05})
+        save_field(str(tmp / "exch.npz"), obs, times=md.time_discr)
+        _, lines["fit_surface_exchange"], out["fit_exchange_s"] = run_cli([
+            "fit-exchange", "--mesh_size", 8, "--nt", 9, *pulse, "--robin",
+            "right=0.5", "--observed", tmp / "exch.npz", "--alpha0", 0.2,
+            "--c_comp0", 0.05, "--steps", 5, "--lr", 0.05])
+    out.update({f"{k}_misfit": [v["misfit_first"], v["misfit_last"]]
+                for k, v in lines.items()})
+    out["fit_ic_rel_l2_vs_problem_ic"] = lines["fit_ic"][
+        "rel_l2_vs_problem_ic"]
+    out["fit_deposition_alphas"] = lines["fit_deposition"]["alphas"]
+    out["fit_exchange"] = lines["fit_surface_exchange"]["exchange"]
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for method, keys in F4_KEYS.items():
+        line = lines[method]
+        check(line["method"] == method and set(line) == keys,
+              f"F4: {method} line keys {sorted(line)}")
+        check(line["misfit_last"] < line["misfit_first"],
+              f"F4: {method} misfit {line['misfit_first']:.4e} -> "
+              f"{line['misfit_last']:.4e}")
+
+
+def phase_inverse_fits():
+    """Slice 14: F1, F3 and F4 (F2 is in phase_grad_129), then their line.
+    Returns {kernel id: launches} of these phases."""
+    t0 = time.perf_counter()
+    launches = phase_f1()
+    launches["B7a"] += phase_f3()
+    phase_f4()
+    emit({"phase": "inverse_fits", "card": card_line(),
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4885,7 +5344,7 @@ def main() -> int:
     cache.clear()
     md_129_grad = apt.MeshData(apt.create_mesh(129, 20.0), domain, nt=129,
                                dtype=torch.float64)
-    phase_grad_129(md_129_grad)
+    _, f2_raw = phase_grad_129(md_129_grad)
     del md_129_grad
     launches["B4-raw"] = phase_i1()
     # Slice 6: general meshes, kernel B7.
@@ -4920,6 +5379,12 @@ def main() -> int:
     cli_launches = phase_cli(domain)
     for kid, n in cli_launches.items():
         launches[kid] += n
+    # Slice 14: the rest of the inverse layer, B4-raw and B7a on new paths
+    # (F2's launches are grad_129's slice-14 cases).
+    fit_launches = phase_inverse_fits()
+    fit_launches["B4-raw"] += f2_raw
+    for kid, n in fit_launches.items():
+        launches[kid] += n
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -4936,6 +5401,8 @@ def main() -> int:
                if kid in w_launches else {}),
             **({"cli_launches": cli_launches[kid]}
                if kid in cli_launches else {}),
+            **({"inverse_fits_launches": fit_launches[kid]}
+               if kid in fit_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -227,13 +227,22 @@ def test_solve_walls_obstacles_and_mesh_files(port):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["fit-ic", "--observed", "x.npz"], "A6"),
+    (["fit-ic", "--mesh_size", "4", "--observed", "x.npz"], None),
     (["ensemble"], "A7"),
-    (["fit-deposition", "--robin", "right=0.5", "--observed", "x.npz"],
-     "A6"),
-    (["fit-exchange", "--robin", "right=0.5", "--observed", "x.npz"], "A6"),
+    (["fit-deposition", "--mesh_size", "4", "--robin", "right=0.5",
+      "--observed", "x.npz"], None),
+    (["fit-exchange", "--mesh_size", "4", "--robin", "right=0.5",
+      "--observed", "x.npz"], None),
     (["fno"], "A8"),
 ], ids=["fit-ic", "ensemble", "fit-deposition", "fit-exchange", "fno"])
 def test_unported_subcommands_raise(port, argv, item):
+    """``ensemble`` and ``fno`` refuse, naming their ROADMAP.md item;
+    ``fit-ic``, ``fit-deposition`` and ``fit-exchange`` are ported
+    (tests/test_torch_port_cli_fits.py) and get as far as reading the
+    missing observations."""
+    if item is None:
+        with pytest.raises(FileNotFoundError, match="x.npz"):
+            port(argv)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         port(argv)

@@ -80,6 +80,8 @@ def test_port_imports_no_jax():
         import scripts.torch_port_unsteady_wind
         import scripts.torch_port_unsteady_checks
         import scripts.torch_port_large_mesh_policy
+        import scripts.torch_port_wind_fit_stability
+        import scripts.torch_port_dispatch_count
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu")
                or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
@@ -99,6 +101,8 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "scripts" / "torch_port_unsteady_wind.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_checks.py")
     files.append(REPO / "scripts" / "torch_port_large_mesh_policy.py")
+    files.append(REPO / "scripts" / "torch_port_wind_fit_stability.py")
+    files.append(REPO / "scripts" / "torch_port_dispatch_count.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -163,6 +167,55 @@ def test_command_line_raises_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert '"method": "crbe"' in out.stdout.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("cmd", [
+    ["fit-ic"], ["fit-deposition", "--robin", "right=0.5"],
+    ["fit-exchange", "--robin", "right=0.5"]])
+def test_fit_subcommands_take_the_card(monkeypatch, cmd):
+    """The inverse subcommands ported in slice 14 take the card unless
+    APT_PLATFORM=cpu, and with no card raise before reading anything."""
+    from airpollution_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("APT_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([*cmd, "--mesh_size", "5", "--nt", "3", "--observed",
+                  "missing.npz"])
+
+
+def test_inverse_fits_on_cpu_tensors_build_nothing(monkeypatch):
+    """The fits, the differentiable multispecies solve and the footprint
+    run where their mesh data lives: on a CPU mesh they take the plain
+    versions of B4's raw mode and B7 (fused engine included), and never
+    build or launch a kernel."""
+    from airpollution_tpu_torch.diagnostics import inverse
+    from airpollution_tpu_torch.ops import gather
+
+    def no_build(*_a, **_k):
+        raise AssertionError("a CPU fit must not build CUDA kernels")
+
+    monkeypatch.setattr(_build, "build", no_build)
+    kernels = (fused_hbm.CANVAS_RAW_KERNEL, gather.KERNEL)
+    before = [k.launches for k in kernels]
+    md = tapt.MeshData(tapt.create_mesh(6, 20.0), tapt.Domain(), nt=4,
+                       dtype=torch.float64, device="cpu")
+    walled = tapt.SquarePulseProblem(v=(0.0, 0.0), D=1.0)
+    walled.robin_sides = {"right": 0.5}
+    obs = torch.zeros((2, md.number_of_segments), dtype=torch.float64)
+    fused = dict(engine="fused_hbm", chebyshev_iters=4, steps=1)
+    inverse.fit_surface_exchange(obs, md, walled, snapshot_indices=[1, 3],
+                                 **fused)
+    inverse.fit_initial_condition(obs, md, tapt.Problem(),
+                                  snapshot_indices=[1, 3], **fused)
+    inverse.fit_wind(obs, md, snapshot_indices=[1, 3], omega_grid=[0.1],
+                     **fused)
+    F = inverse.receptor_footprint(md, md.domain, tapt.Problem(), [3])
+    chem = tapt.MultiSpeciesProblem((tapt.Problem(), tapt.Problem()),
+                                    [[0.1, 0.0], [-0.1, 0.0]])
+    C = inverse.solve_multispecies_snapshots(chem, md)
+    assert F.device.type == C.device.type == "cpu"
+    assert [k.launches for k in kernels] == before
 
 
 def test_pinn_unported_methods_raise():
@@ -412,9 +465,17 @@ def test_multispecies_unported_options_raise():
     C0 = s.set_initial_condition()
     base = dict(mesh_data=s.mesh_data, problem=s.problem, dt=s.dt, order=1,
                 tol=1e-8, maxiter=10)
-    for extra in (dict(differentiable=True), dict(R=s.problem.R)):
-        with pytest.raises(NotImplementedError):
-            multispecies.run_multispecies_loop(ops, C0, **base, **extra)
+    # The differentiable loop and the R override are ported
+    # (tests/test_torch_port_multispecies_adjoint.py); the differentiable
+    # loop is BiCGStab-only, as in the JAX package.
+    with pytest.raises(ValueError, match="bicgstab"):
+        multispecies.run_multispecies_loop(ops, C0, **base,
+                                           differentiable=True,
+                                           solver="chebyshev")
+    same = [multispecies.run_multispecies_loop(ops, C0, **base, **extra)[0]
+            for extra in ({}, dict(R=s.problem.R),
+                          dict(differentiable=True))]
+    assert torch.equal(same[0], same[1]) and torch.equal(same[0], same[2])
 
 
 def test_gather_and_native_modules_import_without_a_toolchain():

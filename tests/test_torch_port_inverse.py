@@ -154,8 +154,9 @@ def test_fused_engine_keeps_robin_rows(monkeypatch):
 def test_engine_routing_and_unported_options(monkeypatch):
     """'auto' keeps meshes below FUSED_ENGINE_MIN_N on the scan engine;
     'fused_hbm' runs every primal and adjoint sweep through B4's raw mode
-    (its plain version on the CPU, no launch); the Robin overrides are not
-    ported yet."""
+    (its plain version on the CPU, no launch); the Robin overrides are
+    ported (tests/test_torch_port_inverse_robin.py): they must name the
+    problem's Robin sides."""
     assert tinv.FUSED_ENGINE_MIN_N == 320
     calls = []
     real = fused_hbm.plain_canvas_raw
@@ -177,10 +178,16 @@ def test_engine_routing_and_unported_options(monkeypatch):
     assert fused_hbm.CANVAS_RAW_KERNEL.launches == 0
     with pytest.raises(ValueError, match="engine"):
         tinv.solve_final_state(tapt.Problem(), tmd, engine="pallas")
-    for kw in (dict(robin_alpha={"bottom": 0.1}),
-               dict(robin_g_const={"bottom": 0.1})):
-        with pytest.raises(NotImplementedError):
-            tinv.solve_final_state(tapt.Problem(), tmd, **kw)
+    with pytest.raises(ValueError, match="robin_sides"):
+        tinv.solve_final_state(_RobinPlume(), tmd,
+                               robin_alpha={"bottom": 0.1})
+    calls.clear()
+    alpha = torch.tensor(0.1, dtype=F64, requires_grad=True)
+    u = tinv.solve_final_state(_RobinPlume(), tmd, engine="fused_hbm",
+                               robin_alpha={"bottom": alpha, "top": 0.0},
+                               robin_g_const={"bottom": 0.01})
+    (g,) = torch.autograd.grad(torch.sum(u ** 2), alpha)
+    assert len(calls) == 12 and torch.isfinite(g)
 
 
 def test_problems_keep_tensor_parameters():
