@@ -14,10 +14,10 @@ subcommands, arguments, defaults and JSON lines.
 - ``fit-ic``: 4D-Var, the full initial field from a saved trajectory.
 - ``fit-deposition`` / ``fit-exchange``: wall deposition velocities, or
   (v_d, c_comp) pairs, from a trajectory saved by ``solve --robin``.
-
-``ensemble`` and ``fno`` parse as in the JAX package and raise
-``NotImplementedError``: their modules are not ported yet (``ROADMAP.md``
-A7, A8).
+- ``ensemble``: a K-member forecast under perturbed transport, solved as
+  one member batch, with exceedance maps and optional sensor placement.
+- ``fno``: train the FNO surrogate on solver-manufactured plume data;
+  holdout accuracy and inference rate.
 
 Everything runs on the CUDA card, and raises without one; with
 ``APT_PLATFORM=cpu`` in the environment it runs on the CPU.
@@ -27,14 +27,18 @@ Examples:
     python -m airpollution_tpu_torch solve --mesh_size 64 --save obs.npz
     python -m airpollution_tpu_torch invert --mesh_size 64 --observed obs.npz
     python -m airpollution_tpu_torch pinn --epochs 2000 --fourier_features 64
+    python -m airpollution_tpu_torch ensemble --members 32 --place_sensors 16
+    python -m airpollution_tpu_torch fno --mesh_size 64 --nt 128
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import sys
+import time
 
 
 def _device():
@@ -562,20 +566,160 @@ def cmd_fit_exchange(args):
     }))
 
 
-#: Subcommands whose modules are not ported yet, with the ROADMAP.md item
-#: that ports each.
-UNPORTED = {
-    "ensemble": ("diagnostics.ensemble.ensemble_forecast and "
-                 "place_sensors", "A7 (item 17)"),
-    "fno": ("models/fno.py", "A8 (item 18)"),
-}
+def cmd_ensemble(args):
+    """Ensemble forecast under perturbed transport: K members with
+    lognormal D and Gaussian v drawn around the CLI values (numpy, as the
+    JAX package draws them), integrated as one member batch
+    (diagnostics.ensemble.ensemble_forecast)."""
+    import numpy as np
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.device import synchronize
+    from airpollution_tpu_torch.diagnostics import ensemble_forecast
+
+    domain, _ = _domain_problem(args)
+    md = _mesh_data(args, domain)
+    rng = np.random.default_rng(args.seed)
+    Ds = np.exp(rng.normal(np.log(args.D), args.d_spread, args.members))
+    Vs = rng.normal(args.v, args.v_spread, (args.members, 2))
+    if args.problem == "gaussian":
+        problems = [apt.Problem(v=tuple(v), D=float(d), sigma=args.sigma)
+                    for v, d in zip(Vs, Ds)]
+    elif args.problem == "square_pulse":
+        problems = [apt.SquarePulseProblem(v=tuple(v), D=float(d))
+                    for v, d in zip(Vs, Ds)]
+    else:
+        raise SystemExit(
+            "ensemble supports --problem gaussian or square_pulse"
+        )
+    taus = tuple(args.thresholds)
+    synchronize(md.device)
+    t0 = time.time()
+    out = ensemble_forecast(md, domain, problems, order=args.order,
+                            thresholds=taus)
+    synchronize(md.device)
+    wall = time.time() - t0
+    stations, reductions = None, None
+    if args.place_sensors:
+        from airpollution_tpu_torch.diagnostics import place_sensors
+
+        stations, reductions = place_sensors(
+            out["members"], args.place_sensors, obs_std=args.obs_std)
+    if args.save:
+        extra = {}
+        if stations is not None:
+            extra = dict(stations=np.asarray(stations),
+                         station_var_reduction=np.asarray(reductions))
+        exceedance = out.get("exceedance")
+        np.savez(args.save, mean=_numpy(out["mean"]),
+                 std=_numpy(out["std"]),
+                 exceedance=np.asarray([]) if exceedance is None
+                 else _numpy(exceedance),
+                 thresholds=np.asarray(taus),
+                 midpoints=_numpy(md.midpoints), **extra)
+        print(f"saved ensemble products to {args.save}", file=sys.stderr)
+    exc = out.get("exceedance")
+    payload = {
+        "method": "ensemble", "members": args.members,
+        **_mesh_json(args), "nt": args.nt, "order": args.order,
+        "mean_field_max": float(out["mean"].max()),
+        "spread_max": float(out["std"].max()),
+        "exceedance_mean": {str(t): float(exc[i].mean())
+                            for i, t in enumerate(taus)} if exc is not None
+        else {},
+        "wall_s": round(wall, 3),
+    }
+    if stations is not None:
+        payload["stations"] = stations
+        payload["station_var_reduction_first_last"] = [
+            round(reductions[0], 6), round(reductions[-1], 6)]
+    print(json.dumps(payload))
+    return out
 
 
-def cmd_unported(args):
-    what, item = UNPORTED[args.cmd]
-    raise NotImplementedError(
-        f"`{args.cmd}` is not ported yet: it needs {what}, which "
-        f"ROADMAP.md {item} ports")
+def cmd_fno(args):
+    """Train the FNO operator surrogate on solver-manufactured plume data
+    (models/fno.py) and report holdout accuracy and inference throughput.
+    The data, the initial parameters and the batches come from
+    ``torch.Generator``s seeded with --seed, --seed + 1 and --seed + 2
+    (other numbers than the JAX package's keys give). Returns
+    ``(params, losses)``."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.device import synchronize
+    from airpollution_tpu_torch.models import fno
+
+    if args.n_times and (args.nt - 1) % args.n_times:
+        # The time-conditioned dataset snapshots every (nt-1)/n_times
+        # steps, so n_times must divide nt-1: bump nt to the next valid
+        # value instead of failing on the defaults.
+        nt_fix = args.n_times * math.ceil((args.nt - 1) / args.n_times) + 1
+        print(f"note: --nt {args.nt} -> {nt_fix} (the time-conditioned "
+              f"dataset needs n_times | nt-1)", file=sys.stderr)
+        args.nt = nt_fix
+    domain = apt.Domain()
+    md = _mesh_data(args, domain)
+    device = md.device
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+    use_dp = args.data_parallel and n_dev > 1
+    if use_dp:
+        raise NotImplementedError(
+            "fno --data_parallel over more than one device shards the "
+            "minibatch, which is not ported yet (ROADMAP.md A9)")
+    n_all = args.n_train + args.n_test
+    data_gen = torch.Generator().manual_seed(args.seed)
+    t0 = time.time()
+    if args.n_times:
+        X, Y, _, _ = fno.make_plume_time_dataset(
+            md, domain, data_gen, n_all, n_times=args.n_times)
+        rows_per = args.n_times
+    else:
+        X, Y, _ = fno.make_plume_dataset(md, domain, data_gen, n_all)
+        rows_per = 1
+    synchronize(device)
+    t_data = time.time() - t0
+    n_tr = args.n_train * rows_per
+    Xtr, Ytr, Xte, Yte = X[:n_tr], Y[:n_tr], X[n_tr:], Y[n_tr:]
+
+    params = fno.init_fno_params(
+        torch.Generator(device=device).manual_seed(args.seed + 1),
+        in_ch=X.shape[-1], modes=args.modes, width=args.width,
+        depth=args.depth, dtype=X.dtype, device=device)
+    batch = args.batch
+    t0 = time.time()
+    params, _, losses = fno.train_fno(
+        params, Xtr, Ytr, epochs=args.epochs, batch=batch, lr=args.lr,
+        generator=torch.Generator(device=device).manual_seed(args.seed + 2))
+    t_train = time.time() - t0  # train_fno ends in one read of the losses
+
+    rel_te = fno.relative_l2(params, Xte, Yte)
+    bs = min(64, Xte.shape[0])
+    with torch.no_grad():
+        fno.fno_apply(params, Xte[:bs])
+        synchronize(device)
+        t0 = time.time()
+        for _ in range(10):
+            fno.fno_apply(params, Xte[:bs])
+        synchronize(device)
+    fields_per_s = bs / ((time.time() - t0) / 10)
+
+    if args.save:
+        from airpollution_tpu_torch.io.checkpoint import save_pytree
+
+        save_pytree(args.save, params)
+        print(f"saved FNO params to {args.save}", file=sys.stderr)
+    print(json.dumps({
+        "method": "fno", **_mesh_json(args), "nt": args.nt,
+        "n_train": args.n_train, "n_test": args.n_test,
+        "n_times": args.n_times, "epochs": args.epochs, "batch": batch,
+        "data_parallel": bool(use_dp), "n_devices": 1,
+        "dataset_gen_s": round(t_data, 2), "train_s": round(t_train, 2),
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "rel_l2_holdout_vs_fem": rel_te,
+        "inference_fields_per_sec": round(fields_per_s, 1),
+    }))
+    return params, losses
 
 
 def build_parser():
@@ -731,7 +875,7 @@ def build_parser():
                          "(parallel/fno_parallel.py)")
     sp.add_argument("--save", default="",
                     help="save trained params to this .npz")
-    sp.set_defaults(fn=cmd_unported)
+    sp.set_defaults(fn=cmd_fno)
 
     sp = sub.add_parser("invert", help="Recover D from an observed field")
     common(sp)
@@ -785,7 +929,7 @@ def build_parser():
                     help="station noise assumed by --place_sensors")
     sp.add_argument("--save", default="",
                     help="save mean/std/exceedance products to .npz")
-    sp.set_defaults(fn=cmd_unported)
+    sp.set_defaults(fn=cmd_ensemble)
 
     sp = sub.add_parser(
         "fit-ic",
@@ -853,7 +997,8 @@ def build_parser():
 def main(argv=None):
     """Parse ``argv`` (default: the command line) and run the subcommand;
     returns what the subcommand's function returns (the solver or model of
-    ``solve``, ``multispecies`` and ``pinn``)."""
+    ``solve``, ``multispecies`` and ``pinn``, the forecast products of
+    ``ensemble``, the parameters and losses of ``fno``)."""
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -8,7 +8,7 @@
 // gathers, so the TPU kernels reach x through a (rows, 128) two-stage
 // gather or 128 lane rolls. A CUDA thread can load any address, so none of
 // that is carried over: one thread computes one output row,
-//   y[b, r] = sum_k vals[b, r, k] * x[b, cols[b, r, k]],
+//   y[b, r] = sum_k vals[b, r, k] * x[b, cols[r, k]],
 // in slot order k = 0 .. width-1 (a fixed order, no atomics), with a
 // grid-stride loop over the rows.
 //
@@ -22,9 +22,12 @@
 // size.
 //
 // Batches: gridDim.y runs over a batch of B right-hand sides, x and y
-// (B, n) contiguous. vals and cols advance by op_stride elements per batch
-// entry: 0 for one operator shared by the batch, n * width for a stack of
-// B operators (the per-species stacks of the multispecies solve).
+// (B, n) contiguous. vals advance by op_stride elements per batch entry:
+// 0 for one operator shared by the batch, n * width for a stack of B
+// operators (the per-species stacks of the multispecies solve, the
+// members of an ensemble). The columns do not advance: every stack shares
+// one pattern, so it keeps one (n, width) column index for all its
+// operators, and moves n * width * 4 bytes of columns less per operator.
 //
 // The launch: what does not change between products (the columns, n,
 // width and op_stride) is a host struct built once per index
@@ -45,7 +48,7 @@ struct EllIndex {
   const int* cols;
   int n;
   int width;
-  long long op_stride;
+  long long op_stride;  // between the batch's value blocks
 };
 
 template <typename T>
@@ -55,13 +58,12 @@ __global__ void ell_gather_kernel(const T* __restrict__ vals,
                                   int n, int width, long long op_stride) {
   const long long b = blockIdx.y;
   const T* vb = vals + b * op_stride;
-  const int* cb = cols + b * op_stride;
   const T* xb = x + b * n;
   T* yb = y + b * n;
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n;
        r += gridDim.x * blockDim.x) {
     const T* vr = vb + static_cast<long long>(r) * width;
-    const int* cr = cb + static_cast<long long>(r) * width;
+    const int* cr = cols + static_cast<long long>(r) * width;
     T acc = T(0);
     for (int k = 0; k < width; ++k) {
       acc += __ldg(vr + k) * __ldg(xb + __ldg(cr + k));

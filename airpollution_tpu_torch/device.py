@@ -20,3 +20,12 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def synchronize(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU),
+    so that a host clock read after it times the work and not its
+    enqueueing."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

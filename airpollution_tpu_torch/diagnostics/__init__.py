@@ -1,7 +1,15 @@
-"""Diagnostics built on the differentiable solve (inverse problems): the
-names the JAX package's ``airpollution_tpu.diagnostics`` exports from its
-``inverse`` module."""
+"""Diagnostics built on the solvers: inverse problems on the
+differentiable solve, and ensemble forecasting with data assimilation and
+sensor placement (the names the JAX package's
+``airpollution_tpu.diagnostics`` exports from its ``inverse`` and
+``ensemble`` modules)."""
 
+from airpollution_tpu_torch.diagnostics.ensemble import (
+    enkf_update,
+    ensemble_forecast,
+    place_sensors,
+    stack_problems,
+)
 from airpollution_tpu_torch.diagnostics.inverse import (
     fit_chemistry,
     fit_deposition,
@@ -18,6 +26,10 @@ from airpollution_tpu_torch.diagnostics.inverse import (
 )
 
 __all__ = [
+    "enkf_update",
+    "ensemble_forecast",
+    "place_sensors",
+    "stack_problems",
     "fit_chemistry",
     "fit_deposition",
     "fit_diffusion",

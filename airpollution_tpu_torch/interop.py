@@ -16,7 +16,8 @@ posterior from the same parameters. ``pinn_params_from_numpy`` builds
 the PINN's network (models/pinn.MLP) from the JAX package's parameter
 list, and ``pinn_params_from_file`` from a ``pinn_*.npz`` params file
 that the JAX package's ``save_pinn`` wrote, so that both packages compute
-from the same weights.
+from the same weights; ``fno_params_from_numpy`` does the same for the
+FNO surrogate's parameters (models/fno.py).
 """
 
 from __future__ import annotations
@@ -145,3 +146,20 @@ def pinn_params_from_file(path, activation="adaptive_tanh", *, dtype=None,
 
     return pinn_params_from_numpy(params_from_descriptor(path), activation,
                                   dtype=dtype, device=device)
+
+
+def fno_params_from_numpy(params, *, dtype=None, device=None):
+    """``models.fno.FNOParams`` of tensors from the JAX package's
+    ``FNOParams`` (twelve arrays in its field order, as
+    ``[np.asarray(p) for p in params]`` gives them): the layouts are the
+    same, so this is a copy. ``dtype`` defaults to the arrays' own,
+    ``device`` to the CUDA card."""
+    from airpollution_tpu_torch.models.fno import FNOParams
+
+    device = resolve_device(device)
+    arrays = list(params)
+    if len(arrays) != len(FNOParams._fields):
+        raise ValueError(f"an FNO has {len(FNOParams._fields)} parameter "
+                         f"arrays, got {len(arrays)}")
+    return FNOParams(*[torch.tensor(np.asarray(a), dtype=dtype,
+                                    device=device) for a in arrays])

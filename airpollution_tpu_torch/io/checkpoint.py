@@ -2,14 +2,16 @@
 counterpart of ``airpollution_tpu/io/checkpoint.py`` (without its orbax
 path).
 
-- :func:`save_pytree` / :func:`load_pytree` store a nest of lists, tuples
-  and dicts of tensors or arrays as a ``.npz`` of its leaves
+- :func:`save_pytree` / :func:`load_pytree` store a nest of lists, tuples,
+  NamedTuples and dicts of tensors or arrays as a ``.npz`` of its leaves
   (``leaf_0``, ``leaf_1``, ... in the JAX package's flatten order: dict
   keys sorted) beside a ``.tree`` descriptor in the JAX package's
   ``PyTreeDef(...)`` form; both writes are atomic (write, then rename).
   A network's parameters are saved in the JAX package's layout
   (``PINN.params``), so a ``pinn_*.npz`` of either package loads into the
-  other's model of the same shape.
+  other's model of the same shape; so does an FNO's ``FNOParams``
+  (models/fno.py), a NamedTuple, whose descriptor is JAX's
+  ``CustomNode(namedtuple[FNOParams], [...])``.
 - :func:`save_pinn` / :func:`load_pinn` keep the parameters, the training
   carry (``PINN.train(warm_start=True)`` continues from it) and the
   metadata; :func:`train_with_checkpoints` trains in chunks with a
@@ -38,6 +40,11 @@ def _flatten(tree):
             keys = sorted(node)
             return "{" + ", ".join(f"{k!r}: {walk(node[k])}"
                                    for k in keys) + "}"
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            # A NamedTuple (models/fno.FNOParams): JAX's custom node.
+            inner = ", ".join(walk(v) for v in node)
+            return (f"CustomNode(namedtuple[{type(node).__name__}], "
+                    f"[{inner}])")
         if isinstance(node, (list, tuple)):
             inner = ", ".join(walk(v) for v in node)
             if isinstance(node, list):
@@ -57,6 +64,8 @@ def _unflatten(like, leaves):
             return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*[build(v) for v in node])
         if isinstance(node, (list, tuple)):
             return type(node)(build(v) for v in node)
         return next(it)

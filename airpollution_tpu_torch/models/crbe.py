@@ -198,6 +198,18 @@ def obstacle_masks(mesh_data, problem):
     return tri_keep, live == 0
 
 
+def reject_robin(problem, where: str):
+    """Refuse a Robin problem on a solve path whose boundary handling is
+    all-Dirichlet: treating Robin DOFs as Dirichlet would silently zero
+    deposition walls (the JAX package's gate of the same name)."""
+    if getattr(problem, "robin_sides", None):
+        raise ValueError(
+            f"Robin boundaries (problem.robin_sides) are not supported "
+            f"by {where} — use the serial per-DOF paths "
+            f"(CRBESolver matvec_impl='ell'/'stencil'/'auto')"
+        )
+
+
 def robin_terms(mesh_data, problem, alpha_override=None):
     """``(dirichlet_mask, robin_mask, robin_alpha)`` of a problem's Robin
     sides; ``(boundary_mask, None, None)`` without any.
@@ -451,6 +463,18 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     Chebyshev interval; estimated with power_bounds when None. Returns
     ``(solutions, iterations)``.
 
+    Members: a (K, n) ``u0`` runs K independent solves at once, on
+    operators stacked along a leading member axis (``mass_diag`` and
+    ``system_diag`` (K, n), ``ka`` and ``system`` from
+    ``sparse.stack_ell``) and a problem whose hooks return (K, n)
+    (``problems.stack_problems``), the counterpart of the JAX package's
+    ``vmap`` of this loop (diagnostics/ensemble.py). Every ELL product is
+    one launch of kernel B7 over the stack; BiCGStab is
+    ``linalg.bicgstab_members`` (one host read per iteration for all
+    members; ``iterations`` then holds a (K,) tensor per step), the
+    only solver of the member axis. ``solutions`` is then (nt, K, n), or
+    (1, K, n) for the final state only. Not differentiable.
+
     ``differentiable=True`` makes the loop differentiable in the problem's
     tensor parameters and in ``u0``, as the JAX loop's: each step's solve
     is linalg.differentiable_solve (BiCGStab) or
@@ -476,6 +500,10 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
     if differentiable and collect_iters:
         raise ValueError("differentiable=True cannot collect iteration "
                          "counts (the solve is an implicit primitive)")
+    members = u0.dim() == 2
+    if members and (differentiable or ops.system.vals.dim() != 3):
+        raise ValueError("a (K, n) member state needs operators stacked "
+                         "per member and differentiable=False")
     md = mesh_data
     midpoints = md.midpoints
     nt = md.nt
@@ -502,7 +530,9 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
                 load = load + torch.where(side_masks[side], lengths * g, 0.0)
             return load
 
-    if matvec is None:
+    if matvec is None and members:
+        matvec = partial(sparse.ell_matvec_stacked, ops.system)
+    elif matvec is None:
         matvec = linalg.BoundMatvec(_ell_matvec(ops.system),
                                     ops.system.vals)
     if ka_matvec is None:
@@ -519,6 +549,9 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
         raise ValueError(f"unknown solver {solver!r}")
     if source_quadrature not in ("mass_lumped", "reference"):
         raise ValueError(f"unknown source_quadrature {source_quadrature!r}")
+    if members and solver != "bicgstab":
+        raise ValueError("a (K, n) member state is solved by BiCGStab "
+                         "(solver='bicgstab')")
     if solver == "chebyshev" and bounds is None:
         # The interval parameterises the polynomial; it carries no gradient
         # (the implicit-function rule treats the solve as A^-1).
@@ -580,8 +613,10 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
             res = linalg.chebyshev(matvec, b, x0=x0, bounds=bounds,
                                    iters=chebyshev_iters, precond=precond)
         else:
-            res = linalg.bicgstab(matvec, b, x0=x0, tol=tol,
-                                  maxiter=maxiter, precond=precond)
+            bicgstab = (linalg.bicgstab_members if members
+                        else linalg.bicgstab)
+            res = bicgstab(matvec, b, x0=x0, tol=tol, maxiter=maxiter,
+                           precond=precond)
         return res.x, res.iterations
 
     def step(u, u_prev, t):
@@ -611,7 +646,7 @@ def run_time_loop(ops: GlobalOperators, u0, *, mesh_data, problem, dt, order,
         solutions = torch.stack(snaps)
     else:
         # Final state only, with the boundary lift applied.
-        solutions = (u + lift_at(t0 + dt * (nt - 1)))[None, :]
+        solutions = (u + lift_at(t0 + dt * (nt - 1)))[None]
     return solutions, iters
 
 

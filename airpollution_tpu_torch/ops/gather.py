@@ -5,7 +5,9 @@
 reads its row's values and int32 columns and gathers x through the
 read-only cache (``csrc/ell_gather.cu``). A second grid dimension runs
 a batch of right-hand sides, over one shared operator or over a stack of
-operators. It is the matvec of every general-mesh (ELL) solve, reached
+operators; a stack shares one pattern, so it keeps one (n, w) column
+index, which the kernel reads for every operator. It is the matvec of every
+general-mesh (ELL) solve and of the ensembles' member batches, reached
 through ``ops/sparse.ell_matvec`` and ``ell_matvec_stacked``, whose
 backward runs it again over the transposed values. The int32 columns are
 checked once, when the operator's index is built (:class:`KernelIndex`),
@@ -49,45 +51,47 @@ def fits_vmem(n: int, dtype_bytes: int = 4,
 
 
 def gather_cols(x, cols):
-    """``x[..., cols]`` for one operator's int64 ``cols`` (n, w) and x
-    (..., n); per operator for a stack (B, n, w) and x (B, n)."""
-    if cols.dim() == 2:
-        return x[..., cols]
-    K, n, width = cols.shape
-    return torch.gather(x, 1, cols.reshape(K, n * width)).reshape(K, n,
-                                                                   width)
+    """``x[..., cols]`` for int64 ``cols`` (n, w) and x (..., n): every
+    row of x gathered on the one index, as one operator over a batch and
+    a stack of operators over its members both need. No copy of the
+    columns is made."""
+    return x[..., cols]
 
 
 def plain_matvec(vals, cols, x):
-    """The plain version: ``vals`` and int64 ``cols`` (n, w) with x
-    (..., n), or a stack (B, n, w) with x (B, n)."""
+    """The plain version: ``vals`` (n, w) with x (..., n), or a stack
+    (B, n, w) with x (B, n), on the int64 ``cols`` (n, w)."""
     return torch.sum(vals * gather_cols(x, cols), dim=-1)
 
 
 class KernelIndex:
-    """Kernel B7's view of one operator's int32 columns, (n, w) or a stack
-    (B, n, w): checked once, with the launch structure built from them
-    (their pointer, n, w and the per-operator stride). It keeps the
-    columns, so the pointer stays valid while it lives; a copy or a
-    pickle binds the copied columns anew. ``sparse.ell_index``,
-    ``stack_ell`` and ``unstack_ell`` build one per index."""
+    """Kernel B7's view of one pattern's int32 columns (n, w): checked
+    once, with the launch structure built from them (their pointer, n, w
+    and the value stride). ``stack=B`` makes it the index of a stack of B
+    operators on that pattern: values (B, n, w) at a stride of n * w, the
+    columns shared by all of them. It keeps the columns, so the pointer stays
+    valid while it lives; a copy or a pickle binds the copied columns
+    anew. ``sparse.ell_index``, ``stack_ell`` and ``unstack_ell`` build
+    one per index."""
 
-    def __init__(self, cols32):
+    def __init__(self, cols32, stack=None):
         if cols32.dtype != torch.int32:
             raise ValueError("kernel B7 takes int32 columns")
-        if cols32.dim() not in (2, 3) or not cols32.is_contiguous():
+        if cols32.dim() != 2 or not cols32.is_contiguous():
             raise ValueError("kernel B7's columns must be a contiguous "
-                             "(n, w) or (B, n, w) tensor")
-        n, width = cols32.shape[-2:]
+                             "(n, w) tensor")
+        n, width = cols32.shape
         self.cols32 = cols32
-        self.shape = cols32.shape
+        self.stack = stack
+        self.shape = cols32.shape if stack is None \
+            else torch.Size((stack, n, width))
         self.device = cols32.get_device()
         self.struct = ctypes.pointer(_Index(
             cols=cols32.data_ptr(), n=n, width=width,
-            op_stride=0 if cols32.dim() == 2 else n * width))
+            op_stride=0 if stack is None else n * width))
 
     def __reduce__(self):
-        return KernelIndex, (self.cols32,)
+        return KernelIndex, (self.cols32, self.stack)
 
 
 def kernel_matvec(vals, index, x):

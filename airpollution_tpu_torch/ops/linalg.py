@@ -172,6 +172,80 @@ def bicgstab(
     return SolveResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))
 
 
+def bicgstab_members(
+    matvec: Callable,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-8,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    precond: Optional[Callable] = None,
+) -> SolveResult:
+    """:func:`bicgstab` over K independent systems at once, the
+    counterpart of JAX's ``vmap`` of its ``bicgstab``: ``b`` and ``x0`` are
+    (K, n), ``matvec`` and ``precond`` map (K, n) to (K, n) member by
+    member (a stacked operator, ``sparse.ell_matvec_stacked``).
+
+    Each member has its own target ``max(tol ||b_k||, atol)``, its own
+    rho, alpha and omega and its own division guards. A member that meets
+    its target, or has run ``maxiter`` iterations, keeps its iterate and
+    its count unchanged from then on, as the ``select`` of JAX's batched
+    ``while_loop`` keeps them, so each member's result and count are
+    those of its serial solve. The loop reads the host once per
+    iteration, whether any member is still active, for all of them.
+    Returns ``iterations`` and ``residual_norm`` as (K,) tensors."""
+    M = precond or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    target = torch.clamp(tol * torch.linalg.norm(b, dim=-1), min=atol)
+    eps = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
+
+    def guard(a):
+        return torch.where(a == 0, eps, a)
+
+    def dot(u, w):
+        return torch.sum(u * w, dim=-1)
+
+    r = b - matvec(x)
+    rhat = r
+    p = torch.zeros_like(b)
+    v = torch.zeros_like(b)
+    ones = torch.ones(b.shape[0], dtype=b.dtype, device=b.device)
+    rho, alpha, omega = ones, ones, ones
+    iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
+    k = 0
+    while k < maxiter:
+        # Every active member has run k iterations, so k < maxiter is each
+        # one's own count test.
+        active = torch.linalg.norm(r, dim=-1) > target
+        if not bool(active.any()):
+            break
+        rho_new = dot(rhat, r)
+        beta = (rho_new / guard(rho)) * (alpha / guard(omega))
+        p_new = r + beta[:, None] * (p - omega[:, None] * v)
+        phat = M(p_new)
+        v_new = matvec(phat)
+        alpha_new = rho_new / guard(dot(rhat, v_new))
+        s = r - alpha_new[:, None] * v_new
+        shat = M(s)
+        t = matvec(shat)
+        omega_new = dot(t, s) / guard(dot(t, t))
+        x_new = x + alpha_new[:, None] * phat + omega_new[:, None] * shat
+        r_new = s - omega_new[:, None] * t
+        col = active[:, None]
+        x = torch.where(col, x_new, x)
+        r = torch.where(col, r_new, r)
+        p = torch.where(col, p_new, p)
+        v = torch.where(col, v_new, v)
+        rho = torch.where(active, rho_new, rho)
+        alpha = torch.where(active, alpha_new, alpha)
+        omega = torch.where(active, omega_new, omega)
+        iters = iters + active.to(torch.int64)
+        k += 1
+    return SolveResult(x=x, iterations=iters,
+                       residual_norm=torch.linalg.norm(r, dim=-1))
+
+
 def chebyshev(
     matvec: Callable,
     b: torch.Tensor,

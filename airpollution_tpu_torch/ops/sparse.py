@@ -118,8 +118,9 @@ def _transposed_vals(vals, tslot):
 
 class EllMatvec(torch.autograd.Function):
     """``y = A x`` over values ``vals`` (n, w) with x (..., n), or a stack
-    (K, n, w) with x (K, n). The forward is kernel B7 on CUDA tensors and
-    the plain gather on CPU ones; the backward is differentiable again:
+    (K, n, w) with x (K, n), on the columns (n, w). The forward is kernel
+    B7 on CUDA tensors and the plain gather on CPU ones; the backward is
+    differentiable again:
 
     - x_bar = A^T y_bar, this Function over the transposed values, so B7
       runs transposed;
@@ -153,7 +154,7 @@ class EllMatvec(torch.autograd.Function):
                                     cols, b7, tslot)
         if ctx.needs_input_grad[0]:
             vals_bar = y_bar[..., None] * gather.gather_cols(x, cols)
-            if cols.dim() == 2 and vals_bar.dim() > 2:
+            if vals_bar.dim() > vals.dim():  # one operator, a batch of x
                 vals_bar = vals_bar.reshape((-1,) + vals.shape).sum(0)
         return vals_bar, x_bar, None, None, None
 
@@ -177,34 +178,39 @@ def ell_matvec(A: EllMatrix, x: torch.Tensor) -> torch.Tensor:
 
 
 def ell_matvec_stacked(A: EllMatrix, X: torch.Tensor) -> torch.Tensor:
-    """Y[k] = A_k @ X[k] for a stack of operators with (K, n, width)
-    values and columns, and a (K, n) X."""
+    """Y[k] = A_k @ X[k] for a stack of operators (:func:`stack_ell`:
+    (K, n, width) values on one shared (n, width) column index) and a
+    (K, n) X: one launch of kernel B7 for the whole stack."""
     return EllMatvec.apply(A.vals, X, A.cols, A.b7, A.tslot)
 
 
 def stack_ell(mats) -> EllMatrix:
-    """A stack of operators on one pattern: values, int64 and int32
-    columns stacked along a new leading axis (kernel B7 steps through
-    both per operator, on a launch index of its own), one transposition
-    map for all."""
-    def stack(name):
-        parts = [getattr(m, name) for m in mats]
-        return None if parts[0] is None else torch.stack(parts)
-
-    tslot = mats[0].tslot
-    if tslot is not None and not all(
-            m.tslot is not None and torch.equal(m.tslot, tslot)
-            for m in mats[1:]):
-        raise ValueError("stacked operators must share one pattern")
-    cols32 = stack("cols32")
-    return EllMatrix(stack("vals"), stack("cols"), cols32, tslot,
-                     None if cols32 is None else gather.KernelIndex(cols32))
+    """A stack of operators on one pattern: the values stacked along a new
+    leading axis, the pattern's index (int64 and int32 columns, the
+    transposition map) kept once and shared by every operator; kernel B7
+    reads the shared columns for every operator
+    (``gather.KernelIndex(stack=)``).
+    Raises ValueError when the operators' patterns differ."""
+    first = mats[0]
+    for m in mats[1:]:
+        same = (m.cols is first.cols or torch.equal(m.cols, first.cols))
+        if first.tslot is not None:
+            same = same and m.tslot is not None and (
+                m.tslot is first.tslot or torch.equal(m.tslot, first.tslot))
+        if not same:
+            raise ValueError("stacked operators must share one pattern")
+    cols32 = first.cols32
+    return EllMatrix(torch.stack([m.vals for m in mats]), first.cols, cols32,
+                     first.tslot,
+                     None if cols32 is None
+                     else gather.KernelIndex(cols32, stack=len(mats)))
 
 
 def unstack_ell(A: EllMatrix, k: int) -> EllMatrix:
-    """Operator ``k`` of a stack, on a launch index of its own."""
-    cols32 = None if A.cols32 is None else A.cols32[k]
-    return EllMatrix(A.vals[k], A.cols[k], cols32, A.tslot,
+    """Operator ``k`` of a stack, on the stack's columns with a launch
+    index of its own."""
+    cols32 = A.cols32
+    return EllMatrix(A.vals[k], A.cols, cols32, A.tslot,
                      None if cols32 is None else gather.KernelIndex(cols32))
 
 

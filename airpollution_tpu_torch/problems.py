@@ -22,6 +22,7 @@ with defaults ``v=(1.0, 0.5), D=0.1, sigma=1.0``.
 from __future__ import annotations
 
 import abc
+import copy
 import dataclasses
 import math
 
@@ -748,6 +749,89 @@ class TurningWindProblem(AdDifProblem):
 
     def source_term(self, xyt):
         return torch.zeros_like(xyt[..., 0])
+
+
+#: The physical parameters of each problem class, in the JAX package's
+#: pytree order (the ``_register_problem_pytree`` calls of
+#: ``airpollution_tpu/problems.py``): what may differ between the members
+#: of an ensemble. ``robin_sides`` and ``obstacles`` are static
+#: configuration, shared by every member. As there, a subclass is not
+#: covered by its base class's entry.
+MEMBER_FIELDS = {
+    Problem: ("v", "D", "sigma", "reaction"),
+    ShiftedPlumeProblem: ("v", "D", "sigma", "cx", "cy", "reaction"),
+    TurningWindProblem: ("v", "D", "speed", "omega_t", "phi0", "sigma",
+                         "x0", "y0", "reaction"),
+    AnisotropicPlumeProblem: ("v", "D", "Dx", "Dy", "sigma", "reaction"),
+    SquarePulseProblem: ("v", "D", "lo", "hi", "amplitude", "reaction"),
+    GaussianSourceProblem: ("v", "D", "q", "xs", "ys", "sigma_s",
+                            "reaction"),
+    RotatingPlumeProblem: ("v", "D", "omega", "sigma", "x0", "y0", "cx",
+                           "cy", "reaction"),
+}
+
+
+def _static_config(problem):
+    """What every member of an ensemble must share: the class, the Robin
+    sides and the obstacles (the JAX pytree's treedef)."""
+    rb = getattr(problem, "robin_sides", None)
+    ob = getattr(problem, "obstacles", None)
+    return (type(problem),
+            None if rb is None else tuple(sorted(rb.items())),
+            None if ob is None else tuple(tuple(r) for r in ob))
+
+
+def _describe(config):
+    cls, rb, ob = config
+    return f"{cls.__name__}(robin_sides={rb}, obstacles={ob})"
+
+
+def stack_problems(problems, *, dtype=torch.float64, device="cpu"):
+    """One problem standing for all of ``problems`` (same class and static
+    configuration): each parameter of :data:`MEMBER_FIELDS` becomes a
+    (K, 1) tensor of ``dtype`` on ``device``, a constant wind ``v`` a
+    tuple of two such columns, and a parameter that is a tensor of shape
+    s a (K, *s) tensor. Every hook the time loop calls
+    (``initial_condition_fn``, ``boundary_fn``, ``source_term``) then
+    broadcasts the (K, 1) columns against (n,) point coordinates and
+    returns (K, n): the member axis leads. (A (K, 2) wind tensor would
+    not do: ``self.v[0]`` would read member 0's wind.) Other attributes
+    are member 0's. Raises ValueError for an empty list or members that
+    differ in class or static configuration, TypeError for a class
+    without an entry in :data:`MEMBER_FIELDS`."""
+    if not problems:
+        raise ValueError("empty ensemble")
+    ref = _static_config(problems[0])
+    for p in problems[1:]:
+        cfg = _static_config(p)
+        if cfg != ref:
+            raise ValueError(
+                "ensemble members must share a problem class and static "
+                f"configuration: {_describe(cfg)} != {_describe(ref)}")
+    fields = MEMBER_FIELDS.get(type(problems[0]))
+    if fields is None:
+        raise TypeError(
+            f"{type(problems[0]).__name__} names no member parameters: add "
+            "its fields to problems.MEMBER_FIELDS")
+    K = len(problems)
+
+    def column(values):
+        t = torch.stack([torch.as_tensor(v, dtype=dtype, device=device)
+                         for v in values])
+        return t.reshape(K, 1) if t.dim() == 1 else t
+
+    batched = copy.copy(problems[0])
+    for f in fields:
+        values = [getattr(p, f) for p in problems]
+        if values[0] is None:
+            stacked = None
+        elif f == "v" or isinstance(values[0], tuple):
+            stacked = tuple(column([v[i] for v in values])
+                            for i in range(len(values[0])))
+        else:
+            stacked = column(values)
+        setattr(batched, f, stacked)
+    return batched
 
 
 @dataclasses.dataclass(frozen=True)

@@ -120,13 +120,26 @@ Phases, each printing one JSON line:
     receptor_footprint (B7a) at 17^2, f64, card against CPU (<= 1e-10);
     F4, ``fit-ic``, ``fit-deposition`` and ``fit-exchange`` through the
     command line (the JAX CLI's keys, a falling misfit);
-16. the PINN (slice 11), then the kernels line (launches on each path,
+16. slice 15, ensembles and the FNO surrogate: E1, ``ensemble
+    --place_sensors 16`` at the CLI's defaults (32 members at 64^2,
+    nt=128, CN; every ELL product one launch of B7a over the member
+    stack, on one shared column index) against serial solves, the f64
+    member loop's BiCGStab counts against serial ones, B7a's stacked
+    mode against its plain version, enkf_update and place_sensors card
+    against CPU; E2, scripts/torch_port_ensemble_demo.py at the row of
+    results_snapshot/ensemble_tpu.csv (64 members, f64) against that
+    CSV's accuracy figures, batched against 4 serial members; N1, ``fno
+    --mesh_size 64 --nt 128 --epochs 500`` at the CLI's widths, with the
+    JAX tests' gates and a forward pass and three AdamW steps card
+    against CPU in f64;
+17. the PINN (slice 11), then the kernels line (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
     paths apart as ``time_varying_launches``, for B1, B2 and B6 those of
     slice 13's as ``cli_launches``, for B3, B4-raw and B7a those of slice
-    14's as ``inverse_fits_launches``).
+    14's as ``inverse_fits_launches``, for B7a those of slice 15's as
+    ``ensemble_fno_launches``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -5245,6 +5258,387 @@ def phase_inverse_fits():
     return launches
 
 
+# Slice 15: ensembles (E1, E2) and the FNO surrogate (N1).
+# E1, the CLI's ensemble at its defaults with 16 stations: 32 members at
+# 64^2 (12,033 DOFs), nt=128, CN, float32; members against serial solves
+# to E_MEMBER_TOL of max|u| (float32 BiCGStab to tol 1e-7, dots summed in
+# another order batched than serially).
+E1_ARGV = ["ensemble", "--place_sensors", 16]
+E_MEMBER_TOL = 1e-5
+E_F64_TOL = 1e-10  # batched against serial members and card against CPU
+E_F64_DS = (0.01, 0.1, 0.4, 2.0)  # tests/test_torch_port_ensemble.py's
+# E2: the row of results_snapshot/ensemble_tpu.csv (scripts/ensemble_demo.py
+# at 64 members, 64^2, nt=129, T=5, f64): its accuracy figures, held to
+# E2_TOL. They are numbers of the FEM ensemble against its closed form,
+# not times.
+E2_CSV = {"ensemble_mean_rel_l2": 0.080643,
+          "fem_exceedance_mean": (0.013969, 0.007316, 0.003137),
+          "analytic_exceedance_mean": (0.013849, 0.007235, 0.003067)}
+E2_TOL = 1e-3
+E2_SEQUENTIAL = 4  # serial members timed (all 64 would take minutes)
+# N1, the CLI's fno at full width (2,365,921 parameters, as
+# results_snapshot/fno_surrogate.json): 64^2 mesh (a 63^2 grid), nt=128,
+# 128 + 32 problems, batch 16, lr 1.5e-3; the CLI's 2,000 epochs cut to
+# 500. The gates of the JAX package's tests/test_fno.py:179-190 (the
+# loss falls 10x, relative_l2 on the training rows below 1), and the
+# holdout's relative_l2 below 1 too. The holdout gate is a weak one: a
+# zero prediction scores 1.0, and an H100 run read 0.983 at 500 epochs
+# and 1.115 at 1,000 (PERF.md, section 6; why more epochs read worse was
+# not measured). What holds the surrogate's arithmetic is the f64 card
+# against CPU comparison to N1_TOL.
+N1_ARGV = ["fno", "--mesh_size", 64, "--nt", 128, "--epochs", 500]
+N1_TRAIN = 128
+N1_PARAMS = 2_365_921
+N1_TOL = 1e-10  # card against CPU, f64, relative to the largest value
+
+
+def e1_f64_members():
+    """E1's f64 check at tests/test_torch_port_ensemble.py's size (8^2,
+    nt=9, T=2): the member loop's outputs and per-member BiCGStab counts
+    on the card against serial CRBESolver(matvec_impl="ell") solves on
+    the card. Returns (max difference, counts equal)."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import ensemble
+    from airpollution_tpu_torch.models import crbe
+
+    dom = apt.Domain(T=2.0)
+    md = apt.MeshData(apt.create_mesh(8, 20.0), dom, nt=9,
+                      dtype=torch.float64)
+    probs = [apt.Problem(v=(1.0, 0.5), D=d) for d in E_F64_DS]
+    dt = dom.T / (md.nt - 1)
+    worst, same = 0.0, True
+    for order in (1, 2):
+        batched = ensemble.stack_problems(probs, dtype=torch.float64,
+                                          device=md.device)
+        sols, its = crbe.run_time_loop(
+            ensemble.member_operators(md, probs, dt, order),
+            ensemble.member_initial_state(md, batched, len(probs)),
+            mesh_data=md, problem=batched, dt=dt, order=order, tol=1e-7,
+            maxiter=200, store_solutions=False, collect_iters=True)
+        counts = torch.stack(its).T.tolist()
+        for k, p in enumerate(probs):
+            s = crbe.CRBESolver(dom, p, md, matvec_impl="ell",
+                                time_scheme_order=order)
+            ref = s.solve(store_solutions=False, collect_iters=True)[0]
+            worst = max(worst, float((sols[0, k] - ref).abs().max()))
+            same = same and s.solver_iterations == counts[k]
+    return worst, same
+
+
+def b7a_stacked_vs_single(A, X):
+    """Whether B7a's stacked product (one launch over the K operators on
+    their one shared column index) equals, bit for bit, K launches of one
+    operator each (``unstack_ell``): the same products, summed in the
+    same order."""
+    import torch
+
+    from airpollution_tpu_torch.ops import sparse
+
+    single = torch.stack([sparse.ell_matvec(sparse.unstack_ell(A, k), X[k])
+                          for k in range(A.vals.shape[0])])
+    return bool(torch.equal(sparse.ell_matvec_stacked(A, X), single))
+
+
+def e1_kernel_vs_plain(md, problems):
+    """B7a's stacked mode on E1's 32 system and K + A operators (one
+    shared column index) against its plain version, f32 on E1's mesh and
+    f64 on the same problems' f64 assembly. Returns ({dtype: max error
+    relative to max|y|}, {the f32 stacked product's ms, its plain
+    version's, its bound})."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics import ensemble
+    from airpollution_tpu_torch.ops import gather, sparse
+
+    out = {}
+    md64 = apt.MeshData(md.mesh, md.domain, nt=md.nt, dtype=torch.float64)
+    for name, m in (("float32", md), ("float64", md64)):
+        ops = ensemble.member_operators(m, problems,
+                                        m.domain.T / (m.nt - 1), 2)
+        check(ops.system.cols32.dim() == 2 and ops.system.b7.stack
+              == len(problems), "E1: the stack does not share its columns")
+        X = torch.tensor(np.random.default_rng(5).standard_normal(
+            (len(problems), m.number_of_segments)), dtype=m.dtype,
+            device=m.device)
+        worst = 0.0
+        for A in (ops.system, ops.ka):
+            y = sparse.ell_matvec_stacked(A, X)
+            ref = gather.plain_matvec(A.vals, A.cols, X)
+            worst = max(worst, float((y - ref).abs().max()
+                                     / ref.abs().max()))
+        out[name] = worst
+        if name == "float32":
+            A = ops.system
+            K, n, w = A.vals.shape
+            out["float32_bitwise_vs_single_operators"] = \
+                b7a_stacked_vs_single(A, X)
+            # Bytes: the K value blocks, the one shared column index, x
+            # and y, each once.
+            b_ms, by = bound(K * n * w * 4 + n * w * 4 + 2 * K * n * 4,
+                             2 * K * n * w)
+            times = {"ms": cuda_ms(lambda: sparse.ell_matvec_stacked(A, X),
+                                   200),
+                     "plain_ms": cuda_ms(lambda: gather.plain_matvec(
+                         A.vals, A.cols, X), 50),
+                     "bound_ms": b_ms, "bound_by": by}
+    return out, times
+
+
+def e1_assimilation(members, stations):
+    """enkf_update's analysis on identical noise and place_sensors, card
+    against CPU in f64, on E1's members (f64 copies). Returns (relative
+    differences, picks equal)."""
+    import numpy as np
+    import torch
+
+    from airpollution_tpu_torch.diagnostics import ensemble
+
+    X = members.double()
+    rng = np.random.default_rng(3)
+    sensors = list(stations)
+    y = X.mean(0)[sensors] + 0.01 * torch.tensor(
+        rng.standard_normal(len(sensors)), dtype=X.dtype, device=X.device)
+    eps = torch.tensor(0.01 * rng.standard_normal((X.shape[0],
+                                                   len(sensors))),
+                       dtype=X.dtype, device=X.device)
+    idx = torch.tensor(sensors, device=X.device)
+    card = ensemble._enkf_update(X, y, idx, 0.01, eps, 1.1)
+    cpu = ensemble._enkf_update(X.cpu(), y.cpu(), idx.cpu(), 0.01,
+                                eps.cpu(), 1.1)
+    rel = {"enkf": float((card.cpu() - cpu).abs().max() / cpu.abs().max())}
+    picks_c, reds_c = ensemble.place_sensors(X, 16, obs_std=0.01)
+    picks_h, reds_h = ensemble.place_sensors(X.cpu(), 16, obs_std=0.01)
+    rel["place_sensors"] = max(abs(a - b) / abs(b)
+                               for a, b in zip(reds_c, reds_h))
+    return rel, picks_c == picks_h
+
+
+def phase_e1():
+    """E1: ``ensemble --place_sensors 16`` at the CLI's defaults through
+    cli.main (32 members of 12,033 DOFs, nt=128, CN, f32: every ELL
+    product one launch of kernel B7a over the member stack); 4 members
+    against serial solves; the f64 member loop against serial solves with
+    equal BiCGStab counts; B7a's stacked mode against its plain version;
+    enkf_update and place_sensors, card against CPU. Returns its B7a
+    launches."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models import crbe
+
+    t0 = time.perf_counter()
+    reset_counts()
+    prods, line, wall = run_cli(E1_ARGV)
+    b7 = launches_of("B7a")
+    members = prods["members"]
+    K, n = members.shape
+    out = {"phase": "e1_ensemble_cli", "card": card_line(), "members": K,
+           "dofs": n, "nt": line["nt"], "wall_s": line["wall_s"],
+           "cli_s": wall, "member_steps_per_s":
+               K * (line["nt"] - 1) / line["wall_s"],
+           "b7a_launches": b7, "stations": line["stations"],
+           "mean_field_max": line["mean_field_max"],
+           "exceedance_mean": line["exceedance_mean"]}
+    # The CLI's members: numpy draws from its seed, as cmd_ensemble makes
+    # them (the defaults: D 0.1, lognormal 0.3; v (1, 0.5) +- 0.15).
+    rng = np.random.default_rng(1234)
+    Ds = np.exp(rng.normal(np.log(0.1), 0.3, K))
+    Vs = rng.normal([1.0, 0.5], 0.15, (K, 2))
+    problems = [apt.Problem(v=tuple(v), D=float(d), sigma=1.0)
+                for v, d in zip(Vs, Ds)]
+    domain = apt.Domain()
+    md = apt.MeshData(apt.create_mesh(64, 20.0), domain, nt=line["nt"])
+    scale = float(members.abs().max())
+    serial = 0.0
+    for k in (0, 1, K // 2, K - 1):
+        ref = crbe.CRBESolver(domain, problems[k], md, time_scheme_order=2,
+                              matvec_impl="ell").solve(
+            store_solutions=False)[0]
+        serial = max(serial, float((members[k] - ref).abs().max()) / scale)
+    out["members_vs_serial"] = serial
+    out["f64_members_vs_serial"], counts_equal = e1_f64_members()
+    out["f64_iteration_counts_equal"] = counts_equal
+    out["b7a_stacked_vs_plain"], out["b7a_stacked_times"] = \
+        e1_kernel_vs_plain(md, problems)
+    out["assimilation_card_vs_cpu"], picks_equal = e1_assimilation(
+        members, line["stations"])
+    out["place_sensors_picks_equal"] = picks_equal
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    check(bool(torch.isfinite(members).all()), "E1: non-finite members")
+    check(b7 > 0, "E1: the ensemble launched no B7a")
+    check(serial <= E_MEMBER_TOL, f"E1: members vs serial {serial:.3e}")
+    check(out["f64_members_vs_serial"] <= E_F64_TOL and counts_equal,
+          f"E1: f64 members {out['f64_members_vs_serial']:.3e}, counts "
+          f"equal {counts_equal}")
+    for name, err in out["b7a_stacked_vs_plain"].items():
+        if name.endswith("single_operators"):
+            check(err, "E1: B7a's stacked product differs from its single "
+                  "operators'")
+        else:
+            check(err <= TOL[name], f"E1: B7a stacked {name} {err:.3e}")
+    for name, err in out["assimilation_card_vs_cpu"].items():
+        check(err <= E_F64_TOL, f"E1: {name} card vs CPU {err:.3e}")
+    check(picks_equal, "E1: place_sensors picks differ card vs CPU")
+    check(len(line["stations"]) == 16, "E1: not 16 stations")
+    return b7
+
+
+def phase_e2():
+    """E2: scripts/torch_port_ensemble_demo.py at the row of
+    results_snapshot/ensemble_tpu.csv (64 members, 64^2, nt=129, T=5,
+    f64): the FEM ensemble's mean and exceedance against the closed form,
+    within E2_TOL of that CSV's figures; seconds per member batched and
+    over E2_SEQUENTIAL serial solves, timed after the batched forecasts'
+    B7a launches were read. Returns those launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from scripts import torch_port_ensemble_demo as demo
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = demo.run(members=64, mesh_size=64, nt=129, seed=1234,
+                   sequential=0)
+    b7 = launches_of("B7a")
+    domain, md, problems = demo.setup(members=64, mesh_size=64, nt=129,
+                                      seed=1234)
+    t_seq = demo.time_sequential(domain, md, problems[:E2_SEQUENTIAL])
+    rows = res["rows"]
+    out = {"phase": "e2_ensemble_demo", "card": card_line(),
+           "members": res["members"], "dofs": res["n_dofs"],
+           "ensemble_mean_rel_l2": res["ensemble_mean_rel_l2"],
+           "fem_exceedance_mean": [r["fem_exceedance_mean"] for r in rows],
+           "analytic_exceedance_mean": [r["analytic_exceedance_mean"]
+                                        for r in rows],
+           "max_prob_disagreement": [r["max_prob_disagreement"]
+                                     for r in rows],
+           "t_batched_first_s": res["t_batched_s"],
+           "t_batched_warm_s": res["t_batched_warm_s"],
+           "s_per_member_batched": res["s_per_member_batched"],
+           "n_sequential": E2_SEQUENTIAL,
+           "s_per_member_sequential": t_seq / E2_SEQUENTIAL,
+           "b7a_launches": b7, "seconds": time.perf_counter() - t0}
+    emit(out)
+    check(b7 > 0, "E2: the batched forecasts launched no B7a")
+    err = abs(res["ensemble_mean_rel_l2"] - E2_CSV["ensemble_mean_rel_l2"])
+    check(err <= E2_TOL, f"E2: ensemble mean rel_l2 "
+          f"{res['ensemble_mean_rel_l2']:.6f} vs the CSV's 0.080643")
+    for key in ("fem_exceedance_mean", "analytic_exceedance_mean"):
+        for got, want in zip(out[key], E2_CSV[key]):
+            check(abs(got - want) <= E2_TOL,
+                  f"E2: {key} {got:.6f} vs the CSV's {want}")
+    return b7
+
+
+def n1_card_vs_cpu(params, X, devices=("cuda", "cpu")):
+    """One forward pass and three AdamW steps on N1's trained parameters
+    and identical batches (f64), on the two ``devices`` (the card against
+    the CPU). Returns {what: max difference relative to the largest
+    value}."""
+    import torch
+
+    from airpollution_tpu_torch.models import fno
+
+    f64 = torch.float64
+    rows = torch.arange(8).reshape(2, 4) % X.shape[0]
+    idx = torch.stack([rows[0], rows[1], rows[0]])
+    xb = X[:8].to(f64)
+    yb = X[:8, ..., :1].to(f64) ** 2  # a target of the inputs' scale
+    out = {}
+    runs = []
+    draw = fno.batch_indices
+    try:
+        fno.batch_indices = lambda gen, n, b, e, device: idx.to(device)
+        for dev in devices:
+            p = fno.FNOParams(*[t.to(device=dev, dtype=f64) for t in params])
+            with torch.no_grad():
+                y = fno.fno_apply(p, xb.to(dev))
+            p3, _, losses = fno.train_fno(p, xb.to(dev), yb.to(dev),
+                                          epochs=3, batch=4, lr=1.5e-3)
+            runs.append((y.cpu(), [t.cpu() for t in p3], losses))
+    finally:
+        fno.batch_indices = draw
+    (yc, pc, lc), (yh, ph, lh) = runs
+    out["forward"] = float((yc - yh).abs().max() / yh.abs().max())
+    out["adamw_params"] = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(pc, ph))
+    out["adamw_losses"] = float((lc - lh).abs().max() / lh.abs().max())
+    return out
+
+
+def phase_n1():
+    """N1: ``fno --mesh_size 64 --nt 128 --epochs 500`` through cli.main
+    at the CLI's widths (2,365,921 parameters; 128 + 32 problems through
+    the member-batched ensemble, B7a stacked), f32: the last loss below
+    a tenth of the first, relative_l2 below 1 on the training rows and on
+    the holdout, all finite; the dataset seconds, training steps/s,
+    inference fields/s; then n1_card_vs_cpu. Returns the dataset's B7a
+    launches."""
+    import torch
+
+    t0 = time.perf_counter()
+    reset_counts()
+    (params, losses), line, wall = run_cli(N1_ARGV)
+    b7 = launches_of("B7a")
+    n_params = sum(p.numel() for p in params)
+    out = {"phase": "n1_fno_cli", "card": card_line(), "cli_s": wall,
+           "epochs": line["epochs"], "epochs_cut_from": 2000,
+           "n_params": n_params, "dataset_gen_s": line["dataset_gen_s"],
+           "train_s": line["train_s"],
+           "train_steps_per_s": line["epochs"] / line["train_s"],
+           "inference_fields_per_s": line["inference_fields_per_sec"],
+           "loss_first": line["loss_first"], "loss_last": line["loss_last"],
+           "rel_l2_holdout_vs_fem": line["rel_l2_holdout_vs_fem"],
+           "dataset_b7a_launches": b7}
+    # The CLI's dataset again (the same generator seed): its training
+    # rows for JAX's gate and the f64 check.
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models import fno
+
+    md = apt.MeshData(apt.create_mesh(64, 20.0), apt.Domain(), nt=128)
+    n_all = N1_TRAIN + 32
+    X, Y, _ = fno.make_plume_dataset(md, apt.Domain(),
+                                     torch.Generator().manual_seed(0), n_all)
+    out["rel_l2_train_vs_fem"] = fno.relative_l2(params, X[:N1_TRAIN],
+                                                 Y[:N1_TRAIN])
+    out["rel_l2_holdout_again"] = fno.relative_l2(params, X[N1_TRAIN:],
+                                                  Y[N1_TRAIN:])
+    out["card_vs_cpu_f64"] = n1_card_vs_cpu(params, X)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    check(n_params == N1_PARAMS, f"N1: {n_params} parameters")
+    check(bool(torch.isfinite(losses).all())
+          and math.isfinite(line["rel_l2_holdout_vs_fem"]),
+          "N1: non-finite losses or holdout error")
+    check(line["loss_last"] < 0.1 * line["loss_first"],
+          f"N1: loss {line['loss_first']:.4g} -> {line['loss_last']:.4g}")
+    check(out["rel_l2_train_vs_fem"] < 1.0,
+          f"N1: training rel_l2 {out['rel_l2_train_vs_fem']:.4f}")
+    check(line["rel_l2_holdout_vs_fem"] < 1.0
+          and abs(out["rel_l2_holdout_again"]
+                  - line["rel_l2_holdout_vs_fem"]) <= 1e-6,
+          f"N1: holdout rel_l2 {line['rel_l2_holdout_vs_fem']:.4f} (again "
+          f"{out['rel_l2_holdout_again']:.4f})")
+    check(b7 > 0, "N1: the dataset launched no B7a")
+    for name, err in out["card_vs_cpu_f64"].items():
+        check(err <= N1_TOL, f"N1: {name} card vs CPU {err:.3e}")
+    return b7
+
+
+def phase_ensemble_fno():
+    """Slice 15: E1, E2 and N1, then their line. Returns {kernel id:
+    launches} of these phases (B7a)."""
+    t0 = time.perf_counter()
+    b7 = phase_e1() + phase_e2() + phase_n1()
+    emit({"phase": "ensemble_fno", "card": card_line(),
+          "seconds": time.perf_counter() - t0})
+    return {"B7a": b7}
+
+
 def main() -> int:
     import torch
 
@@ -5385,6 +5779,11 @@ def main() -> int:
     fit_launches["B4-raw"] += f2_raw
     for kid, n in fit_launches.items():
         launches[kid] += n
+    # Slice 15: the ensemble and the FNO surrogate, B7a's stacked mode
+    # over the members.
+    ens_launches = phase_ensemble_fno()
+    for kid, n in ens_launches.items():
+        launches[kid] += n
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -5403,6 +5802,8 @@ def main() -> int:
                if kid in cli_launches else {}),
             **({"inverse_fits_launches": fit_launches[kid]}
                if kid in fit_launches else {}),
+            **({"ensemble_fno_launches": ens_launches[kid]}
+               if kid in ens_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -7,12 +7,14 @@ default and choice), and the JSON lines of ``solve`` (BE and CN) and
 rest is the port's own behaviour, at the sizes of the JAX package's
 tests/test_cli.py: the saved ``.npz`` fields, ``invert`` and
 ``fit-source`` recovering their parameters, ``pinn`` with checkpoints,
-the other problems and meshes of ``solve``, and the five subcommands that
-are not ported yet."""
+the other problems and meshes of ``solve``, and the subcommands that
+once refused; ``ensemble`` (its numbers) and ``fno`` (its keys) against
+the JAX CLI."""
 
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 
@@ -228,21 +230,79 @@ def test_solve_walls_obstacles_and_mesh_files(port):
 
 @pytest.mark.parametrize("argv,item", [
     (["fit-ic", "--mesh_size", "4", "--observed", "x.npz"], None),
-    (["ensemble"], "A7"),
     (["fit-deposition", "--mesh_size", "4", "--robin", "right=0.5",
       "--observed", "x.npz"], None),
     (["fit-exchange", "--mesh_size", "4", "--robin", "right=0.5",
       "--observed", "x.npz"], None),
-    (["fno"], "A8"),
-], ids=["fit-ic", "ensemble", "fit-deposition", "fit-exchange", "fno"])
+], ids=["fit-ic", "fit-deposition", "fit-exchange"])
 def test_unported_subcommands_raise(port, argv, item):
-    """``ensemble`` and ``fno`` refuse, naming their ROADMAP.md item;
-    ``fit-ic``, ``fit-deposition`` and ``fit-exchange`` are ported
-    (tests/test_torch_port_cli_fits.py) and get as far as reading the
-    missing observations."""
-    if item is None:
-        with pytest.raises(FileNotFoundError, match="x.npz"):
-            port(argv)
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+    """Every subcommand is ported: ``fit-ic``, ``fit-deposition`` and
+    ``fit-exchange`` (tests/test_torch_port_cli_fits.py) get as far as
+    reading the missing observations; ``ensemble`` and ``fno`` run
+    (the tests below)."""
+    assert not hasattr(t_cli, "UNPORTED") and not hasattr(
+        t_cli, "cmd_unported")
+    assert item is None
+    with pytest.raises(FileNotFoundError, match="x.npz"):
         port(argv)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--order", "1"],
+    ["--order", "2", "--place_sensors", "3"],
+    ["--problem", "square_pulse", "--thresholds", "0.05"],
+], ids=["be", "cn-sensors", "square-pulse"])
+def test_ensemble_line_matches_jax(port, capsys, extra):
+    """``ensemble`` at 8^2 with 6 members: the members are drawn with
+    numpy as in the JAX package, so every number of the line agrees to
+    CLI_RTOL (float32 solves in both) and the station picks are equal;
+    the saved products too."""
+    argv = ["ensemble", "--mesh_size", "8", "--nt", "9", "--members", "6",
+            *extra]
+    want = _jax_line(argv + ["--save", "j.npz"], capsys)
+    got, out = port(argv + ["--save", "t.npz"])
+    assert list(got) == list(want)
+    assert got.pop("wall_s") >= 0.0 and want.pop("wall_s") >= 0.0
+    exc_got, exc_want = got.pop("exceedance_mean"), want.pop(
+        "exceedance_mean")
+    assert list(exc_got) == list(exc_want)
+    for tau, w in exc_want.items():
+        assert exc_got[tau] == pytest.approx(w, rel=CLI_RTOL, abs=1e-7), tau
+    _compare(got, want)
+    assert out["members"].shape == (6, 161)
+    saved, ref = np.load("t.npz"), np.load("j.npz")
+    assert sorted(saved.files) == sorted(ref.files)
+    for name in ref.files:
+        np.testing.assert_allclose(saved[name], ref[name], rtol=CLI_RTOL,
+                                   atol=1e-7, err_msg=name)
+
+
+@pytest.mark.parametrize("extra", [[], ["--n_times", "3"]],
+                         ids=["final-state", "time-conditioned"])
+def test_fno_line_has_jax_keys(port, capsys, extra):
+    """``fno`` at 9^2: the JAX CLI's keys and value types, the same
+    configuration values (the nt bump of --n_times included), finite
+    losses; the numbers differ, since the two packages' generators draw
+    other problems and weights. The saved parameters load in the JAX
+    package."""
+    from airpollution_tpu.io.checkpoint import load_pytree
+    from airpollution_tpu.models import fno as jfno
+
+    argv = ["fno", "--mesh_size", "9", "--nt", "9", "--n_train", "6",
+            "--n_test", "3", "--modes", "2", "--width", "4", "--depth", "1",
+            "--epochs", "4", "--batch", "3", *extra]
+    want = _jax_line(argv, capsys)
+    got, (params, losses) = port(argv + ["--save", "p.npz"])
+    assert list(got) == list(want)
+    for key, w in want.items():
+        assert type(got[key]) is type(w), key
+        if not isinstance(w, float):
+            assert got[key] == w, key
+    assert got["nt"] == (10 if extra else 9)
+    assert losses.shape == (4,) and bool(torch.isfinite(losses).all())
+    assert got["loss_first"] == float(losses[0])
+    like = jfno.init_fno_params(jax.random.PRNGKey(0), in_ch=7 if extra
+                                else 6, modes=2, width=4, depth=1)
+    loaded = load_pytree("p.npz", like)
+    for a, b in zip(loaded, params):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -161,5 +161,6 @@ def test_operators_keep_their_index():
     assert carried.system.tslot is carried.ka.tslot
     assert torch.equal(carried.system.tslot, idx.tslot)
     stacked = stack_operators([ops, ops])
-    assert stacked.system.cols32.shape == (2,) + idx.cols.shape
+    assert stacked.system.cols32 is idx.cols32  # one shared index
+    assert stacked.system.vals.shape == (2,) + idx.cols.shape
     assert stacked.system.tslot is idx.tslot

@@ -27,6 +27,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.cli",
     "airpollution_tpu_torch.device",
     "airpollution_tpu_torch.diagnostics",
+    "airpollution_tpu_torch.diagnostics.ensemble",
     "airpollution_tpu_torch.diagnostics.inverse",
     "airpollution_tpu_torch.interop",
     "airpollution_tpu_torch.io",
@@ -39,6 +40,7 @@ PORT_MODULES = [
     "airpollution_tpu_torch.mesh.structured",
     "airpollution_tpu_torch.mesh.topology",
     "airpollution_tpu_torch.models.crbe",
+    "airpollution_tpu_torch.models.fno",
     "airpollution_tpu_torch.models.multispecies",
     "airpollution_tpu_torch.models.pinn",
     "airpollution_tpu_torch.models.unsteady",
@@ -82,6 +84,8 @@ def test_port_imports_no_jax():
         import scripts.torch_port_large_mesh_policy
         import scripts.torch_port_wind_fit_stability
         import scripts.torch_port_dispatch_count
+        import scripts.torch_port_ensemble_demo
+        import scripts.torch_port_fno_surrogate
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu")
                or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
@@ -103,6 +107,8 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "scripts" / "torch_port_large_mesh_policy.py")
     files.append(REPO / "scripts" / "torch_port_wind_fit_stability.py")
     files.append(REPO / "scripts" / "torch_port_dispatch_count.py")
+    files.append(REPO / "scripts" / "torch_port_ensemble_demo.py")
+    files.append(REPO / "scripts" / "torch_port_fno_surrogate.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()

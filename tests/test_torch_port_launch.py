@@ -210,8 +210,11 @@ def test_b7_launch_passes_pointers_and_ints(monkeypatch, stacked):
         assert rest == [A.vals.data_ptr(), x.data_ptr(), y.data_ptr(),
                         B if stacked else 1, stream]
         got = index.contents
+        # A stack's values advance by n * w; its columns are one shared
+        # (n, w) index.
         assert (got.cols, got.n, got.width, got.op_stride) == (
             A.cols32.data_ptr(), n, w, n * w if stacked else 0)
+        assert A.cols32.shape == (n, w)
 
 
 def test_b7_checks_columns_once_and_x_and_vals_per_product(monkeypatch):
@@ -246,10 +249,12 @@ def test_b7_index_is_carried_by_the_operator_and_rebound_on_copy():
     A = _ell()
     assert not vars(A.cols32)  # nothing attached to the columns
     S = sparse.stack_ell([A, A._replace(vals=2 * A.vals)])
-    assert S.b7.shape == S.cols32.shape and S.b7.cols32 is S.cols32
+    assert S.b7.shape == S.vals.shape and S.b7.cols32 is S.cols32
+    assert S.cols32 is A.cols32 and S.cols is A.cols  # one shared index
     one = sparse.unstack_ell(S, 1)
-    assert one.b7.struct.contents.cols == S.cols32[1].data_ptr()
+    assert one.b7.struct.contents.cols == S.cols32.data_ptr()
     assert one.b7.struct.contents.op_stride == 0
+    assert one.b7 is not S.b7 and one.b7.shape == A.vals.shape
     B = copy.deepcopy(A)
     assert B.b7.cols32 is B.cols32 and B.cols32 is not A.cols32
     assert B.b7.struct.contents.cols == B.cols32.data_ptr()
