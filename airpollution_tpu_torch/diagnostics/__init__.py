@@ -1,9 +1,18 @@
-"""Diagnostics built on the solvers: inverse problems on the
-differentiable solve, and ensemble forecasting with data assimilation and
-sensor placement (the names the JAX package's
-``airpollution_tpu.diagnostics`` exports from its ``inverse`` and
-``ensemble`` modules)."""
+"""Diagnostics built on the solvers: physics diagnostics of a CRBE and a
+PINN trajectory, inverse problems on the differentiable solve, and
+ensemble forecasting with data assimilation and sensor placement (the
+names the JAX package's ``airpollution_tpu.diagnostics`` exports)."""
 
+from airpollution_tpu_torch.diagnostics.analysis import (
+    ComprehensiveAnalysis,
+    center_of_mass_over_time,
+    concentration_profiles,
+    evaluate_pinn_on_grid,
+    mass_over_time,
+    peak_tracking,
+    quadrature_weights,
+    variance_over_time,
+)
 from airpollution_tpu_torch.diagnostics.ensemble import (
     enkf_update,
     ensemble_forecast,
@@ -26,6 +35,14 @@ from airpollution_tpu_torch.diagnostics.inverse import (
 )
 
 __all__ = [
+    "ComprehensiveAnalysis",
+    "center_of_mass_over_time",
+    "concentration_profiles",
+    "evaluate_pinn_on_grid",
+    "mass_over_time",
+    "peak_tracking",
+    "quadrature_weights",
+    "variance_over_time",
     "enkf_update",
     "ensemble_forecast",
     "place_sensors",

@@ -134,6 +134,25 @@ class MeshData:
     def _host_ell_cols(self):
         return self._ensure_ell().cols
 
+    def show(self, filename="mesh_visualition.pdf"):
+        """Draw the triangulation into ``filename`` (the JAX package's
+        default name, its spelling kept); skipped, with one printed line,
+        without matplotlib."""
+        from airpollution_tpu_torch.reporting.plots import pyplot
+
+        plt = pyplot(filename)
+        if plt is None:
+            return
+        pts = self.points.detach().cpu().numpy()
+        plt.figure(figsize=(10, 8))
+        plt.triplot(pts[:, 0], pts[:, 1],
+                    self.triangles.detach().cpu().numpy())
+        plt.axis("equal")
+        plt.grid(False)
+        plt.title("2D Mesh Visualization")
+        plt.savefig(filename, dpi=300)
+        plt.close()
+
 
 def boundary_side_masks(mesh_data):
     """``{'left', 'right', 'bottom', 'top'} -> (n_seg,) bool``: boundary

@@ -198,6 +198,21 @@ def obstacle_masks(mesh_data, problem):
     return tri_keep, live == 0
 
 
+def reject_obstacles(problem, where: str):
+    """Refuse an obstacle problem on a solve path that assumes the full
+    obstacle-free box (translation-invariant operators, distributed
+    stripe solvers), which would solve transport through the buildings
+    (the JAX package's gate of the same name). The per-DOF assembled
+    paths support obstacles."""
+    if getattr(problem, "obstacles", None):
+        raise ValueError(
+            f"interior obstacles (problem.obstacles) are not supported "
+            f"by {where} — use the per-DOF solve paths (CRBESolver "
+            f"matvec_impl='ell'/'stencil'/'auto', or 'fused'/"
+            f"'fused_hbm' with the canvas operator)"
+        )
+
+
 def reject_robin(problem, where: str):
     """Refuse a Robin problem on a solve path whose boundary handling is
     all-Dirichlet: treating Robin DOFs as Dirichlet would silently zero
@@ -1585,6 +1600,28 @@ class CRBESolver:
         norm_ex = torch.sqrt(torch.sum(md.triangle_areas * tri_ex))
         max_error = torch.max(torch.abs(u_num - u_exact))
         return (float(l2 / (norm_ex + 1e-12)), float(l2), float(max_error))
+
+    # --- plotting (reporting/plots.py; skipped without matplotlib) ---
+
+    def plot_solution(self, analytical_sol_fn=None, time_index=None,
+                      save_dir="results"):
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_solution_on_midpoints(self, analytical_sol_fn,
+                                         time_index, save_dir)
+
+    def plot_interpolated_solution(self, analytical_sol_fn=None,
+                                   time_index=None, save_dir="results",
+                                   name=""):
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_interpolated_solution(self, analytical_sol_fn,
+                                         time_index, save_dir, name)
+
+    def plot_error_evolution(self, errors, save_dir="results"):
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_error_evolution(self, errors, save_dir)
 
 
 def _with_flag(out, guard):

@@ -190,21 +190,67 @@ class MLP(nn.Module):
             z = h @ self.B
             h = torch.cat([torch.sin(z), torch.cos(z)], dim=-1)
         layers = params if isinstance(params, list) else self.views(params)
-        for layer in layers[:-1]:
-            z = torch.addmm(layer["b"], h, layer["W"])
-            if self.activation == "adaptive_tanh":
-                h = torch.tanh(layer["alpha"] * z)
-            elif self.activation == "tanh":
-                h = torch.tanh(z)
-            elif self.activation == "sine":
-                h = torch.sin(z)
-            else:
-                h = z * torch.sigmoid(z)
-        last = layers[-1]
-        out = torch.addmm(last["b"], h, last["W"])
-        if "amp" in last:
-            out = last["amp"] * out
-        return out.reshape(lead + (out.shape[-1],))
+        return _dense_stack(h, layers, self.activation).reshape(
+            lead + (layers[-1]["W"].shape[-1],))
+
+
+def _dense_stack(h, layers, activation):
+    """The dense layers on (N, in) features: the activation after each
+    but the last, the trainable amplitude ``amp`` on the output."""
+    for layer in layers[:-1]:
+        z = torch.addmm(layer["b"], h, layer["W"])
+        if activation == "adaptive_tanh":
+            h = torch.tanh(layer["alpha"] * z)
+        elif activation == "tanh":
+            h = torch.tanh(z)
+        elif activation == "sine":
+            h = torch.sin(z)
+        else:
+            h = z * torch.sigmoid(z)
+    last = layers[-1]
+    out = torch.addmm(last["b"], h, last["W"])
+    if "amp" in last:
+        out = last["amp"] * out
+    return out
+
+
+def init_mlp_params(key, layers, activation="adaptive_tanh",
+                    dtype=torch.float32, fourier_features=0,
+                    fourier_scale=1.0, input_scales=None, output_scale=0.0,
+                    device=None):
+    """The JAX package's parameter list of a fresh network: Xavier-normal
+    weights, zero biases, adaptive-tanh slopes 1, a frozen Fourier
+    embedding ``{"B": B}`` first when ``fourier_features`` is set, the
+    amplitude ``amp`` on the last layer when ``output_scale`` is. ``key``
+    is a ``torch.Generator`` or an int seed; the tensors are :class:`MLP`'s
+    draws (the JAX package's PRNG differs), copied out of it."""
+    device = resolve_device(device)
+    if isinstance(key, torch.Generator):
+        generator = key
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(key))
+    mlp = MLP(layers, activation, fourier_features=fourier_features,
+              fourier_scale=fourier_scale, input_scales=input_scales,
+              output_scale=output_scale, dtype=dtype, device=device,
+              generator=generator)
+    return [{k: v.detach().clone() for k, v in layer.items()}
+            for layer in mlp.params_tree()]
+
+
+def mlp_apply(params, x, activation="adaptive_tanh"):
+    """Forward pass of a parameter list (:func:`init_mlp_params`' layout)
+    at points ``x`` (..., in) -> (..., out). The Fourier matrix ``B`` is
+    frozen: no gradient flows into it."""
+    _check_activation(activation)
+    lead = x.shape[:-1]
+    h = x.reshape(-1, x.shape[-1])
+    if params and "B" in params[0]:
+        z = h @ params[0]["B"].detach()
+        h = torch.cat([torch.sin(z), torch.cos(z)], dim=-1)
+        params = params[1:]
+    out = _dense_stack(h, params, activation)
+    return out.reshape(lead + (out.shape[-1],))
 
 
 def ansatz_apply(mlp, xyt, problem=None, hard_ic=False, t_final=1.0,
@@ -935,21 +981,23 @@ class PINN:
         return (float(l2 / (norm_ex + 1e-12)), float(l2),
                 float(max_error))
 
-    # --- plotting (reporting/plots.py is not ported yet) ---
+    # --- plotting (reporting/plots.py; skipped without matplotlib) ---
 
     def plot_history(self, save_dir="results", name=""):
-        raise NotImplementedError(
-            "PINN plots need reporting/plots.py, not ported yet "
-            "(ROADMAP A3)")
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_loss_history(self.history, save_dir, name)
 
     def plot_solution(self, t, mesh_data, analytical_sol_fn=None,
                       save_dir="results"):
-        raise NotImplementedError(
-            "PINN plots need reporting/plots.py, not ported yet "
-            "(ROADMAP A3)")
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_pinn_solution(self, t, mesh_data, analytical_sol_fn,
+                                 save_dir)
 
     def plot_interpolated_solution(self, t, mesh_data, analytical_sol_fn=None,
                                    save_dir="results", name=""):
-        raise NotImplementedError(
-            "PINN plots need reporting/plots.py, not ported yet "
-            "(ROADMAP A3)")
+        from airpollution_tpu_torch.reporting import plots
+
+        plots.plot_pinn_interpolated_solution(
+            self, t, mesh_data, analytical_sol_fn, save_dir, name)

@@ -771,6 +771,17 @@ MEMBER_FIELDS = {
 }
 
 
+def register_problem_pytree(cls, fields):
+    """Record the physical parameters of a user problem class, in order,
+    as :data:`MEMBER_FIELDS` holds the package's own: what may differ
+    between the members of an ensemble (:func:`stack_problems`). The JAX
+    package's public hook of the same name registers a pytree; a subclass
+    is not covered by its base class's entry there either. Returns
+    ``cls``."""
+    MEMBER_FIELDS[cls] = tuple(fields)
+    return cls
+
+
 def _static_config(problem):
     """What every member of an ensemble must share: the class, the Robin
     sides and the obstacles (the JAX pytree's treedef)."""
@@ -811,8 +822,9 @@ def stack_problems(problems, *, dtype=torch.float64, device="cpu"):
     fields = MEMBER_FIELDS.get(type(problems[0]))
     if fields is None:
         raise TypeError(
-            f"{type(problems[0]).__name__} names no member parameters: add "
-            "its fields to problems.MEMBER_FIELDS")
+            f"{type(problems[0]).__name__} names no member parameters: "
+            "add its fields to problems.MEMBER_FIELDS with "
+            "problems.register_problem_pytree")
     K = len(problems)
 
     def column(values):

@@ -132,20 +132,37 @@ Phases, each printing one JSON line:
     --mesh_size 64 --nt 128 --epochs 500`` at the CLI's widths, with the
     JAX tests' gates and a forward pass and three AdamW steps card
     against CPU in f64;
-17. the PINN (slice 11), then the kernels line (launches on each path,
+17. slice 16, the paper's experiment harness (R1,
+    ``airpollution_tpu_torch.experiments`` and ``.reporting``, each
+    driver through its ``main`` in a temporary directory, f32): the CRBE
+    sweep over the paper's mesh sizes 4-128 at nt=128 (rel_l2 at ms=16
+    and 32 within 5e-4 of the reference-parity targets), the unstructured
+    sweep at 8, 16 and 32 (B7a's launches counted from 0), the PINN sweep
+    at ms 4 and 8 (200 epochs), the D-sensitivity sweep (100 epochs), a
+    fixed-runtime cell (ms=4, 2 s), a 2-trial search on 2 threads, then
+    the eight LaTeX tables and the figures (skipped without matplotlib),
+    each row beside results_snapshot/'s;
+18. the PINN (slice 11), then the kernels line (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
     paths apart as ``time_varying_launches``, for B1, B2 and B6 those of
     slice 13's as ``cli_launches``, for B3, B4-raw and B7a those of slice
     14's as ``inverse_fits_launches``, for B7a those of slice 15's as
-    ``ensemble_fno_launches``).
+    ``ensemble_fno_launches`` and of slice 16's as
+    ``paper_harness_launches``).
+
+Set-up is shared where it can be: meshes that differ only in nt are one
+MeshData retimed (``retimed``), B8 runs after X1 on the 2049^2 mesh data
+of X1's command, and the 1025^2 unstructured mesh's Delaunay runs on a
+host thread beside the kernel build.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -570,6 +587,21 @@ def timed_solves(solver, reps, warm_up=True):
         solver.solve(store_solutions=False)
         times.append(solver.solve_time)
     return times
+
+
+def retimed(md, nt):
+    """``md`` with ``nt`` time points: the same mesh, topology and device
+    tensors (shared, not rebuilt: a 1025^2 MeshData takes ~2 s, a 2049^2
+    one ~8 s); only ``nt`` and the time grid are its own."""
+    import copy
+
+    import torch
+
+    out = copy.copy(md)
+    out.nt = int(nt)
+    out.time_discr = torch.linspace(0.0, float(md.domain.T), out.nt,
+                                    dtype=md.dtype, device=md.device)
+    return out
 
 
 def phase_main_257(md, problem, domain):
@@ -3002,11 +3034,23 @@ def phase_b7(cases):
     return worst
 
 
+def unstructured_mesh_timed(ms):
+    """(the ms^2 unstructured mesh, the seconds its jitter and Delaunay
+    took)."""
+    import airpollution_tpu_torch as apt
+
+    t0 = time.perf_counter()
+    mesh = apt.create_unstructured_mesh(ms, 20.0, seed=UNSTRUCTURED_SEED)
+    return mesh, time.perf_counter() - t0
+
+
 def mesh_setup_1025():
     """The 1025^2 unstructured mesh's set-up on the host, split: jitter and
     Delaunay, edge enumeration (numpy and native), MeshData (native
     enumeration and geometry), and the ELL pattern with its transposition
-    map (built on first use)."""
+    map (built on first use). It runs in :func:`host_setup`, beside the
+    kernel build, so its seconds are those of one host thread while eight
+    nvcc run."""
     import numpy as np
 
     import airpollution_tpu_torch as apt
@@ -3014,10 +3058,8 @@ def mesh_setup_1025():
 
     check(native.available(), "the native topology library did not load: "
           f"{native.load_error()}")
-    out = {}
-    t0 = time.perf_counter()
-    mesh = apt.create_unstructured_mesh(1025, 20.0, seed=UNSTRUCTURED_SEED)
-    out["delaunay_s"] = time.perf_counter() - t0
+    out = {"beside_build": True}
+    mesh, out["delaunay_s"] = unstructured_mesh_timed(1025)
     tris = np.asarray(mesh.triangles, np.int64)
     t0 = time.perf_counter()
     segs, t2s, _ = topology._enumerate_numpy(tris, len(mesh.points))
@@ -3548,13 +3590,14 @@ def max_rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def phase_b8_2049(domain):
+def phase_b8_2049(domain, md):
     """B8 on scripts/tpu_hbm_check.py's 2049^2 row: Problem(sigma=1),
     nt=1001, Chebyshev-10, extrapolated, BE, assembly="patch", f32, on 4
     blocks, against CRBESolver(matvec_impl="fused_hbm", assembly="patch")
     on B2; one CN solve (Chebyshev-14, B8_CN_ITERS) and one sourced solve
-    (S1's emitter, B8's load entry) against theirs. Returns (launches,
-    md)."""
+    (S1's emitter, B8's load entry) against theirs. ``md`` is X1's 2049^2
+    mesh data (the same mesh, nt and dtype; its set-up is X1's
+    ``seconds_to_first_step``). Returns B8's launches."""
     import torch
 
     import airpollution_tpu_torch as apt
@@ -3562,12 +3605,12 @@ def phase_b8_2049(domain):
     from airpollution_tpu_torch.parallel import (build_hbm_halo_solver,
                                                  make_mesh)
 
-    t0 = time.perf_counter()
-    md = apt.MeshData(apt.create_mesh(2049, 20.0), domain, nt=1001)
+    check(md.structured_n == 2049 and md.nt == 1001
+          and md.dtype == torch.float32 and md.domain.T == domain.T,
+          "B8: X1's mesh data is not the 2049^2 row's")
     out = {"phase": "b8_block_2049", "card": card_line(), "ms": 2049,
            "nt": md.nt, "dofs": md.number_of_segments, "k": B8_ITERS,
-           "blocks": BLOCK_MESH["mp"], "mesh_setup_s":
-           time.perf_counter() - t0}
+           "blocks": BLOCK_MESH["mp"], "mesh_from": "x1_default_route_2049"}
     n_steps = md.nt - 1
     mesh = make_mesh(BLOCK_MESH)
     launches = {"B8": 0, "B8-load": 0}
@@ -3614,7 +3657,7 @@ def phase_b8_2049(domain):
         check(bool(torch.isfinite(got).all()), f"B8 {tag}: non-finite")
         check(diff <= BLOCK_TOL, f"B8 {tag}: max|block - whole| {diff:.3e}")
     emit(out)
-    return launches, md
+    return launches
 
 
 def rel_l2_of(solver, u, problem):
@@ -4250,7 +4293,7 @@ def unsteady_scale():
     return mod
 
 
-def phase_w1():
+def phase_w1(meshes):
     """W1: the turning wind at 1025^2 (nt=2001, a chunk every 100 steps;
     CN, Chebyshev-8, extrapolated, fused_hbm, f32), a fresh B4 stack per
     chunk. The run with a chunk every 50 steps first (the warm-up, and the
@@ -4263,8 +4306,9 @@ def phase_w1():
     own interval estimate (reported), and in f64 on the fused chunks'
     intervals (IntervalTape; <= 1e-4 of max|u|), with the f32 run against
     the f64 one (reported). The chunks' interval estimates run on B3 (a
-    matvec and its transpose per power iteration). Returns (B4 launches, B3 launches, the largest
-    B4 error, the 513^2 fused state, its mesh data)."""
+    matvec and its transpose per power iteration). The f32 meshes are
+    main's, retimed. Returns (B4 launches, B3 launches, the largest B4
+    error, the 513^2 fused state, its mesh data)."""
     import torch
 
     from airpollution_tpu_torch.models.crbe import assemble_canvas
@@ -4276,7 +4320,7 @@ def phase_w1():
     out = {"phase": "w1_time_varying", "card": card_line(), "k": W_ITERS}
     nt, every = W_ROWS[1025]
     n_steps = nt - 1
-    md = sc.mesh_data(1025, nt)
+    md = retimed(meshes[(1025, "float32")], nt)
     out.update({"ms": 1025, "nt": nt, "reassemble_every": every,
                 "dofs": md.number_of_segments})
     halved, out["halved_first_solve_s"] = sc.timed(
@@ -4339,7 +4383,7 @@ def phase_w1():
     # same intervals (gated): in f32, rounding alone moves this row's
     # answer by ~6e-4 (fused f32 against fused f64, the same intervals).
     nt5, every5 = W_ROWS[513]
-    md5 = sc.mesh_data(513, nt5)
+    md5 = retimed(meshes[(513, "float32")], nt5)
     kw5 = sc.chunk_kwargs(every5, W_ITERS)
     scan_kw = dict(kw5, matvec_impl="scan", solver="chebyshev")
     fused, s_fused = sc.timed(lambda: solve_time_varying(p, md5, **kw5),
@@ -4541,11 +4585,11 @@ def phase_w3():
     return launches
 
 
-def phase_time_varying():
+def phase_time_varying(meshes):
     """Slice 12: W1, W2 and W3, then their launches on the kernels' paths
     and the phases' seconds."""
     t0 = time.perf_counter()
-    b4, b3, b4_err, fused, md = phase_w1()
+    b4, b3, b4_err, fused, md = phase_w1(meshes)
     b9 = phase_w2(fused, md)
     del fused, md
     raw = phase_w3()
@@ -4604,7 +4648,8 @@ def phase_x1_default_route(domain):
     route. Then the fused route at the same size and k (fused_hbm,
     Chebyshev, kernel B2) on its own interval and on the scan's, and at
     513^2 in float64 (nt=X1_F64_NT) the fused route against the uniform
-    scan on one shared interval. Returns B2's launches."""
+    scan on one shared interval. Returns (B2's launches, the 2049^2 mesh
+    data of the command's solve)."""
     import torch
 
     import airpollution_tpu_torch as apt
@@ -4671,7 +4716,7 @@ def phase_x1_default_route(domain):
             out["fused_own_cheb_bounds"] = list(fused._cheb_bounds)
             out["delta_rel_l2"] = abs(rel - line["rel_l2"])
         del fused, u
-    del scan, u_scan, md
+    del scan, u_scan
     # 513^2, float64: fused (B2) against the uniform scan, one interval.
     md64 = apt.MeshData(apt.create_mesh(X1_F64_MS, 20.0), domain,
                         nt=X1_F64_NT, dtype=torch.float64)
@@ -4695,7 +4740,7 @@ def phase_x1_default_route(domain):
           f"X1: |rel_l2 fused - scan| {out['delta_rel_l2']:.3e} at 2049^2")
     check(out["f64_513_max_rel_diff"] <= X1_F64_TOL,
           f"X1: f64 513^2 fused vs scan {out['f64_513_max_rel_diff']:.3e}")
-    return b2
+    return b2, md
 
 
 def phase_x2_spectral(domain):
@@ -4857,15 +4902,17 @@ def phase_x3_cli():
 
 
 def phase_cli(domain):
-    """Slice 13: X1-X3, then the cli line. Returns {kernel id: launches}
-    of the new phases' fused routes (B2 in X1, B1 and B6 in X3)."""
+    """Slice 13: X1-X3, then the cli line. Returns ({kernel id: launches}
+    of the new phases' fused routes (B2 in X1, B1 and B6 in X3), X1's
+    2049^2 mesh data)."""
     t0 = time.perf_counter()
-    launches = {"B2": phase_x1_default_route(domain)}
+    b2, md_2049 = phase_x1_default_route(domain)
+    launches = {"B2": b2}
     phase_x2_spectral(domain)
     launches.update(phase_x3_cli())
     emit({"phase": "cli", "card": card_line(),
           "seconds": time.perf_counter() - t0})
-    return launches
+    return launches, md_2049
 
 
 def phase_pinn(domain):
@@ -5346,7 +5393,8 @@ def e1_kernel_vs_plain(md, problems):
     shared column index) against its plain version, f32 on E1's mesh and
     f64 on the same problems' f64 assembly. Returns ({dtype: max error
     relative to max|y|}, {the f32 stacked product's ms, its plain
-    version's, its bound})."""
+    version's, its bound, and a CSR product's of the block-diagonal
+    stack})."""
     import numpy as np
     import torch
 
@@ -5380,11 +5428,26 @@ def e1_kernel_vs_plain(md, problems):
             # and y, each once.
             b_ms, by = bound(K * n * w * 4 + n * w * 4 + 2 * K * n * 4,
                              2 * K * n * w)
+            # The library yardstick: one CSR product of the block-diagonal
+            # stack (the K operators' columns offset by k n) with the K
+            # states end to end.
+            cols = A.cols.expand(K, n, w) + n * torch.arange(
+                K, device=X.device).view(K, 1, 1)
+            csr = torch.sparse_csr_tensor(
+                torch.arange(0, K * n * w + 1, w, device=X.device),
+                cols.reshape(-1), A.vals.reshape(-1), size=(K * n, K * n))
+            x = X.reshape(-1)
+            ref = gather.plain_matvec(A.vals, A.cols, X)
             times = {"ms": cuda_ms(lambda: sparse.ell_matvec_stacked(A, X),
                                    200),
                      "plain_ms": cuda_ms(lambda: gather.plain_matvec(
                          A.vals, A.cols, X), 50),
-                     "bound_ms": b_ms, "bound_by": by}
+                     "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": cuda_ms(lambda: csr @ x, 200),
+                     "library_max_rel_vs_plain": float(
+                         ((csr @ x).view(K, n) - ref).abs().max()
+                         / ref.abs().max()),
+                     "shape": [K, n, w]}
     return out, times
 
 
@@ -5639,6 +5702,208 @@ def phase_ensemble_fno():
     return {"B7a": b7}
 
 
+# Slice 16: the paper's experiment harness (airpollution_tpu_torch.
+# experiments and .reporting) through the drivers' main on the card, f32.
+R1_CRBE_SIZES = [4, 8, 16, 32, 64, 128]  # the paper's sweep, nt=128
+R1_UNSTRUCTURED_SIZES = [8, 16, 32]
+# Reference parity of the structured sweep (ROADMAP.md, the main path).
+R1_PARITY = {16: 1.741805, 32: 0.787025}
+R1_PARITY_TOL = 5e-4
+R1_PINN = ["--mesh_sizes", 4, 8, "--epochs", 200]
+R1_SENSITIVITY = ["--epochs", 100]
+R1_FIXED = dict(mesh_idx=0, time_budget=2.0)  # ms=4, a 2-s budget
+R1_SEARCH = ["--n_trials", 2, "--epochs", 20, "--n_jobs", 2]
+R1_TABLES = ("convergence_comparison", "convergence_rates",
+             "computational_resources", "efficiency_comparison",
+             "summary_statistics", "method_characteristics",
+             "parameter_sensitivity", "fixed_runtime")
+
+
+def snapshot_rows(name):
+    """results_snapshot/<name> (the JAX package's committed sweep) as
+    mesh_size -> rel_l2_error."""
+    from airpollution_tpu_torch.reporting import frames
+
+    table = frames.read_csv(str(Path(__file__).resolve().parent
+                                / "results_snapshot" / name))
+    return dict(zip(table["mesh_size"].tolist(),
+                    table["rel_l2_error"].tolist()))
+
+
+def phase_r1_paper_harness():
+    """R1, slice 16: the paper's drivers on the card in a temporary
+    directory, each through its ``main`` (f32): the CRBE sweep over the
+    paper's mesh sizes at nt=128 (route 'auto': the plain stencil scan,
+    no kernel), rel_l2 at ms=16 and 32 against the reference-parity
+    targets; the unstructured sweep (route 'ell': every product on B7a,
+    counted from 0); the PINN sweep at ms 4 and 8 (200 epochs), the
+    D-sensitivity sweep (100 epochs), one fixed-runtime cell (ms=4, 2 s)
+    through the module's functions, and the hyperparameter search (2
+    trials of 20 epochs on 2 threads); then the LaTeX tables and the
+    figures (skipped, one line each, without matplotlib) from the CSVs
+    written. Every row beside results_snapshot/'s. Returns B7a's
+    launches under the unstructured sweep."""
+    import os
+    import tempfile
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.experiments import (
+        common, crbe_experiments, fixed_runtime_experiments,
+        optimal_hyperparams_search, pinn_experiments, sensitivity_analysis)
+    from airpollution_tpu_torch.reporting import (data_visualization,
+                                                  table_generator)
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    out = {"phase": "r1_paper_harness", "card": card_line()}
+    snap = snapshot_rows("df_crbe_training_results.csv")
+    snap_u = snapshot_rows("df_crbe_training_results_unstructured.csv")
+
+    def finite(*values):
+        return all(math.isfinite(v) for v in values)
+
+    def argv(items):
+        return [str(a) for a in items]
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            s0 = time.perf_counter()
+            reset_counts()
+            # The paper's sweep in a directory of its own: the tables pair
+            # the CRBE and PINN rows mesh by mesh, and the PINN sweep here
+            # is cut to ms 4 and 8 (R1_PINN), so the tables read a CRBE
+            # sweep of those meshes, run below.
+            os.mkdir("sweep")
+            os.chdir("sweep")
+            rows = crbe_experiments.main(
+                argv(["--mesh_sizes", *R1_CRBE_SIZES]), device=dev)
+            os.chdir(tmp)
+            out["crbe_launches"] = {kid: launches_of(kid) for kid in KERNELS
+                                    if launches_of(kid)}
+            out["crbe"] = [{k: r[k] for k in (
+                "mesh_size", "n_dofs", "rel_l2_error", "max_error",
+                "train_time", "solve_time", "steps_per_sec")}
+                | {"snapshot_rel_l2": snap.get(r["mesh_size"])}
+                for r in rows]
+            out["crbe_s"] = time.perf_counter() - s0
+            rel = {r["mesh_size"]: r["rel_l2_error"] for r in rows}
+            s0 = time.perf_counter()
+            reset_counts()
+            urows = crbe_experiments.main(
+                argv(["--mesh_sizes", *R1_UNSTRUCTURED_SIZES, "--mesh_kind",
+                      "unstructured"]), device=dev)
+            b7a = launches_of("B7a")
+            out["unstructured"] = [
+                {k: r[k] for k in ("mesh_size", "n_dofs", "rel_l2_error",
+                                   "max_error", "solve_time")}
+                | {"snapshot_rel_l2": snap_u.get(r["mesh_size"])}
+                for r in urows]
+            out["unstructured_b7a_launches"] = b7a
+            out["unstructured_s"] = time.perf_counter() - s0
+
+            s0 = time.perf_counter()
+            prows = pinn_experiments.main(argv(R1_PINN), device=dev)
+            trows = crbe_experiments.main(
+                argv(["--mesh_sizes", *[r["mesh_size"] for r in prows]]),
+                device=dev)
+            out["pinn"] = [{k: r[k] for k in (
+                "mesh_size", "rel_l2_error", "max_error", "final_loss",
+                "epochs_run", "epochs_per_sec")} for r in prows]
+            out["pinn_s"] = time.perf_counter() - s0
+            s0 = time.perf_counter()
+            srows = sensitivity_analysis.main(argv(R1_SENSITIVITY),
+                                              device=dev)
+            out["sensitivity"] = srows
+            out["sensitivity_s"] = time.perf_counter() - s0
+            s0 = time.perf_counter()
+            ms = fixed_runtime_experiments.FR_MESH_SIZES[R1_FIXED["mesh_idx"]]
+            md = apt.MeshData(apt.create_mesh(ms, common.DOMAIN_SIZE),
+                              apt.Domain(), nt=common.N_STEPS, device=dev)
+            frows = fixed_runtime_experiments.run_cell(
+                apt.Domain(), apt.Problem(sigma=1.0), md, **R1_FIXED)
+            save_dir = "experimental_results/fixed_runtime"
+            os.makedirs(save_dir, exist_ok=True)
+            fixed_runtime_experiments.save_results(frows, save_dir)
+            out["fixed_runtime"] = [{k: r[k] for k in (
+                "method", "actual_runtime", "epochs_completed",
+                "rel_l2_error", "max_error")} for r in frows]
+            out["fixed_runtime_s"] = time.perf_counter() - s0
+            s0 = time.perf_counter()
+            trials = optimal_hyperparams_search.main(argv(R1_SEARCH),
+                                                     device=dev)
+            out["search"] = [{k: t[k] for k in (
+                "number", "value", "state", "params_lr")} for t in trials]
+            out["search_s"] = time.perf_counter() - s0
+            s0 = time.perf_counter()
+            tables = table_generator.main([])
+            tex = Path("experimental_results/tables/convergence_tables.tex")
+            out["tables"] = list(tables)
+            out["tex_bytes"] = tex.stat().st_size if tex.exists() else 0
+            data_visualization.main([])
+            out["reporting_s"] = time.perf_counter() - s0
+        finally:
+            os.chdir(cwd)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    for ms, want in R1_PARITY.items():
+        check(abs(rel.get(ms, math.inf) - want) <= R1_PARITY_TOL,
+              f"R1: CRBE rel_l2 at ms={ms} {rel.get(ms)} not within "
+              f"{R1_PARITY_TOL} of {want}")
+    check(all(finite(r["rel_l2_error"], r["l2_error"], r["max_error"])
+              for r in rows + urows + trows),
+          "R1: a CRBE error is not finite")
+    check(b7a > 0, "R1: the unstructured sweep launched no B7a")
+    check(all(finite(r["rel_l2_error"], r["max_error"])
+              and r["epochs_run"] > 0 for r in prows),
+          "R1: a PINN row is not finite or ran no epoch")
+    check(all(finite(r["pinn_l2_error"], r["max_error"], r["cr_l2_error"],
+                     r["cr_max_error"]) for r in srows),
+          "R1: a sensitivity error is not finite")
+    check(all(finite(r["rel_l2_error"], r["max_error"]) for r in frows)
+          and frows[0]["epochs_completed"] > 0,
+          "R1: the fixed-runtime cell is not finite or ran no epoch")
+    check(len(trials) == 2 and all(finite(t["value"]) for t in trials),
+          f"R1: search values {[t['value'] for t in trials]}")
+    check(tuple(tables) == R1_TABLES and out["tex_bytes"] > 0,
+          f"R1: tables {list(tables)}, .tex {out['tex_bytes']} bytes")
+    return b7a
+
+
+def structured_meshes(domain):
+    """The structured meshes of the kernel checks and the main path, by
+    (mesh size, dtype name): float64 ones where the float64 kernel checks
+    need their own assembly; the 1025^2 and 513^2 float64 checks reuse the
+    float32 assembly's inputs (the comparison needs identical inputs, not
+    exact ones)."""
+    import torch
+
+    import airpollution_tpu_torch as apt
+
+    meshes = {}
+    for ms, nt, dtypes in ((65, 33, ("float64", "float32")),
+                           (129, 1001, ("float64", "float32")),
+                           (257, 1001, ("float64", "float32")),
+                           (513, 1001, ("float32",)),
+                           (1025, 1001, ("float32",))):
+        mesh = apt.create_mesh(ms, 20.0)
+        for name in dtypes:
+            meshes[(ms, name)] = apt.MeshData(mesh, domain, nt=nt,
+                                              dtype=getattr(torch, name))
+    meshes[(1025, "float64")] = meshes[(1025, "float32")]
+    return meshes
+
+
+def host_setup(domain):
+    """The set-up that needs no kernel and is bound by one host core, run
+    on a thread beside the kernel build (45 s of eight nvcc in call 8):
+    :func:`structured_meshes` and :func:`mesh_setup_1025` (its Delaunay
+    alone ~15 s). Returns (meshes, (the 1025^2 unstructured mesh data,
+    its set-up seconds))."""
+    return structured_meshes(domain), mesh_setup_1025()
+
+
 def main() -> int:
     import torch
 
@@ -5650,30 +5915,20 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_toolchain()
-
     domain = apt.Domain()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    setup = pool.submit(host_setup, domain)
+    pool.shutdown(wait=False)
+    phase_toolchain()
+    t0 = time.perf_counter()
+    meshes, (md_u1025, u1025_setup) = setup.result()
+    emit({"phase": "host_setup", "wait_s": time.perf_counter() - t0})
+
     problem = apt.Problem(sigma=1.0)
     problems = {"C1": apt.RotatingPlumeProblem(omega=0.05, D=0.3),
                 "C3": robin_obstacle_problem(),
                 "demo": apt.Problem(v=(1.0, 0.2), D=0.3, sigma=1.0)}
-    # float64 meshes where the float64 kernel checks need their own
-    # assembly; the 1025^2 float64 checks reuse the float32 assembly's
-    # inputs (the comparison needs identical inputs, not exact ones).
-    meshes = {}
-    for ms, nt, dtypes in ((65, 33, ("float64", "float32")),
-                           (129, 1001, ("float64", "float32")),
-                           (257, 1001, ("float64", "float32")),
-                           (1025, 1001, ("float32",))):
-        mesh = apt.create_mesh(ms, 20.0)
-        for name in dtypes:
-            meshes[(ms, name)] = apt.MeshData(mesh, domain, nt=nt,
-                                              dtype=getattr(torch, name))
-    mesh_1025 = mesh
-    meshes[(1025, "float64")] = meshes[(1025, "float32")]
-    mesh_513 = apt.create_mesh(513, 20.0)
-    meshes[(513, "float32")] = apt.MeshData(mesh_513, domain, nt=1001)
-    md_257_65 = apt.MeshData(apt.create_mesh(257, 20.0), domain, nt=65)
+    md_257_65 = retimed(meshes[(257, "float32")], 65)
     worst = phase_b1(meshes, problem)
     worst.update(phase_b2(meshes, problem))
     cache = {}
@@ -5708,7 +5963,7 @@ def main() -> int:
     launches["B3"], _ = phase_robin_obstacle(
         meshes[(257, "float32")], md_257_65, problems["C3"], domain)
     cache.clear()
-    md_m1 = apt.MeshData(apt.create_mesh(1025, 20.0), domain, nt=4001)
+    md_m1 = retimed(meshes[(1025, "float32")], 4001)
     launches["B6"], *m1 = phase_m1(md_m1, domain)
     # Slice 7: B10 on M1's chain, against M1's solve.
     launches["B10"] = phase_b10_m1(m1, domain)
@@ -5723,8 +5978,8 @@ def main() -> int:
     # Slice 5: B4's raw mode, the fused gradients, and I1.
     cache.clear()
     nt_i1 = I1["nt"]
-    md_513_i1 = apt.MeshData(mesh_513, domain, nt=nt_i1)
-    md_1025_i1 = apt.MeshData(mesh_1025, domain, nt=nt_i1)
+    md_513_i1 = retimed(meshes[(513, "float32")], nt_i1)
+    md_1025_i1 = retimed(meshes[(1025, "float32")], nt_i1)
     worst.update(phase_b4_raw([
         ("i1_513", md_513_i1, i1_problem(), (torch.float32,)),
         ("i1_1025", md_1025_i1, i1_problem(), (torch.float32,)),
@@ -5736,43 +5991,43 @@ def main() -> int:
     times.update(slice5_kernel_times(md_513_i1, cache))
     del md_1025_i1
     cache.clear()
-    md_129_grad = apt.MeshData(apt.create_mesh(129, 20.0), domain, nt=129,
-                               dtype=torch.float64)
+    md_129_grad = retimed(meshes[(129, "float64")], 129)
     _, f2_raw = phase_grad_129(md_129_grad)
     del md_129_grad
     launches["B4-raw"] = phase_i1()
     # Slice 6: general meshes, kernel B7.
-    md_u257 = {name: unstructured_md(257, 1001, name)
+    mesh_u257, _ = unstructured_mesh_timed(257)
+    md_u257 = {name: apt.MeshData(mesh_u257, domain, nt=1001,
+                                  dtype=getattr(torch, name))
                for name in ("float64", "float32")}
-    md_u1025, setup = mesh_setup_1025()
     worst.update(phase_b7([("257_f64", md_u257["float64"]),
                            ("257_f32", md_u257["float32"]),
                            ("1025_f32", md_u1025)]))
     b7_times, launches["B7b"] = b7_kernel_times(md_u257["float32"],
-                                                md_u1025, setup)
+                                                md_u1025, u1025_setup)
     times.update(b7_times)
     del md_u1025, md_u257["float64"]
     launches["B7a"] = phase_u1(md_u257["float32"], domain)
     phase_g1(unstructured_md(129, 33, "float64"))
     phase_msh(domain)
-    # Slice 7: the block-sharded solvers on B8, B9 and B10.
-    b8_launches, md_2049 = phase_b8_2049(domain)
-    launches.update(b8_launches)
-    times.update(b8_kernel_times(md_2049))
-    del md_2049
+    # Slice 7: the block-sharded solvers on B9 (B8 after X1, on its mesh).
     launches["B9"] = phase_b9_blocks(c1_be, meshes[(257, "float32")],
                                      problems, domain)
     # Slice 12: time-varying winds, B4, B9 and B4-raw with a fresh stack
     # per chunk.
-    w_launches, w_b4_err = phase_time_varying()
+    w_launches, w_b4_err = phase_time_varying(meshes)
     worst["B4"] = max(worst["B4"], w_b4_err)
     for kid, n in w_launches.items():
         launches[kid] += n
     # Slice 13: the command line, the uniform scan route at 2049^2 and
     # the spectral preconditioner.
-    cli_launches = phase_cli(domain)
+    cli_launches, md_2049 = phase_cli(domain)
     for kid, n in cli_launches.items():
         launches[kid] += n
+    # Slice 7: B8 on the 2049^2 mesh data of X1's command.
+    launches.update(phase_b8_2049(domain, md_2049))
+    times.update(b8_kernel_times(md_2049))
+    del md_2049
     # Slice 14: the rest of the inverse layer, B4-raw and B7a on new paths
     # (F2's launches are grad_129's slice-14 cases).
     fit_launches = phase_inverse_fits()
@@ -5784,6 +6039,10 @@ def main() -> int:
     ens_launches = phase_ensemble_fno()
     for kid, n in ens_launches.items():
         launches[kid] += n
+    # Slice 16: the paper's experiment harness; B7a under its unstructured
+    # sweep.
+    r1_b7a = phase_r1_paper_harness()
+    launches["B7a"] += r1_b7a
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -5804,6 +6063,7 @@ def main() -> int:
                if kid in fit_launches else {}),
             **({"ensemble_fno_launches": ens_launches[kid]}
                if kid in ens_launches else {}),
+            **({"paper_harness_launches": r1_b7a} if kid == "B7a" else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -27,8 +27,19 @@ PORT_MODULES = [
     "airpollution_tpu_torch.cli",
     "airpollution_tpu_torch.device",
     "airpollution_tpu_torch.diagnostics",
+    "airpollution_tpu_torch.diagnostics.analysis",
     "airpollution_tpu_torch.diagnostics.ensemble",
     "airpollution_tpu_torch.diagnostics.inverse",
+    "airpollution_tpu_torch.experiments",
+    "airpollution_tpu_torch.experiments.__main__",
+    "airpollution_tpu_torch.experiments.common",
+    "airpollution_tpu_torch.experiments.crbe_experiments",
+    "airpollution_tpu_torch.experiments.fixed_runtime_experiments",
+    "airpollution_tpu_torch.experiments.optimal_hyperparams_search",
+    "airpollution_tpu_torch.experiments.pinn_experiments",
+    "airpollution_tpu_torch.experiments.sensitivity_analysis",
+    "airpollution_tpu_torch.hpo",
+    "airpollution_tpu_torch.hpo.search",
     "airpollution_tpu_torch.interop",
     "airpollution_tpu_torch.io",
     "airpollution_tpu_torch.io.checkpoint",
@@ -61,6 +72,13 @@ PORT_MODULES = [
     "airpollution_tpu_torch.parallel",
     "airpollution_tpu_torch.parallel.device_mesh",
     "airpollution_tpu_torch.parallel.hbm_shard",
+    "airpollution_tpu_torch.reporting",
+    "airpollution_tpu_torch.reporting.data_visualization",
+    "airpollution_tpu_torch.reporting.frames",
+    "airpollution_tpu_torch.reporting.plots",
+    "airpollution_tpu_torch.reporting.table_generator",
+    "airpollution_tpu_torch.utils",
+    "airpollution_tpu_torch.utils.profiling",
 ]
 
 
@@ -77,7 +95,6 @@ def test_port_imports_no_jax():
             importlib.import_module(m)
         import chip_smoke
         import scripts.torch_port_source_inversion
-        import scripts.torch_port_pinn_experiments
         import scripts.torch_port_unsteady_scale
         import scripts.torch_port_unsteady_wind
         import scripts.torch_port_unsteady_checks
@@ -86,9 +103,13 @@ def test_port_imports_no_jax():
         import scripts.torch_port_dispatch_count
         import scripts.torch_port_ensemble_demo
         import scripts.torch_port_fno_surrogate
+        import scripts.torch_port_problem3
+        import scripts.torch_port_problem3_comprehensive_analysis
         bad = [m for m in sys.modules
-               if m in ("jax", "optax", "airpollution_tpu")
-               or m.startswith(("jax.", "optax.", "airpollution_tpu."))]
+               if m in ("jax", "optax", "airpollution_tpu", "experiments",
+                        "pandas")
+               or m.startswith(("jax.", "optax.", "airpollution_tpu.",
+                                "experiments.", "pandas."))]
         print("BAD", bad)
         assert not bad, bad
     """)
@@ -100,7 +121,6 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "torch_port_production_scenario.py")
     files.append(REPO / "scripts" / "torch_port_source_inversion.py")
-    files.append(REPO / "scripts" / "torch_port_pinn_experiments.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_scale.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_wind.py")
     files.append(REPO / "scripts" / "torch_port_unsteady_checks.py")
@@ -109,11 +129,17 @@ def test_port_sources_name_no_jax():
     files.append(REPO / "scripts" / "torch_port_dispatch_count.py")
     files.append(REPO / "scripts" / "torch_port_ensemble_demo.py")
     files.append(REPO / "scripts" / "torch_port_fno_surrogate.py")
+    files.append(REPO / "scripts" / "torch_port_problem3.py")
+    files.append(REPO / "scripts"
+                 / "torch_port_problem3_comprehensive_analysis.py")
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 assert "jax" not in s and "optax" not in s \
+                    and "pandas" not in s \
+                    and not s.startswith(("import experiments",
+                                          "from experiments")) \
                     and "airpollution_tpu." not in \
                     s.replace("airpollution_tpu_torch", ""), (f, s)
 
@@ -224,21 +250,25 @@ def test_inverse_fits_on_cpu_tensors_build_nothing(monkeypatch):
     assert [k.launches for k in kernels] == before
 
 
-def test_pinn_unported_methods_raise():
-    """Multi-device training (ROADMAP item 19) and the plots (A3) are not
-    ported: each raises NotImplementedError, on the CPU model too."""
+def test_pinn_unported_methods_raise(tmp_path):
+    """Multi-device training (ROADMAP item 19) is not ported: it raises
+    NotImplementedError, on the CPU model too. The plots are ported
+    (reporting/plots.py): each writes the JAX package's file names."""
     m = tapt.PINN([3, 4, 1], tapt.Problem(), tapt.Domain(), device="cpu")
     md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
                        device="cpu")
     with pytest.raises(NotImplementedError):
         m.train_parallel(None, {"pde": 8, "ic": 4, "bc": 4}, 1, 1e-3,
                          {"pde": 1.0, "ic": 1.0, "bc": 1.0})
-    with pytest.raises(NotImplementedError):
-        m.plot_history()
-    with pytest.raises(NotImplementedError):
-        m.plot_solution(1.0, md)
-    with pytest.raises(NotImplementedError):
-        m.plot_interpolated_solution(1.0, md)
+    m.history = {k: [1.0, 0.5] for k in ("total_loss", "pde_loss",
+                                         "ic_loss", "bc_loss")}
+    m.plot_history(save_dir=str(tmp_path), name="p")
+    m.plot_solution(1.0, md, save_dir=str(tmp_path))
+    m.plot_interpolated_solution(1.0, md, save_dir=str(tmp_path), name="p")
+    assert {p.name for p in tmp_path.iterdir()} == {
+        "loss_history_p.pdf", "loss_history_p.png", "solution_1.0.pdf",
+        "solution_1.0.png", "solution_1.0_interpolated_solution_p.pdf",
+        "solution_1.0_interpolated_solution_p.png"}
 
 
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
@@ -553,3 +583,92 @@ def test_b7_failure_raises_instead_of_falling_back(monkeypatch):
     with pytest.raises(ValueError, match="int32 columns"):
         gather.matvec(A.vals, A.cols, None, x)
     assert not calls
+
+
+JAX_SUBPACKAGES = ["", "models", "mesh", "ops", "io", "diagnostics", "utils",
+                   "hpo"]
+# XLA's persistent compilation cache has no counterpart on the card.
+NOT_PORTED = {"utils": {"enable_compilation_cache"}}
+
+
+def _jax_all(sub):
+    """The names in the ``__all__`` of a JAX (sub)package, read from its
+    source (importing it would import JAX)."""
+    import ast
+
+    init = REPO / "airpollution_tpu" / sub / "__init__.py"
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"{init} has no __all__")
+
+
+@pytest.mark.parametrize("order", ["forward", "reverse"])
+def test_public_surface_matches_the_jax_subpackages(order):
+    """Every name of each JAX subpackage's ``__all__`` imports from the
+    port's counterpart (and stands in its ``__all__``), in either import
+    order (no import cycle), with no toolchain on the PATH and no kernel
+    built or loaded."""
+    wanted = {sub: sorted(_jax_all(sub) - NOT_PORTED.get(sub, set()))
+              for sub in JAX_SUBPACKAGES}
+    subs = JAX_SUBPACKAGES if order == "forward" else JAX_SUBPACKAGES[::-1]
+    env = dict(os.environ, PATH="/nonexistent")
+    out = _run(f"""
+        import gc, importlib
+        wanted = {wanted!r}
+        for sub in {subs!r}:
+            name = "airpollution_tpu_torch" + ("." + sub if sub else "")
+            mod = importlib.import_module(name)
+            missing = [n for n in wanted[sub] if not hasattr(mod, n)]
+            assert not missing, (name, missing)
+            unlisted = set(wanted[sub]) - set(mod.__all__)
+            assert not unlisted, (name, unlisted)
+        from airpollution_tpu_torch import _build
+        kernels = [o for o in gc.get_objects()
+                   if isinstance(o, _build.Kernel)]
+        assert kernels and all(k._lib is None for k in kernels)
+    """, env=env)
+    assert out.returncode == 0, out.stderr
+
+
+def test_register_problem_pytree_admits_a_user_subclass():
+    """A user subclass of a problem names its member parameters through
+    ``register_problem_pytree``; ``stack_problems`` then takes it."""
+    from airpollution_tpu_torch import problems
+
+    class Tilted(tapt.Problem):
+        pass
+
+    members = [Tilted(D=0.1), Tilted(D=0.2)]
+    with pytest.raises(TypeError, match="register_problem_pytree"):
+        problems.stack_problems(members)
+    try:
+        assert problems.register_problem_pytree(
+            Tilted, ("v", "D", "sigma", "reaction")) is Tilted
+        stacked = problems.stack_problems(members)
+        assert stacked.D.tolist() == [[0.1], [0.2]]
+    finally:
+        problems.MEMBER_FIELDS.pop(Tilted, None)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("crbe_experiments", ["--mesh_sizes", "4"]),
+    ("pinn_experiments", ["--mesh_sizes", "4", "--epochs", "1"]),
+    ("sensitivity_analysis", ["--epochs", "1"]),
+    ("fixed_runtime_experiments", ["--run_for_testing", "True"]),
+    ("optimal_hyperparams_search", ["--n_trials", "1", "--epochs", "1"]),
+])
+def test_drivers_raise_without_cuda(monkeypatch, tmp_path, module, argv):
+    """The experiment drivers take the card unless APT_PLATFORM=cpu or
+    ``device="cpu"``; with no card they raise before writing anything."""
+    import importlib
+
+    driver = importlib.import_module(
+        f"airpollution_tpu_torch.experiments.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("APT_PLATFORM", raising=False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        driver.main(argv)
+    assert not any(tmp_path.iterdir())

@@ -357,24 +357,32 @@ def test_trained_loss_in_a_band_of_jax():
     assert finals[0] / 3.0 <= finals[1] <= 3.0 * finals[0]
 
 
-def test_experiments_driver_writes_the_reference_columns(tmp_path):
-    """scripts/torch_port_pinn_experiments.py on the CPU at ms=4 and 8 with
-    a short schedule and the levers: one row per mesh, with the columns of
-    results_snapshot/df_pinn_training_results.csv, and the schedules and
-    collocation budget of the reference drivers."""
+def test_experiments_driver_writes_the_reference_columns(tmp_path,
+                                                         monkeypatch):
+    """airpollution_tpu_torch.experiments.pinn_experiments on the CPU at
+    ms=4 and 8 with a short schedule and the levers: one row per mesh,
+    with the columns of results_snapshot/df_pinn_training_results.csv,
+    and the schedules and collocation budget of the reference drivers."""
     import csv
     from pathlib import Path
 
-    from scripts import torch_port_pinn_experiments as ex
+    from airpollution_tpu_torch.experiments import common as tcommon
+    from airpollution_tpu_torch.experiments import pinn_experiments as ex
 
-    rows = ex.main(["--device", "cpu", "--mesh_sizes", "4", "8",
-                    "--epochs", "6", "--fourier_features", "4",
-                    "--causal_eps", "1.0", "--finetune_lbfgs", "2",
-                    "--out_dir", str(tmp_path), "--out_suffix", "_t"])
     snapshot = Path(__file__).resolve().parents[1] / "results_snapshot"
+    monkeypatch.chdir(tmp_path)
+    # The figures are held by tests/test_torch_port_reporting.py.
+    monkeypatch.setattr(tapt.PINN, "plot_interpolated_solution",
+                        lambda *a, **k: None)
+    monkeypatch.setattr(tapt.PINN, "plot_history", lambda *a, **k: None)
+    rows = ex.main(["--mesh_sizes", "4", "8", "--epochs", "6",
+                    "--fourier_features", "4", "--causal_eps", "1.0",
+                    "--finetune_lbfgs", "2", "--out_suffix", "_t"],
+                   device="cpu")
     with open(snapshot / "df_pinn_training_results.csv") as f:
         want = next(csv.reader(f))
-    with open(tmp_path / "df_pinn_training_results_t.csv") as f:
+    with open(tmp_path / "experimental_results" / "pinn"
+              / "df_pinn_training_results_t.csv") as f:
         table = list(csv.reader(f))
     assert table[0] == want and len(table) == 3
     assert [r["mesh_size"] for r in rows] == [4, 8]
@@ -387,10 +395,10 @@ def test_experiments_driver_writes_the_reference_columns(tmp_path):
 
     for name in ("MESH_SIZES", "N_NEURONS", "EPOCHS_LIST",
                  "EARLY_STOPPING_PATIENCE_LIST", "LR_LIST",
-                 "LAMBDA_WEIGHTS"):
-        assert getattr(ex, name) == getattr(common, name), name
+                 "LAMBDA_WEIGHTS", "N_STEPS", "DOMAIN_SIZE", "SEED"):
+        assert getattr(tcommon, name) == getattr(common, name), name
     for n_dofs in [r["n_dofs"] for r in rows] + [48641]:
-        assert ex.collocation_budget(n_dofs) == \
+        assert tcommon.collocation_budget(n_dofs) == \
             common.collocation_budget(n_dofs)
-    assert ex.collocation_budget(48641) == {"pde": 34744, "ic": 6949,
-                                            "bc": 6949}
+    assert tcommon.collocation_budget(48641) == {"pde": 34744, "ic": 6949,
+                                                 "bc": 6949}
