@@ -643,13 +643,9 @@ def cmd_fno(args):
     The data, the initial parameters and the batches come from
     ``torch.Generator``s seeded with --seed, --seed + 1 and --seed + 2
     (other numbers than the JAX package's keys give). Returns
-    ``(params, losses)``."""
-    import torch
-
-    import airpollution_tpu_torch as apt
-    from airpollution_tpu_torch.device import synchronize
-    from airpollution_tpu_torch.models import fno
-
+    ``(params, losses)``. With --data_parallel under ``torchrun
+    --nproc_per_node N`` (N > 1) the minibatch is split over the N ranks
+    (parallel/fno_parallel.py) and rank 0 reports."""
     if args.n_times and (args.nt - 1) % args.n_times:
         # The time-conditioned dataset snapshots every (nt-1)/n_times
         # steps, so n_times must divide nt-1: bump nt to the next valid
@@ -658,15 +654,35 @@ def cmd_fno(args):
         print(f"note: --nt {args.nt} -> {nt_fix} (the time-conditioned "
               f"dataset needs n_times | nt-1)", file=sys.stderr)
         args.nt = nt_fix
+    # --data_parallel under torchrun with N > 1 ranks: the group from its
+    # environment (nccl on the cards, gloo under APT_PLATFORM=cpu), the
+    # minibatch split over the ranks; every rank builds the same data.
+    n_dev = int(os.environ.get("WORLD_SIZE", "1"))
+    use_dp = args.data_parallel and n_dev > 1
+    if use_dp:
+        from airpollution_tpu_torch.parallel import launch
+
+        launch.init_from_env("gloo" if _device() == "cpu" else "nccl")
+    try:
+        return _fno(args, use_dp, n_dev)
+    finally:
+        if use_dp:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _fno(args, use_dp, n_dev):
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.device import synchronize
+    from airpollution_tpu_torch.models import fno
+
     domain = apt.Domain()
     md = _mesh_data(args, domain)
     device = md.device
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    use_dp = args.data_parallel and n_dev > 1
-    if use_dp:
-        raise NotImplementedError(
-            "fno --data_parallel over more than one device shards the "
-            "minibatch, which is not ported yet (ROADMAP.md A9)")
+    lead = not use_dp or int(os.environ["RANK"]) == 0
     n_all = args.n_train + args.n_test
     data_gen = torch.Generator().manual_seed(args.seed)
     t0 = time.time()
@@ -687,11 +703,20 @@ def cmd_fno(args):
         in_ch=X.shape[-1], modes=args.modes, width=args.width,
         depth=args.depth, dtype=X.dtype, device=device)
     batch = args.batch
+    batches = torch.Generator(device=device).manual_seed(args.seed + 2)
     t0 = time.time()
-    params, _, losses = fno.train_fno(
-        params, Xtr, Ytr, epochs=args.epochs, batch=batch, lr=args.lr,
-        generator=torch.Generator(device=device).manual_seed(args.seed + 2))
-    t_train = time.time() - t0  # train_fno ends in one read of the losses
+    if use_dp:
+        from airpollution_tpu_torch.parallel import make_mesh, train_fno_dp
+
+        batch = -(-batch // n_dev) * n_dev
+        params, _, losses = train_fno_dp(
+            make_mesh({"data": n_dev}), params, Xtr, Ytr,
+            epochs=args.epochs, batch=batch, lr=args.lr, generator=batches)
+    else:
+        params, _, losses = fno.train_fno(
+            params, Xtr, Ytr, epochs=args.epochs, batch=batch, lr=args.lr,
+            generator=batches)
+    t_train = time.time() - t0  # the trainers end in one read of the losses
 
     rel_te = fno.relative_l2(params, Xte, Yte)
     bs = min(64, Xte.shape[0])
@@ -704,16 +729,18 @@ def cmd_fno(args):
         synchronize(device)
     fields_per_s = bs / ((time.time() - t0) / 10)
 
-    if args.save:
+    if args.save and lead:
         from airpollution_tpu_torch.io.checkpoint import save_pytree
 
         save_pytree(args.save, params)
         print(f"saved FNO params to {args.save}", file=sys.stderr)
+    if not lead:
+        return params, losses
     print(json.dumps({
         "method": "fno", **_mesh_json(args), "nt": args.nt,
         "n_train": args.n_train, "n_test": args.n_test,
         "n_times": args.n_times, "epochs": args.epochs, "batch": batch,
-        "data_parallel": bool(use_dp), "n_devices": 1,
+        "data_parallel": bool(use_dp), "n_devices": n_dev if use_dp else 1,
         "dataset_gen_s": round(t_data, 2), "train_s": round(t_train, 2),
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
         "rel_l2_holdout_vs_fem": rel_te,

@@ -100,13 +100,12 @@ def ensemble_forecast(mesh_data, domain, problems, *, order=1, tol=1e-7,
     restartable for a cycling forecast-analysis system
     (forecast, :func:`enkf_update`, forecast the next window).
 
-    ``mesh`` (sharding the members over devices) raises
-    NotImplementedError: multi-device runs are ``ROADMAP.md`` A9.
+    ``mesh`` (parallel.make_mesh) shards the members over its ``axis``:
+    the members are padded to a multiple of the axis size by repeating the
+    last one, each rank (or each block of a BlockMesh, one after another)
+    runs its contiguous share as one member batch, and the statistics are
+    formed from the gathered members, on every rank.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "ensemble_forecast(mesh=...) shards the members over devices, "
-            "which is not ported yet (ROADMAP.md A9)")
     md = mesh_data
     for p in problems:
         reject_robin(p, "ensemble_forecast (member-batched assembly)")
@@ -122,12 +121,30 @@ def ensemble_forecast(mesh_data, domain, problems, *, order=1, tol=1e-7,
             raise ValueError(
                 f"u0_members {tuple(u0.shape)} must be "
                 f"({n_members}, {md.number_of_segments})")
-    ops = member_operators(md, problems, dt, order, stiffness_convention)
-    sols, _ = run_time_loop(
-        ops, u0, mesh_data=md, problem=batched, dt=dt, order=order,
-        tol=tol, maxiter=maxiter, store_solutions=False,
-        source_quadrature=source_quadrature, t0=t0)
-    return _statistics(sols[0], thresholds)
+
+    def forecast(members, u0_batch):
+        ops = member_operators(md, members, dt, order, stiffness_convention)
+        sols, _ = run_time_loop(
+            ops, u0_batch, mesh_data=md,
+            problem=stack_problems(members, dtype=dtype, device=device),
+            dt=dt, order=order, tol=tol, maxiter=maxiter,
+            store_solutions=False, source_quadrature=source_quadrature,
+            t0=t0)
+        return sols[0]
+
+    if mesh is None:
+        return _statistics(forecast(list(problems), u0), thresholds)
+    from airpollution_tpu_torch.parallel.collectives import RowChain
+    from airpollution_tpu_torch.parallel.sweep import padded_shares
+
+    chain = RowChain(mesh, axis)
+    share, shares = padded_shares(chain, n_members)
+    n_pad = share * chain.n_blocks - n_members
+    members = list(problems) + [problems[-1]] * n_pad
+    u0 = torch.cat([u0, u0[-1:].expand(n_pad, -1)])
+    parts = torch.stack([forecast(members[a:b], u0[a:b])
+                         for _, a, b in shares])
+    return _statistics(chain.gather(parts, dim=0)[:n_members], thresholds)
 
 
 def _enkf_update(members, y, sensors, obs_std, eps, inflation):

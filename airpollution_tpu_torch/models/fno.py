@@ -249,20 +249,18 @@ def make_plume_dataset(mesh_data, domain, generator, n_samples, *,
     - ``Y``: (n, c, c, 1) FEM final fields at cell centers;
     - ``problems``: the sampled problems.
 
-    ``mesh`` (sharding the solves over devices) raises
-    NotImplementedError: ``ROADMAP.md`` A9.
+    ``mesh`` (a mesh with a 'trial' axis, parallel.make_mesh) shards the
+    solves over it (``ensemble_forecast(mesh=)``): each rank draws the
+    same problems and solves its share, and every rank gets the whole
+    dataset.
     """
     from airpollution_tpu_torch.diagnostics.ensemble import (
         ensemble_forecast)
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_plume_dataset(mesh=...) shards the solves over devices, "
-            "which is not ported yet (ROADMAP.md A9)")
     problems, Ds, vs = _sample_plume_problems(
         generator, n_samples, d_range, v_max, sigma_range, center_box)
     fc = ensemble_forecast(mesh_data, domain, problems, order=order,
-                           tol=tol, maxiter=maxiter)
+                           tol=tol, maxiter=maxiter, mesh=mesh)
     members = fc["members"]  # (n, n_seg)
     grid, coord_ch, ic, const = _channels(mesh_data, problems, Ds, vs,
                                           members.dtype)
@@ -385,24 +383,39 @@ def train_fno(params, X, Y, *, epochs=2000, batch=16, lr=1e-3,
     Returns ``(params, opt_state, losses)``: ``losses`` the (epochs,)
     per-step losses, read from the device once at the end; pass
     ``opt_state`` back in to continue training."""
+    if generator is None:
+        generator = torch.Generator(device=X.device).manual_seed(0)
+    idx = batch_indices(generator, X.shape[0], batch, epochs, X.device)
+
+    def loss_and_grads(p, step):
+        rows = idx[step]
+        loss = _loss(FNOParams(*p), X[rows], Y[rows])
+        return loss, torch.autograd.grad(loss, p)
+
+    return adamw_steps(params, opt_state, epochs, lr, weight_decay,
+                       loss_and_grads, X)
+
+
+def adamw_steps(params, opt_state, epochs, lr, weight_decay, loss_and_grads,
+                like):
+    """``epochs`` AdamW steps of :func:`train_fno` from ``params`` and
+    ``opt_state`` (None: zero moments); ``loss_and_grads(p, step)`` gives
+    step's loss and its gradients in the parameters ``p`` (a list of
+    leaf tensors). Returns ``(params, opt_state, losses)``, the losses in
+    ``like``'s dtype, read from the device once."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     # The JAX trainer hands optax both rates as float32 scalars.
     lr, weight_decay = float(np.float32(lr)), float(np.float32(weight_decay))
-    if generator is None:
-        generator = torch.Generator(device=X.device).manual_seed(0)
     if opt_state is None:
         opt_state = AdamWState(0, FNOParams(*map(torch.zeros_like, params)),
                                FNOParams(*map(torch.zeros_like, params)))
-    idx = batch_indices(generator, X.shape[0], batch, epochs, X.device)
     p = [t.detach().clone().requires_grad_(True) for t in params]
     mu = [t.clone() for t in opt_state.mu]
     nu = [t.clone() for t in opt_state.nu]
     count = int(opt_state.count)
-    losses = torch.empty(epochs, dtype=X.dtype, device=X.device)
+    losses = torch.empty(epochs, dtype=like.dtype, device=like.device)
     for step in range(epochs):
-        rows = idx[step]
-        loss = _loss(FNOParams(*p), X[rows], Y[rows])
-        grads = torch.autograd.grad(loss, p)
+        loss, grads = loss_and_grads(p, step)
         count += 1
         c1 = 1.0 - b1 ** count
         c2 = 1.0 - b2 ** count

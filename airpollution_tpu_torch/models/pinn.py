@@ -941,8 +941,55 @@ class PINN:
         return self.history
 
     def train_parallel(self, mesh, batch_sizes, epochs, lr, lambda_weights):
-        raise NotImplementedError(
-            "multi-device PINN training is not ported yet (ROADMAP item 19)")
+        """Multi-process training over a ('dp', 'tp') ProcessMesh
+        (parallel/pinn_parallel.py): collocation batches split over 'dp',
+        the MLP over 'tp', ``epochs`` fused-Adam steps; appends the global
+        loss history and copies the trained parameters back into this
+        model on every rank. Hidden widths must divide by the 'tp' size.
+        The Adam moments carry across calls (``_parallel_state``). The IC
+        points and then every epoch's boundary and PDE points come from
+        the model's generator, in :meth:`train`'s order, so every rank
+        draws the same global batches."""
+        from airpollution_tpu_torch.parallel import pinn_parallel
+        from airpollution_tpu_torch.parallel.device_mesh import same_device
+
+        if getattr(self.problem, "obstacles", None):
+            raise ValueError(
+                "interior obstacles (problem.obstacles) are not "
+                "supported by the PINN trainers — use the FEM paths")
+        if getattr(self.problem, "robin_sides", None):
+            raise ValueError(
+                "Robin boundaries run on the serial trainer only — the "
+                "parallel trainer's boundary loss is Dirichlet-only")
+        trainer, info = pinn_parallel.build_parallel_trainer(
+            mesh, self.layers, self.domain, dict(batch_sizes),
+            dict(lambda_weights), lr, activation=self.activation,
+            epochs=int(epochs), dtype=self.dtype,
+            fourier_features=self.fourier_features, hard_ic=self.hard_ic,
+            reaction_active=self._reaction_active(),
+            output_scale="amp" in self.params[-1])
+        if not same_device(mesh.device, self.device):
+            raise ValueError(f"mesh device {mesh.device} differs from the "
+                             f"model's {self.device}")
+        params = _clone(self.params)
+        state = getattr(self, "_parallel_state", None)
+        if state is None:
+            state = pinn_parallel.fresh_state(params)
+        else:
+            state = state._replace(params=params)
+
+        start = time.time()
+        xyt_ic, ic_target = self._ic_points(info["n_ic"])
+        state, losses = trainer(state, xyt_ic, ic_target, self.generator,
+                                self.problem)
+        self._parallel_state = state
+        self.params = state.params
+        losses = losses.cpu().numpy()
+        for i, k in enumerate(("total_loss", "pde_loss", "ic_loss",
+                               "bc_loss")):
+            self.history[k].extend(losses[:, i].tolist())
+        self.training_time = time.time() - start
+        return self.history
 
     # --- evaluation ---
 

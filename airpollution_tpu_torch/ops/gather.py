@@ -141,6 +141,32 @@ def matvec(vals, cols, index, x):
     return plain_matvec(vals, cols, x)
 
 
+def rows_matvec(vals, cols, index, x):
+    """``y = A[rows] @ x`` of a block of an operator's rows: ``vals`` and
+    ``cols`` (n_rows, w) of those rows, their columns into the whole
+    vector ``x`` (N,). One launch of B7 on a CUDA tensor (the kernel's
+    rows run to the index's n, its one x is read at the columns), the
+    plain version on a CPU one."""
+    if x.dim() != 1:
+        raise ValueError("a row block multiplies one vector x (N,)")
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"unsupported device {x.device}")
+        return plain_matvec(vals, cols, x)
+    if index is None or tuple(vals.shape) != tuple(index.shape):
+        raise ValueError("kernel B7 needs the row block's int32 columns "
+                         "(a KernelIndex of vals' shape)")
+    if (vals.dtype != x.dtype or vals.get_device() != index.device
+            or x.get_device() != index.device):
+        raise ValueError("vals, cols and x must share x's device, and vals "
+                         "x's dtype")
+    xb = x.contiguous()
+    y = torch.empty(vals.shape[0], dtype=x.dtype, device=x.device)
+    KERNEL.launch(x.dtype, index.struct, _build.pointer(vals),
+                  xb.data_ptr(), y.data_ptr(), 1, _build.current_stream())
+    return y
+
+
 def ell_matvec_vmem(A, x, *, block_rows: int = 2048):
     """``y = A @ x`` (an ``sparse.EllMatrix``), the entry point of the JAX
     package's row-block kernel: kernel B7 on a CUDA tensor. ``block_rows``

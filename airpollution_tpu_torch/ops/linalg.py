@@ -136,12 +136,19 @@ def bicgstab(
     atol: float = 0.0,
     maxiter: int = 1000,
     precond: Optional[Callable] = None,
+    dot: Optional[Callable] = None,
+    norm: Optional[Callable] = None,
 ) -> SolveResult:
     """Preconditioned BiCGStab (van der Vorst, right preconditioning) with
-    the same divide-by-zero guards as the JAX version."""
+    the same divide-by-zero guards as the JAX version. ``dot`` / ``norm``
+    replace ``torch.dot`` / ``torch.linalg.norm``: sums over the blocks of
+    a row-sharded state (parallel/stencil_shard.py), as the JAX version's
+    injected psums."""
     M = precond or _identity
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.norm
     x = torch.zeros_like(b) if x0 is None else x0
-    target = max(tol * float(torch.linalg.norm(b)), atol)
+    target = max(tol * float(norm(b)), atol)
     eps = torch.tensor(1e-30, dtype=b.dtype, device=b.device)
 
     def guard(a):
@@ -154,22 +161,22 @@ def bicgstab(
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho, alpha, omega = one, one, one
     k = 0
-    while k < maxiter and float(torch.linalg.norm(r)) > target:
-        rho_new = torch.dot(rhat, r)
+    while k < maxiter and float(norm(r)) > target:
+        rho_new = dot(rhat, r)
         beta = (rho_new / guard(rho)) * (alpha / guard(omega))
         p = r + beta * (p - omega * v)
         phat = M(p)
         v = matvec(phat)
-        alpha = rho_new / guard(torch.dot(rhat, v))
+        alpha = rho_new / guard(dot(rhat, v))
         s = r - alpha * v
         shat = M(s)
         t = matvec(shat)
-        omega = torch.dot(t, s) / guard(torch.dot(t, t))
+        omega = dot(t, s) / guard(dot(t, t))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
         rho = rho_new
         k += 1
-    return SolveResult(x=x, iterations=k, residual_norm=torch.linalg.norm(r))
+    return SolveResult(x=x, iterations=k, residual_norm=norm(r))
 
 
 def bicgstab_members(

@@ -11,19 +11,27 @@ application of A). A step is a pair of ppermutes that refresh the halos
 sharded-block mode, which masks on global rows and writes the interior
 rows only.
 
-Here the blocks of a mesh axis (parallel/device_mesh.py) lie side by side
-on one device in one ``(n_blocks, ..., rows, n)`` tensor, and a step is
+Here the mesh (parallel/device_mesh.py) is one of two kinds:
 
-1. :func:`exchange`: two slice copies (block d's first ``halo`` rows from
-   block d-1's last interior rows, its last ``halo`` rows from block d+1's
-   first) and the two chain-end zero fills: the ppermute pair's semantics
-   (``stencil_shard._halo_from_below`` / ``_halo_from_above``);
-2. one launch per block of the block kernel (ops/fused_hbm.py): B8 (B2's
-   block mode), B9 (B4's) or B10 (B6's); on a CPU tensor its plain
-   version.
+- a ProcessMesh: the rank at index d along the axis holds block d, as in
+  JAX; a step's exchange is one ``halo_exchange`` of the halo slabs with
+  both neighbours (parallel/collectives.py), and the interiors come back
+  to every rank with one ``all_gather_rows`` at the end and with each
+  strided snapshot;
+- a BlockMesh: the blocks of an axis lie side by side on one device in
+  one ``(n_blocks, ..., rows, n)`` tensor, and :func:`exchange` is two
+  slice copies (block d's first ``halo`` rows from block d-1's last
+  interior rows, its last ``halo`` rows from block d+1's first) and the
+  two chain-end zero fills: the ppermute pair's semantics
+  (``stencil_shard._halo_from_below`` / ``_halo_from_above``).
 
-So a step costs ``n_blocks`` launches and the exchange's four copies
-where the whole-canvas solve takes one launch. With the extrapolated warm
+Then each block takes one launch of the block kernel (ops/fused_hbm.py):
+B8 (B2's block mode), B9 (B4's) or B10 (B6's); on a CPU tensor its plain
+version. The blocks compute the same values either way, so a solve on
+ranks is bitwise the solve on one process's blocks.
+
+So a step costs a launch per block and the exchange where the
+whole-canvas solve takes one launch. With the extrapolated warm
 start both carried states are exchanged (the warm start reads u_prev in
 the halo). Arrays that do not change during a solve (the coefficient
 stack, the obstacle carve) are cut into extended blocks once per solve,
@@ -59,6 +67,9 @@ from airpollution_tpu_torch.ops import linalg, sparse
 from airpollution_tpu_torch.ops import stencil as stencil_mod
 from airpollution_tpu_torch.ops import uniform as uniform_mod
 from airpollution_tpu_torch.ops.loads import EmissionLoads, RobinFluxLoads
+from airpollution_tpu_torch.parallel.collectives import RowChain
+from airpollution_tpu_torch.parallel.device_mesh import (check_mesh,
+                                                         same_device)
 from airpollution_tpu_torch.problems import (
     robin_g_customized,
     robin_g_xy_provided,
@@ -91,20 +102,28 @@ def _block_layout(n: int, n_blocks: int, halo: int) -> int:
 class RowBlocks:
     """The row blocks of an n x n canvas: ``n_blocks`` interiors of
     ``local`` rows, each carried as ``rows = local + 2 halo`` rows
-    (:class:`fused_hbm.BlockRows` each)."""
+    (:class:`fused_hbm.BlockRows` each). ``blocks`` are the ones this
+    process holds: all of them, or with ``chain`` (a
+    collectives.RowChain) the chain's."""
 
-    def __init__(self, n: int, n_blocks: int, halo: int):
+    def __init__(self, n: int, n_blocks: int, halo: int, chain=None):
         self.n, self.n_blocks, self.halo = n, n_blocks, halo
+        self.chain = chain
         self.local = _block_layout(n, n_blocks, halo)
         self.rows = self.local + 2 * halo
+        ids = range(n_blocks) if chain is None else chain.ids
         self.blocks = [fused_hbm.BlockRows(n, d * self.local - halo, halo,
                                            self.local)
-                       for d in range(n_blocks)]
+                       for d in ids]
+
+    @property
+    def on_ranks(self) -> bool:
+        return self.chain is not None and not self.chain.local
 
     def split(self, canvas):
-        """(..., n, n) canvases -> (n_blocks, ..., rows, n) extended blocks:
-        each interior with its neighbours' rows, zero past the canvas and
-        past the chain ends."""
+        """(..., n, n) canvases -> (held blocks, ..., rows, n) extended
+        blocks: each interior with its neighbours' rows, zero past the
+        canvas and past the chain ends."""
         pad = self.local * self.n_blocks - self.n + self.halo
         full = F.pad(canvas, (0, 0, self.halo, pad))
         return torch.stack([full[..., b.row0 + self.halo:
@@ -112,9 +131,12 @@ class RowBlocks:
                             for b in self.blocks])
 
     def join(self, ext):
-        """(n_blocks, ..., rows, n) extended blocks -> (..., n, n): the
-        interiors in canvas order."""
+        """(held blocks, ..., rows, n) extended blocks -> (..., n, n): the
+        interiors of every block in canvas order (on ranks, gathered from
+        all of them)."""
         inner = ext[..., self.halo:self.halo + self.local, :]
+        if self.on_ranks:
+            return self.chain.gather(inner, dim=-2)[..., :self.n, :]
         return torch.cat(list(inner.unbind(0)), dim=-2)[..., :self.n, :]
 
 
@@ -129,18 +151,31 @@ def exchange(ext, local: int, halo: int):
     ext[-1, ..., halo + local:, :] = 0
 
 
+def exchange_ranks(ext, local: int, halo: int, chain):
+    """:func:`exchange` of this rank's extended block ``ext`` (1, ...,
+    rows, n) with the neighbouring ranks of ``chain``: one halo_exchange
+    of the two (..., halo, n) slabs."""
+    below, above = chain.neighbours(ext[:, ..., halo:2 * halo, :],
+                                    ext[:, ..., local:local + halo, :])
+    ext[:, ..., :halo, :] = below
+    ext[:, ..., halo + local:, :] = above
+
+
 def _run(state, blocks: RowBlocks, n_steps: int, snapshot_every,
          block_step, load_of):
-    """``n_steps`` steps of the extended blocks ``state`` (n_blocks, ...):
-    each an :func:`exchange`, then ``block_step(d, state[d], out[d],
-    load_of(d))`` for every block d, which writes block d's next state
-    (its interior at least) into ``out[d]``. Returns the final state and,
+    """``n_steps`` steps of the extended blocks ``state`` (held blocks,
+    ...): each an exchange, then ``block_step(i, state[i], out[i],
+    load_of(i))`` for every held block i, which writes its next state
+    (its interior at least) into ``out[i]``. Returns the final state and,
     with ``snapshot_every=k``, the joined state after every k steps."""
     other = torch.empty_like(state)
     snaps = []
     for i in range(n_steps):
-        exchange(state, blocks.local, blocks.halo)
-        for d in range(blocks.n_blocks):
+        if blocks.on_ranks:
+            exchange_ranks(state, blocks.local, blocks.halo, blocks.chain)
+        else:
+            exchange(state, blocks.local, blocks.halo)
+        for d in range(len(blocks.blocks)):
             block_step(d, state[d], other[d], load_of(d))
         state, other = other, state
         if snapshot_every is not None and (i + 1) % snapshot_every == 0:
@@ -149,16 +184,16 @@ def _run(state, blocks: RowBlocks, n_steps: int, snapshot_every,
 
 
 def _blocks_of(mesh, axis, mesh_data, n, halo):
-    """The RowBlocks of ``mesh``'s ``axis`` on its device, which must be the
-    mesh data's."""
-    if axis not in mesh.shape:
-        raise ValueError(f"mesh {mesh.shape} has no axis {axis!r}")
-    if mesh.device != mesh_data.device:
+    """The RowBlocks of ``mesh``'s ``axis`` that this process holds (a
+    BlockMesh's all, a ProcessMesh rank's own) on the mesh's device, which
+    must be the mesh data's."""
+    check_mesh(mesh, axis)
+    if not same_device(mesh.device, mesh_data.device):
         raise ValueError(f"mesh device {mesh.device} differs from the mesh "
                          f"data's {mesh_data.device}")
     if mesh.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {mesh.device}")
-    return RowBlocks(n, mesh.shape[axis], halo)
+    return RowBlocks(n, mesh.shape[axis], halo, RowChain(mesh, axis))
 
 
 def _check_common(mesh_data, snapshot_every, n_steps, source_quadrature,

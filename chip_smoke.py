@@ -100,7 +100,7 @@ Phases, each printing one JSON line:
     polynomial (<= 2e-5) and a central difference (<= 5e-3);
 14. slice 13, the command line (``airpollution_tpu_torch.cli``, run in
     this process through ``cli.main``): X1, ``solve --mesh_size 2049 --nt
-    1001`` with the parser's defaults ('auto' -> the uniform scan route
+    101`` with the parser's defaults ('auto' -> the uniform scan route
     with patch assembly -> the large-mesh policy), its route, steps/s,
     rel_l2 and seconds to the first step, no kernel launched; the fused
     route at the same size and k on B2 (|delta rel_l2| <= 5e-4), and at
@@ -138,24 +138,43 @@ Phases, each printing one JSON line:
     sweep over the paper's mesh sizes 4-128 at nt=128 (rel_l2 at ms=16
     and 32 within 5e-4 of the reference-parity targets), the unstructured
     sweep at 8, 16 and 32 (B7a's launches counted from 0), the PINN sweep
-    at ms 4 and 8 (200 epochs), the D-sensitivity sweep (100 epochs), a
+    at ms 4 and 8 (100 epochs), the D-sensitivity sweep (50 epochs), a
     fixed-runtime cell (ms=4, 2 s), a 2-trial search on 2 threads, then
     the eight LaTeX tables and the figures (skipped without matplotlib),
     each row beside results_snapshot/'s;
-18. the PINN (slice 11), then the kernels line (launches on each path,
+18. slice 17, multi-device on torch.distributed (D1,
+    ``airpollution_tpu_torch.parallel``): (a) one NCCL rank in this
+    process (a FileStore group of world size 1) runs every distributed
+    entry point at full width, each against its one-process counterpart:
+    the block solver on X1's 2049^2 mesh data (B8, bitwise), the
+    row-sharded FEM solve at 257^2 (B7a row blocks) against the ELL
+    solve, the D-sweep at 64^2 over the sensitivity driver's five D
+    values against five serial solves, PINN.train_parallel at PINN-W's
+    widths against PINN.train on the same seed and points, train_fno_dp
+    at N1's widths against train_fno, ensemble_forecast(mesh=) at E1's
+    shape against the one batch (bitwise); (b) two gloo ranks sharing
+    the card (parallel.launch.spawn) run B8 at 2049^2, B9 at C1's 1025^2,
+    B10 on M1's chain and the halo-exchange stencil solver at 257^2
+    (Chebyshev), one block per rank, the halo slabs staged through host
+    memory, each bitwise against the same solve on 2 blocks in this
+    process, with the host-staged exchange's ms; the ranks start right
+    after the kernel build and run beside the kernel checks;
+19. the PINN (slice 11), then the kernels line (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
     paths apart as ``time_varying_launches``, for B1, B2 and B6 those of
     slice 13's as ``cli_launches``, for B3, B4-raw and B7a those of slice
     14's as ``inverse_fits_launches``, for B7a those of slice 15's as
-    ``ensemble_fno_launches`` and of slice 16's as
-    ``paper_harness_launches``).
+    ``ensemble_fno_launches``, of slice 16's as
+    ``paper_harness_launches`` and for B7a-B10 those of slice 17's as
+    ``distributed_launches``).
 
 Set-up is shared where it can be: meshes that differ only in nt are one
 MeshData retimed (``retimed``), B8 runs after X1 on the 2049^2 mesh data
-of X1's command, and the 1025^2 unstructured mesh's Delaunay runs on a
-host thread beside the kernel build.
+of X1's command, the 1025^2 unstructured mesh's Delaunay runs on a host
+thread beside the kernel build, and D1's two gloo ranks start right after
+the build and set up and solve beside the (untimed) kernel checks.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3400,6 +3419,7 @@ B8_ITERS = 10  # scripts/tpu_hbm_check.py's 2049^2 row (Chebyshev-10)
 # Its CN solve takes C1's k=14: with k=10 it diverges near step 550 on the
 # H100 in float32, whole canvas and blocks alike (PERF.md, section 6).
 B8_CN_ITERS = C1_ITERS
+B8_NT = 1001  # scripts/tpu_hbm_check.py's 2049^2 row
 BLOCK_MESH = {"mp": 4}
 
 
@@ -3605,7 +3625,7 @@ def phase_b8_2049(domain, md):
     from airpollution_tpu_torch.parallel import (build_hbm_halo_solver,
                                                  make_mesh)
 
-    check(md.structured_n == 2049 and md.nt == 1001
+    check(md.structured_n == 2049 and md.nt == B8_NT
           and md.dtype == torch.float32 and md.domain.T == domain.T,
           "B8: X1's mesh data is not the 2049^2 row's")
     out = {"phase": "b8_block_2049", "card": card_line(), "ms": 2049,
@@ -4599,9 +4619,11 @@ def phase_time_varying(meshes):
 
 
 # Slice 13: the command line and the routes it exposes.
-X1 = dict(mesh_size=2049, nt=1001)
+# X1's depth: 101 steps (1001 until slice 17; its route, k and the
+# scan-vs-B2 gate do not need 1,000 steps, and the cut pays for D1).
+X1 = dict(mesh_size=2049, nt=101)
 X1_F64_MS = 513
-X1_F64_NT = 201  # the f64 comparison's horizon (1001 cost ~18 s more)
+X1_F64_NT = 101  # the f64 comparison's horizon (201 until slice 17)
 X1_F64_TOL = 1e-10  # fused against scan, f64, one shared interval
 X1_REL_L2_TOL = 5e-4  # |delta rel_l2| at 2049^2, f32, each its own interval
 X2_TOL = 1e-5  # spectral against Jacobi, of max|u|
@@ -5709,8 +5731,10 @@ R1_UNSTRUCTURED_SIZES = [8, 16, 32]
 # Reference parity of the structured sweep (ROADMAP.md, the main path).
 R1_PARITY = {16: 1.741805, 32: 0.787025}
 R1_PARITY_TOL = 5e-4
-R1_PINN = ["--mesh_sizes", 4, 8, "--epochs", 200]
-R1_SENSITIVITY = ["--epochs", 100]
+# The PINN parts' depth (200 and 100 epochs until slice 17; their gates are
+# finite errors and epochs run, and the cut pays for D1).
+R1_PINN = ["--mesh_sizes", 4, 8, "--epochs", 100]
+R1_SENSITIVITY = ["--epochs", 50]
 R1_FIXED = dict(mesh_idx=0, time_budget=2.0)  # ms=4, a 2-s budget
 R1_SEARCH = ["--n_trials", 2, "--epochs", 20, "--n_jobs", 2]
 R1_TABLES = ("convergence_comparison", "convergence_rates",
@@ -5736,8 +5760,8 @@ def phase_r1_paper_harness():
     paper's mesh sizes at nt=128 (route 'auto': the plain stencil scan,
     no kernel), rel_l2 at ms=16 and 32 against the reference-parity
     targets; the unstructured sweep (route 'ell': every product on B7a,
-    counted from 0); the PINN sweep at ms 4 and 8 (200 epochs), the
-    D-sensitivity sweep (100 epochs), one fixed-runtime cell (ms=4, 2 s)
+    counted from 0); the PINN sweep at ms 4 and 8 (100 epochs), the
+    D-sensitivity sweep (50 epochs), one fixed-runtime cell (ms=4, 2 s)
     through the module's functions, and the hyperparameter search (2
     trials of 20 epochs on 2 threads); then the LaTeX tables and the
     figures (skipped, one line each, without matplotlib) from the CSVs
@@ -5871,6 +5895,439 @@ def phase_r1_paper_harness():
     return b7a
 
 
+# Slice 17: multi-device on torch.distributed (airpollution_tpu_torch/
+# parallel/), D1. (a) One NCCL rank in this process (a FileStore group of
+# world size 1): every distributed entry point at full width through the
+# NCCL code path. (b) Two gloo ranks sharing the card (parallel.launch.spawn)
+# run B8, B9 and B10 one block per rank, the halo slabs staged through host
+# memory, and the halo-exchange stencil solver; each held bitwise against
+# the same solve on 2 blocks in this process.
+D1_B8_NT = 101  # (a) the 2049^2 block solve's depth
+D1_FEM = dict(mesh_size=257, nt=51)
+D1_SWEEP = dict(mesh_size=64, nt=64, D=(0.001, 0.01, 0.1, 1.0, 10.0))
+D1_PINN = dict(batch={"pde": 34744, "ic": 6949, "bc": 6948}, epochs=100,
+               lr=1e-4)  # PINN-W's widths; bc a multiple of 4 (one draw)
+D1_FNO = dict(samples=128, cells=63, epochs=20, batch=16)  # N1's widths
+D1_PINN_TOL = 1e-3  # train_parallel's losses against PINN.train's, f32
+D1_TOL = 1e-5  # one NCCL rank against its one-process counterpart, f32
+# (b): the 2-rank solves, short depth: (mesh size, nt, k). The stencil
+# solver runs Chebyshev: its BiCGStab, whose dots are host-staged gloo
+# all-reduces here, ran 2.1 steps/s at 257^2 on 2 ranks (PERF.md).
+D1_RANKS = {"b8": (2049, 21, B8_ITERS), "b9": (1025, 21, C1_ITERS),
+            "b10": (1025, 21, DEMO_ITERS[1025]), "halo": (257, 21, 8)}
+D1_SPAWN_TIMEOUT = 300
+
+
+def d1_block_solves(domain, mesh, mds):
+    """The (b) cases on ``mesh`` (2 ranks or 2 blocks): case -> (a
+    callable giving the solve's output, its steps, its kernel or None).
+    ``mds``: mesh size -> float32 mesh data."""
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.models import crbe
+    from airpollution_tpu_torch.parallel import (
+        build_canvas_hbm_halo_solver, build_halo_solver,
+        build_hbm_halo_solver, build_multispecies_hbm_halo_solver)
+
+    def retime(ms, nt):
+        md = mds[ms]
+        return md if md.nt == nt else retimed(md, nt)
+
+    cases = {}
+    ms, nt, k = D1_RANKS["b8"]
+    md = retime(ms, nt)
+    p = apt.Problem(sigma=1.0)
+    dt = domain.T / (nt - 1)
+    solve = build_hbm_halo_solver(mesh, md, p, dt, iters=k,
+                                  extrapolate=True, assembly="patch")
+    u0 = p.initial_condition_fn(md.midpoints)
+    cases["b8"] = (lambda s=solve, u=u0: s(None, u), nt - 1, "B8")
+    ms, nt, k = D1_RANKS["b9"]
+    md = retime(ms, nt)
+    p = apt.RotatingPlumeProblem(omega=0.05, D=0.3)
+    dt = domain.T / (nt - 1)
+    ops = crbe.assemble(md, p, dt, 1, "correct")
+    solve = build_canvas_hbm_halo_solver(mesh, md, p, dt, order=1, iters=k,
+                                         extrapolate=True)
+    u0 = p.initial_condition_fn(md.midpoints)
+    cases["b9"] = (lambda s=solve, o=ops, u=u0: s(o, u), nt - 1, "B9")
+    ms, nt, k = D1_RANKS["b10"]
+    md = retime(ms, nt)
+    p = demo_problem(3)
+    dt = domain.T / (nt - 1)
+    ops = crbe.assemble(md, p.species[0], dt, 2, "correct")
+    solve = build_multispecies_hbm_halo_solver(mesh, md, p, dt, order=2,
+                                               iters=k)
+    C0 = p.initial_conditions(md.midpoints)
+    cases["b10"] = (lambda s=solve, o=ops, c=C0: s(o, c), nt - 1, "B10")
+    ms, nt, k = D1_RANKS["halo"]
+    md = retime(ms, nt)
+    p = apt.Problem(sigma=1.0)
+    dt = domain.T / (nt - 1)
+    ops = crbe.assemble(md, p, dt, 1, "correct")
+    solve = build_halo_solver(mesh, md, p, dt, iters=k, extrapolate=True)
+    u0 = p.initial_condition_fn(md.midpoints)
+    cases["halo"] = (lambda s=solve, o=ops, u=u0: s(o, u), nt - 1, None)
+    return cases
+
+
+def d1_rank(out_dir, device):
+    """One of (b)'s 2 gloo ranks on ``device``: D1_RANKS's solves with one
+    block per rank, their outputs saved for the parent
+    (rank<r>_<case>.pt), the host-staged halo exchange of B8's 2049^2
+    block timed, this rank's launches by kernel. Writes rank<r>.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.parallel import hbm_shard, make_mesh
+    from airpollution_tpu_torch.parallel.collectives import RowChain
+
+    rank = dist.get_rank()
+    domain = apt.Domain()
+    t0 = time.perf_counter()
+    mds = {ms: apt.MeshData(apt.create_mesh(ms, 20.0), domain, nt=nt,
+                            device=device)
+           for ms, nt, _ in D1_RANKS.values()}
+    info = {"setup_s": time.perf_counter() - t0}
+    mesh = make_mesh({"mp": 2}, device=device)
+    reset_counts()
+    for case, (run, n_steps, _) in d1_block_solves(domain, mesh,
+                                                    mds).items():
+        t1 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        info[f"{case}_s"] = time.perf_counter() - t1
+        torch.save(out.cpu(), os.path.join(out_dir, f"rank{rank}_{case}.pt"))
+    info["launches"] = {kid: launches_of(kid) for kid in ("B8", "B9", "B10")}
+    ms, _, k = D1_RANKS["b8"]
+    halo = hbm_shard.halo_rows(k, False)
+    blocks = hbm_shard.RowBlocks(ms, 2, halo, RowChain(mesh, "mp"))
+    state = torch.zeros((1, 2, 3, blocks.rows, ms), device=mesh.device)
+    reps = 20
+    hbm_shard.exchange_ranks(state, blocks.local, blocks.halo, blocks.chain)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        hbm_shard.exchange_ranks(state, blocks.local, blocks.halo,
+                                 blocks.chain)
+    torch.cuda.synchronize()
+    info["exchange_ms"] = 1e3 * (time.perf_counter() - t1) / reps
+    info["exchange_bytes"] = 2 * state[0, ..., :halo, :].numel() * 4
+    info["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    return info
+
+
+def d1_pair(runs, kid=None):
+    """Each of ``runs`` (tag -> ``run(warm)``) once to warm it
+    (``run(True)``, untimed, a short version where noted), then each once
+    timed (``run(False)``), so that neither side's time holds the
+    process's first use of a path. Returns tag -> (the timed run's output,
+    its host seconds up to a synchronisation, ``kid``'s launches in it or
+    None); the launch counts start from 0 at each timed run."""
+    import torch
+
+    for run in runs.values():
+        run(True)
+    out = {}
+    for tag, run in runs.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got = run(False)
+        torch.cuda.synchronize()
+        out[tag] = (got, time.perf_counter() - t0,
+                    launches_of(kid) if kid else None)
+    return out
+
+
+def d1_nccl_rank(domain, md_2049, md_257):
+    """(a): every distributed entry point on one NCCL rank (this process),
+    each against its one-process counterpart, both sides warmed before
+    either is timed (d1_pair); each one's launches counted from 0 around
+    its own timed run. Returns (the line's fields, launches by kernel)."""
+    import numpy as np
+    import torch
+
+    import airpollution_tpu_torch as apt
+    from airpollution_tpu_torch.diagnostics.ensemble import ensemble_forecast
+    from airpollution_tpu_torch.models import fno
+    from airpollution_tpu_torch.models.crbe import CRBESolver
+    from airpollution_tpu_torch.parallel import (
+        build_hbm_halo_solver, build_sharded_solver, crbe_diffusion_sweep,
+        launch, make_mesh, train_fno_dp)
+    from airpollution_tpu_torch.parallel.device_mesh import BlockMesh
+
+    out, launches = {}, {"B7a": 0, "B8": 0}
+    cuda = md_257.device
+    with launch.process_group("nccl", device="cuda:0"):
+        # B8 at 2049^2, nt=D1_B8_NT: the rank's one block against the
+        # one-process one-block solve.
+        md = retimed(md_2049, D1_B8_NT)
+        p = apt.Problem(sigma=1.0)
+        dt = domain.T / (md.nt - 1)
+        u0 = p.initial_condition_fn(md.midpoints)
+        solvers = {tag: build_hbm_halo_solver(
+            mesh, md, p, dt, iters=B8_ITERS, extrapolate=True,
+            assembly="patch") for tag, mesh in (
+                ("rank", make_mesh({"mp": 1})),
+                ("one_process", BlockMesh({"mp": 1}, cuda)))}
+        runs = d1_pair({tag: lambda warm, s=s: s(None, u0)
+                        for tag, s in solvers.items()}, "B8")
+        del solvers
+        for tag, (_, sec, _) in runs.items():
+            out[f"b8_{tag}_steps_per_s"] = (md.nt - 1) / sec
+        out["b8_launches"] = runs["rank"][2]
+        launches["B8"] += out["b8_launches"]
+        out["b8_bitwise_equal"] = bool(torch.equal(runs["rank"][0],
+                                                   runs["one_process"][0]))
+        check(out["b8_launches"] == md.nt - 1,
+              f"D1 B8 rank: {out['b8_launches']} launches")
+        check(out["b8_bitwise_equal"], "D1 B8: the NCCL rank's block solve "
+              "differs from the one-process block solve")
+        # The row-sharded FEM solve (B7a row blocks) at 257^2.
+        md = retimed(md_257, D1_FEM["nt"])
+        whole = CRBESolver(domain, p, md, matvec_impl="ell", device=cuda)
+        sharded = build_sharded_solver(make_mesh({"mp": 1}), md, p, whole.dt,
+                                       tol=whole.solver_tol)
+        args = (whole._require_ops(), whole.set_initial_condition())
+        runs = d1_pair({
+            "rank": lambda warm: sharded(*args),
+            "one_process": lambda warm: whole.solve(store_solutions=False),
+        }, "B7a")
+        (got, sec, out["fem_b7a_launches"]), (ref, ref_sec, _) = \
+            runs["rank"], runs["one_process"]
+        launches["B7a"] += out["fem_b7a_launches"]
+        out["fem_rank_steps_per_s"] = (md.nt - 1) / sec
+        out["fem_one_process_steps_per_s"] = (md.nt - 1) / ref_sec
+        out["fem_max_rel_diff"] = max_rel(got, ref)
+        out["fem_bitwise_equal"] = bool(torch.equal(got, ref))
+        check(out["fem_b7a_launches"] > 0, "D1 FEM: no B7a launch")
+        check(out["fem_max_rel_diff"] <= D1_TOL,
+              f"D1 FEM: rank vs ELL solve {out['fem_max_rel_diff']:.3e}")
+        # The D-sweep at 64^2 over the sensitivity driver's five D values
+        # (each side warmed on the first D alone).
+        md64 = apt.MeshData(apt.create_mesh(D1_SWEEP["mesh_size"], 20.0),
+                            domain, nt=D1_SWEEP["nt"], device=cuda)
+
+        def sweep_rank(warm):
+            return crbe_diffusion_sweep(
+                md64, domain, D1_SWEEP["D"][:1] if warm else D1_SWEEP["D"],
+                mesh=make_mesh({"trial": 1}))
+
+        def sweep_serial(warm):
+            errors = []
+            for D in D1_SWEEP["D"][:1] if warm else D1_SWEEP["D"]:
+                q = apt.Problem(v=(1.0, 0.5), D=D, sigma=1.0)
+                s = CRBESolver(domain, q, md64, matvec_impl="ell",
+                               stiffness_convention="reference", device=cuda)
+                s.solve(store_solutions=False)
+                errors.append(s.compute_errors(q.analytical_solution))
+            return errors
+
+        runs = d1_pair({"rank": sweep_rank, "serial": sweep_serial}, "B7a")
+        (sweep, out["sweep_s"], out["sweep_b7a_launches"]), \
+            (serial, out["sweep_serial_s"], _) = runs["rank"], runs["serial"]
+        launches["B7a"] += out["sweep_b7a_launches"]
+        want = np.asarray(serial)
+        got = torch.stack([sweep[k] for k in ("rel_l2_error", "l2_error",
+                                              "max_error")], 1).cpu().numpy()
+        out["sweep_rel_l2"] = got[:, 0].tolist()
+        out["sweep_max_rel_diff"] = float(np.abs(got - want).max()
+                                          / np.abs(want).max())
+        check(np.isfinite(got).all() and out["sweep_max_rel_diff"] <= 1e-4,
+              f"D1 sweep vs serial solves {out['sweep_max_rel_diff']:.3e}")
+
+        # PINN.train_parallel at PINN-W's widths against PINN.train, from
+        # one seed (each side warmed on a 5-epoch run of its own model).
+        def pinn(tag, warm):
+            model = apt.PINN(PINN_LAYERS, apt.Problem(sigma=1.0), domain,
+                             activation="tanh", seed=1234, device=cuda)
+            epochs = 5 if warm else D1_PINN["epochs"]
+            if tag == "rank":
+                return model.train_parallel(
+                    make_mesh({"dp": 1, "tp": 1}), D1_PINN["batch"], epochs,
+                    D1_PINN["lr"], PINN_LAMBDA)
+            return model.train(D1_PINN["batch"], epochs, D1_PINN["lr"],
+                               PINN_LAMBDA,
+                               mini_batch_size=D1_PINN["batch"]["pde"])
+
+        runs = d1_pair({tag: functools.partial(pinn, tag)
+                        for tag in ("rank", "serial")})
+        for tag, (_, sec, _) in runs.items():
+            out[f"pinn_{tag}_epochs_per_s"] = D1_PINN["epochs"] / sec
+        a, b = (np.asarray(runs[tag][0]["total_loss"])
+                for tag in ("rank", "serial"))
+        out["pinn_loss_first_last"] = [float(a[0]), float(a[-1])]
+        out["pinn_max_rel_loss_diff"] = float(np.max(np.abs(a - b) / b))
+        check(a.shape == b.shape == (D1_PINN["epochs"],)
+              and np.isfinite(a).all() and a[-1] < a[0],
+              "D1 PINN: the parallel losses are not finite and falling")
+        check(out["pinn_max_rel_loss_diff"] <= D1_PINN_TOL,
+              f"D1 PINN: train_parallel vs train "
+              f"{out['pinn_max_rel_loss_diff']:.3e}")
+        # train_fno_dp at N1's widths against train_fno, seeded data (each
+        # side warmed on 2 steps).
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        c = D1_FNO["cells"]
+        X = torch.randn((D1_FNO["samples"], c, c, 6), generator=gen,
+                        device=cuda)
+        Y = torch.randn((D1_FNO["samples"], c, c, 1), generator=gen,
+                        device=cuda)
+        params = fno.init_fno_params(
+            torch.Generator(device=cuda).manual_seed(1), in_ch=6,
+            device=cuda)
+
+        def fno_run(tag, warm):
+            g = torch.Generator(device=cuda).manual_seed(2)
+            kw = dict(epochs=2 if warm else D1_FNO["epochs"],
+                      batch=D1_FNO["batch"], lr=1.5e-3, generator=g)
+            if tag == "rank":
+                return train_fno_dp(make_mesh({"data": 1}), params, X, Y,
+                                    **kw)
+            return fno.train_fno(params, X, Y, **kw)
+
+        runs = d1_pair({tag: functools.partial(fno_run, tag)
+                        for tag in ("rank", "serial")})
+        for tag, (_, sec, _) in runs.items():
+            out[f"fno_{tag}_steps_per_s"] = D1_FNO["epochs"] / sec
+        (pa, _, la), (pb, _, lb) = runs["rank"][0], runs["serial"][0]
+        out["fno_n_params"] = sum(t.numel() for t in pa)
+        out["fno_max_rel_loss_diff"] = max_rel(la, lb)
+        out["fno_max_rel_param_diff"] = max(max_rel(x, y)
+                                            for x, y in zip(pa, pb))
+        check(out["fno_n_params"] == N1_PARAMS, "D1 FNO: not N1's widths")
+        check(max(out["fno_max_rel_loss_diff"],
+                  out["fno_max_rel_param_diff"]) <= D1_TOL,
+              f"D1 FNO: train_fno_dp vs train_fno "
+              f"{out['fno_max_rel_loss_diff']:.3e} / "
+              f"{out['fno_max_rel_param_diff']:.3e}")
+        # ensemble_forecast(mesh=) at E1's shape against the one batch
+        # (each side warmed on 2 members).
+        rng = np.random.default_rng(1234)
+        K = 32
+        Ds = np.exp(rng.normal(np.log(0.1), 0.3, K))
+        Vs = rng.normal([1.0, 0.5], 0.15, (K, 2))
+        members = [apt.Problem(v=tuple(v), D=float(d), sigma=1.0)
+                   for v, d in zip(Vs, Ds)]
+
+        def ensemble(tag, warm):
+            return ensemble_forecast(
+                md64, domain, members[:2] if warm else members, order=2,
+                mesh=make_mesh({"trial": 1}) if tag == "rank" else None)
+
+        runs = d1_pair({tag: functools.partial(ensemble, tag)
+                        for tag in ("rank", "one_process")}, "B7a")
+        for tag, (_, sec, _) in runs.items():
+            out[f"ensemble_{tag}_member_steps_per_s"] = (
+                K * (md64.nt - 1) / sec)
+        out["ensemble_b7a_launches"] = runs["rank"][2]
+        launches["B7a"] += out["ensemble_b7a_launches"]
+        out["ensemble_bitwise_equal"] = bool(torch.equal(
+            runs["rank"][0]["members"], runs["one_process"][0]["members"]))
+        check(out["ensemble_bitwise_equal"],
+              "D1 ensemble: the rank's members differ from the batch's")
+    return out, launches
+
+
+def start_d1_ranks():
+    """Start (b) of D1 right after the kernel build: two gloo ranks sharing
+    the card (parallel.launch.spawn, device cuda:0, on a host thread; the
+    kernels are built, so the ranks load them) run d1_rank beside the
+    untimed kernel checks that follow, with their results under build/;
+    wait_d1_ranks ends that before the first timed phase.
+    Returns (a future of the ranks' end time, the results' directory, the
+    start time)."""
+    import tempfile
+
+    from airpollution_tpu_torch.parallel import launch
+
+    def run(out_dir):
+        launch.spawn(d1_rank, 2, backend="gloo", device="cuda:0",
+                     args=(out_dir, "cuda:0"), timeout_s=D1_SPAWN_TIMEOUT)
+        return time.perf_counter()
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="d1_", dir=build)
+    t0 = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run, tmp)
+    pool.shutdown(wait=False)
+    return future, tmp, t0
+
+
+def wait_d1_ranks(ranks):
+    """Wait for (b)'s ranks (start_d1_ranks, ``ranks``), so that no timed
+    phase shares the card with them; a failed rank raises here."""
+    t0 = time.perf_counter()
+    t_end = ranks[0].result()
+    emit({"phase": "d1_ranks_wait", "wait_s": time.perf_counter() - t0,
+          "ranks_wall_s": t_end - ranks[2]})
+
+
+def phase_d1_distributed(domain, md_2049, meshes, ranks):
+    """D1 (slice 17): (a) d1_nccl_rank, then (b)'s references, the same
+    solves on a one-process 2-block BlockMesh, each rank's output (from
+    start_d1_ranks, ``ranks``) held bitwise against them. Returns {kernel
+    id: launches}: (a)'s and both ranks'."""
+    import os
+    import shutil
+
+    import torch
+
+    from airpollution_tpu_torch.parallel.device_mesh import BlockMesh
+
+    future, tmp, t_ranks = ranks
+    t0 = time.perf_counter()
+    out = {"phase": "d1_distributed", "card": card_line()}
+    try:
+        nccl, launches = d1_nccl_rank(domain, md_2049,
+                                      meshes[(257, "float32")])
+        out.update({f"nccl_{k}": v for k, v in nccl.items()})
+        out["nccl_s"] = time.perf_counter() - t0
+        mds = {2049: md_2049, 1025: meshes[(1025, "float32")],
+               257: meshes[(257, "float32")]}
+        refs = {}
+        for case, (run, _, _) in d1_block_solves(
+                domain, BlockMesh({"mp": 2}, md_2049.device), mds).items():
+            refs[case] = run().cpu()
+        out["gloo_references_s"] = time.perf_counter() - t0 - out["nccl_s"]
+        out["gloo_ranks_wall_s"] = future.result() - t_ranks
+        infos = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                infos.append(json.load(f))
+        for case, ref in refs.items():
+            equal = [bool(torch.equal(torch.load(
+                os.path.join(tmp, f"rank{r}_{case}.pt")), ref))
+                for r in range(2)]
+            out[f"gloo_{case}_bitwise_equal"] = all(equal)
+            out[f"gloo_{case}_rank_s"] = [i[f"{case}_s"] for i in infos]
+            check(all(equal), f"D1 {case}: 2 gloo ranks differ from 2 "
+                  f"blocks in one process ({equal})")
+            check(bool(torch.isfinite(ref).all()), f"D1 {case}: non-finite")
+        for kid in ("B8", "B9", "B10"):
+            n = sum(i["launches"][kid] for i in infos)
+            out[f"gloo_{kid}_launches"] = n
+            check(n > 0, f"D1: the gloo ranks launched no {kid}")
+            launches[kid] = launches.get(kid, 0) + n
+        out["gloo_rank_setup_s"] = [i["setup_s"] for i in infos]
+        out["gloo_rank_seconds"] = [i["seconds"] for i in infos]
+        out["gloo_exchange_ms_host_staged"] = [i["exchange_ms"]
+                                               for i in infos]
+        out["gloo_exchange_bytes"] = infos[0]["exchange_bytes"]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return launches
+
+
 def structured_meshes(domain):
     """The structured meshes of the kernel checks and the main path, by
     (mesh size, dtype name): float64 ones where the float64 kernel checks
@@ -5920,6 +6377,8 @@ def main() -> int:
     setup = pool.submit(host_setup, domain)
     pool.shutdown(wait=False)
     phase_toolchain()
+    # Slice 17: D1's gloo ranks set up and solve beside the kernel checks.
+    d1_ranks = start_d1_ranks()
     t0 = time.perf_counter()
     meshes, (md_u1025, u1025_setup) = setup.result()
     emit({"phase": "host_setup", "wait_s": time.perf_counter() - t0})
@@ -5943,6 +6402,7 @@ def main() -> int:
     worst.update(phase_b4_flux(meshes, cache))
     meshes[(513, "float64")] = meshes[(513, "float32")]
     phase_plan_variants(meshes, problems, cache)
+    wait_d1_ranks(d1_ranks)
     times = kernel_times(meshes, problem)
     times.update(canvas_kernel_times(meshes, problems, cache))
     times.update(multispecies_kernel_times(meshes, problems, cache))
@@ -6024,9 +6484,17 @@ def main() -> int:
     cli_launches, md_2049 = phase_cli(domain)
     for kid, n in cli_launches.items():
         launches[kid] += n
-    # Slice 7: B8 on the 2049^2 mesh data of X1's command.
-    launches.update(phase_b8_2049(domain, md_2049))
-    times.update(b8_kernel_times(md_2049))
+    # Slice 7: B8 on the 2049^2 mesh data of X1's command, retimed to
+    # its 1001 steps.
+    md_2049_b8 = retimed(md_2049, B8_NT)
+    launches.update(phase_b8_2049(domain, md_2049_b8))
+    times.update(b8_kernel_times(md_2049_b8))
+    del md_2049_b8
+    # Slice 17: multi-device on torch.distributed, D1: one NCCL rank here,
+    # then B8-B10 and the stencil solver on 2 gloo ranks sharing the card.
+    d1_launches = phase_d1_distributed(domain, md_2049, meshes, d1_ranks)
+    for kid, n in d1_launches.items():
+        launches[kid] += n
     del md_2049
     # Slice 14: the rest of the inverse layer, B4-raw and B7a on new paths
     # (F2's launches are grad_129's slice-14 cases).
@@ -6064,6 +6532,8 @@ def main() -> int:
             **({"ensemble_fno_launches": ens_launches[kid]}
                if kid in ens_launches else {}),
             **({"paper_harness_launches": r1_b7a} if kid == "B7a" else {}),
+            **({"distributed_launches": d1_launches[kid]}
+               if kid in d1_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

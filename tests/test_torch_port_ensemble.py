@@ -25,8 +25,12 @@ from airpollution_tpu_torch.models import crbe as tcrbe
 from airpollution_tpu_torch.models.multispecies import (run_multispecies_loop,
                                                         stack_operators)
 from airpollution_tpu_torch.ops import gather, linalg, sparse
+from airpollution_tpu_torch import parallel as tpar
+from airpollution_tpu_torch.parallel import launch
 
+import torch_port_distributed_ranks as ranks
 from torch_port_helpers import one_torch_thread  # noqa: F401 (autouse)
+from torch_port_helpers import rel_diff
 
 TOL = 1e-10
 F64 = torch.float64
@@ -136,6 +140,51 @@ def test_statistics_and_exceedance():
         # JAX's bool mean rounds to float32.
         np.testing.assert_allclose(exc[i], np.asarray(want["exceedance"][i]),
                                    rtol=0, atol=1e-7)
+
+
+# Three emitters: strength, place and width differ (the (K, 1) columns of
+# the source) and so do the wind and the diffusivity.
+SOURCE_MEMBERS = [dict(q=2.0 + k, xs=-4.0 + 2.0 * k, ys=1.0 - k,
+                       sigma_s=1.5 + 0.5 * k, v=(0.5, 0.1 * k), D=0.2 + 0.1 * k)
+                  for k in range(3)]
+
+
+def _jax_source_members(jmd, jd):
+    return jens.ensemble_forecast(
+        jmd, jd, [japt.GaussianSourceProblem(**p) for p in SOURCE_MEMBERS],
+        order=2, tol=1e-11)["members"]
+
+
+def test_gaussian_source_members_match_jax():
+    """GaussianSourceProblem members (CN, the source's trapezoid) held
+    against the JAX ensemble serially; each source column is its member's
+    own emitter."""
+    jd, td, jmd, tmd = _meshes(T=1.0)
+    ps = [tapt.GaussianSourceProblem(**p) for p in SOURCE_MEMBERS]
+    b = tens.stack_problems(ps, dtype=F64)
+    assert b.q.shape == b.xs.shape == b.sigma_s.shape == (3, 1)
+    xyt = torch.tensor([[-4.0, 1.0, 0.5], [0.0, -1.0, 0.5]], dtype=F64)
+    np.testing.assert_allclose(
+        b.source_term(xyt).numpy(),
+        [p.source_term(xyt).numpy() for p in ps],
+        rtol=1e-15)
+    got = tens.ensemble_forecast(tmd, td, ps, order=2, tol=1e-11)
+    want = _jax_source_members(jmd, jd)
+    assert np.abs(np.asarray(want)).max() > 0
+    assert rel_diff(got["members"], want) <= TOL
+
+
+def test_gaussian_source_members_on_two_ranks_match_jax(tmp_path):
+    """The same members sharded over a 'trial' mesh of 2 gloo ranks
+    (three members padded to four): every rank's members against JAX."""
+    jd, _, jmd, _ = _meshes(T=1.0)
+    launch.spawn(ranks.gaussian_source_members, 2, backend="gloo",
+                 args=(str(tmp_path), SOURCE_MEMBERS), timeout_s=120)
+    want = _jax_source_members(jmd, jd)
+    for r in range(2):
+        got = np.load(tmp_path / f"rank{r}_members.npy")
+        assert got.shape == want.shape
+        assert rel_diff(got, want) <= TOL
 
 
 def test_identical_and_single_members():
@@ -250,7 +299,15 @@ def test_errors_match_jax():
         walled.robin_sides = {"right": 0.5}
         with pytest.raises(ValueError, match="Robin boundaries"):
             ef(md, dom, [walled, walled])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    # A mesh shards the members (a one-rank gloo 'trial' mesh runs them
+    # all on its rank); what is not a mesh raises.
+    members = [tapt.Problem(D=0.1), tapt.Problem(D=0.2)]
+    with launch.process_group("gloo"):
+        got = tens.ensemble_forecast(tmd, td, members,
+                                     mesh=tpar.make_mesh({"trial": 1}))
+    want = tens.ensemble_forecast(tmd, td, members)
+    assert torch.equal(got["members"], want["members"])
+    with pytest.raises(TypeError):
         tens.ensemble_forecast(tmd, td, [tapt.Problem()], mesh=object())
     walled = tapt.Problem()
     walled.robin_sides = {"left": 0.1}

@@ -159,7 +159,16 @@ def test_final_state_dataset_matches_jax(monkeypatch):
         3, 8, 8, 1)
     np.testing.assert_allclose(tX.numpy(), np.asarray(jX), rtol=0, atol=TOL)
     np.testing.assert_allclose(tY.numpy(), np.asarray(jY), rtol=0, atol=TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9"):
+    # A 'trial' mesh shards the solves (one gloo rank: all of them here);
+    # what is not a mesh raises.
+    from airpollution_tpu_torch.parallel import launch, make_mesh
+
+    with launch.process_group("gloo"):
+        mX, mY, _ = tfno.make_plume_dataset(tmd, tapt.Domain(),
+                                            torch.Generator(), 3,
+                                            mesh=make_mesh({"trial": 1}))
+    assert torch.equal(mX, tX) and torch.equal(mY, tY)
+    with pytest.raises(TypeError):
         tfno.make_plume_dataset(tmd, tapt.Domain(), torch.Generator(), 3,
                                 mesh=object())
 

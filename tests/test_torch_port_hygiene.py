@@ -11,6 +11,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -70,8 +71,15 @@ PORT_MODULES = [
     "airpollution_tpu_torch.ops.stencil",
     "airpollution_tpu_torch.ops.uniform",
     "airpollution_tpu_torch.parallel",
+    "airpollution_tpu_torch.parallel.collectives",
     "airpollution_tpu_torch.parallel.device_mesh",
+    "airpollution_tpu_torch.parallel.fem_shard",
+    "airpollution_tpu_torch.parallel.fno_parallel",
     "airpollution_tpu_torch.parallel.hbm_shard",
+    "airpollution_tpu_torch.parallel.launch",
+    "airpollution_tpu_torch.parallel.pinn_parallel",
+    "airpollution_tpu_torch.parallel.stencil_shard",
+    "airpollution_tpu_torch.parallel.sweep",
     "airpollution_tpu_torch.reporting",
     "airpollution_tpu_torch.reporting.data_visualization",
     "airpollution_tpu_torch.reporting.frames",
@@ -251,15 +259,28 @@ def test_inverse_fits_on_cpu_tensors_build_nothing(monkeypatch):
 
 
 def test_pinn_unported_methods_raise(tmp_path):
-    """Multi-device training (ROADMAP item 19) is not ported: it raises
-    NotImplementedError, on the CPU model too. The plots are ported
-    (reporting/plots.py): each writes the JAX package's file names."""
+    """The methods that once raised NotImplementedError now run:
+    multi-process training (parallel/pinn_parallel.py) on a one-rank gloo
+    ('dp', 'tp') mesh, twice with the Adam moments carried, and what is
+    not a mesh raises TypeError; the plots (reporting/plots.py) each write
+    the JAX package's file names."""
+    from airpollution_tpu_torch.parallel import launch, make_mesh
+
     m = tapt.PINN([3, 4, 1], tapt.Problem(), tapt.Domain(), device="cpu")
     md = tapt.MeshData(tapt.create_mesh(5, 20.0), tapt.Domain(), nt=4,
                        device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.train_parallel(None, {"pde": 8, "ic": 4, "bc": 4}, 1, 1e-3,
-                         {"pde": 1.0, "ic": 1.0, "bc": 1.0})
+    args = ({"pde": 8, "ic": 4, "bc": 4}, 2, 1e-3,
+            {"pde": 1.0, "ic": 1.0, "bc": 1.0})
+    with launch.process_group("gloo"):
+        mesh = make_mesh({"dp": 1, "tp": 1})
+        m.train_parallel(mesh, *args)
+        m.train_parallel(mesh, *args)
+    assert len(m.history["total_loss"]) == 4
+    assert int(m._parallel_state.count) == 4
+    assert np.isfinite(m.history["total_loss"]).all()
+    for bad in (None, object()):
+        with pytest.raises(TypeError):
+            m.train_parallel(bad, *args)
     m.history = {k: [1.0, 0.5] for k in ("total_loss", "pde_loss",
                                          "ic_loss", "bc_loss")}
     m.plot_history(save_dir=str(tmp_path), name="p")
@@ -586,7 +607,7 @@ def test_b7_failure_raises_instead_of_falling_back(monkeypatch):
 
 
 JAX_SUBPACKAGES = ["", "models", "mesh", "ops", "io", "diagnostics", "utils",
-                   "hpo"]
+                   "hpo", "parallel"]
 # XLA's persistent compilation cache has no counterpart on the card.
 NOT_PORTED = {"utils": {"enable_compilation_cache"}}
 
@@ -602,6 +623,29 @@ def _jax_all(sub):
                 getattr(t, "id", None) == "__all__" for t in node.targets):
             return set(ast.literal_eval(node.value))
     raise AssertionError(f"{init} has no __all__")
+
+
+def test_parallel_import_starts_nothing():
+    """Importing the parallel package (every module of it) initializes no
+    process group, builds and loads no kernel and imports no JAX, with no
+    toolchain on the PATH."""
+    env = dict(os.environ, PATH="/nonexistent")
+    out = _run("""
+        import gc, sys
+        import airpollution_tpu_torch.parallel as par
+        from airpollution_tpu_torch.parallel import (collectives, fem_shard,
+            fno_parallel, launch, pinn_parallel, stencil_shard, sweep)
+        import torch.distributed as dist
+        from airpollution_tpu_torch import _build
+        assert not dist.is_initialized()
+        kernels = [o for o in gc.get_objects()
+                   if isinstance(o, _build.Kernel)]
+        assert kernels and all(k._lib is None and k.launches == 0
+                               for k in kernels)
+        assert not any(m == "jax" or m.startswith(("jax.", "airpollution_tpu."))
+                       for m in sys.modules)
+    """, env=env)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("order", ["forward", "reverse"])
