@@ -28,11 +28,11 @@ Phases, each printing one JSON line:
    at 129^2, every depth) and B4 with an emission load against their
    plain versions, f64 and f32;
 7. the multispecies chemistry-transport path (MultiSpeciesSolver, Strang,
-   fused_hbm): M1, the largest row of scripts/multispecies_fused_demo.py
-   (1025^2, nt=4001, K=3, CN, Chebyshev-8) on B6, with its k-vs-2k and
-   fuse_chemistry=False (B4) checks and chain masses against the f64
-   oracle; M2 (257^2, nt=1001, Chebyshev-6) against the stencil scan and
-   with strided snapshots;
+   fused_hbm), through scripts/torch_port_multispecies_fused_demo.py's
+   run(): M1, its largest row (1025^2, nt=4001, K=3, CN, Chebyshev-8) on
+   B6, with its k-vs-2k and fuse_chemistry=False (B4) checks and chain
+   masses against the f64 oracle; M2, its 257^2 row (nt=1001,
+   Chebyshev-6), against the stencil scan and with strided snapshots;
 8. slice 4, sourced, Robin-flux and BiCGStab fused solves: kernel B1 with
    a steady load plane and with a per-step load stack, B1's BiCGStab
    variant, B2 with a load and B4 with a source + Robin flux plane against
@@ -98,8 +98,9 @@ Phases, each printing one JSON line:
     W3, a misfit's gradient in the turning rate through the
     differentiable fused chunks (B4-raw) at 257^2 against the plain
     polynomial (<= 2e-5) and a central difference (<= 5e-3);
-14. slice 13, the command line (``airpollution_tpu_torch.cli``, run in
-    this process through ``cli.main``): X1, ``solve --mesh_size 2049 --nt
+14. slice 13, the command line (``airpollution_tpu_torch.cli``, run
+    through ``cli.main``; X3 in a background process, its line printed
+    after the wait): X1, ``solve --mesh_size 2049 --nt
     101`` with the parser's defaults ('auto' -> the uniform scan route
     with patch assembly -> the large-mesh policy), its route, steps/s,
     rel_l2 and seconds to the first step, no kernel launched; the fused
@@ -132,7 +133,8 @@ Phases, each printing one JSON line:
     --mesh_size 64 --nt 128 --epochs 500`` at the CLI's widths, with the
     JAX tests' gates and a forward pass and three AdamW steps card
     against CPU in f64;
-17. slice 16, the paper's experiment harness (R1,
+17. slice 16, the paper's experiment harness (in a background process,
+    its line printed after the wait; R1,
     ``airpollution_tpu_torch.experiments`` and ``.reporting``, each
     driver through its ``main`` in a temporary directory, f32): the CRBE
     sweep over the paper's mesh sizes 4-128 at nt=128 (rel_l2 at ms=16
@@ -159,7 +161,22 @@ Phases, each printing one JSON line:
     memory, each bitwise against the same solve on 2 blocks in this
     process, with the host-staged exchange's ms; the ranks start right
     after the kernel build and run beside the kernel checks;
-19. the PINN (slice 11), then the kernels line (launches on each path,
+19. slice 18, the last scripts (y1_scripts, each through its run() or
+    main(), in three processes of their own: the scan and PINN scripts,
+    which launch no kernel of the port, start with the script beside the
+    kernel build, the others right after it, and all run beside the
+    untimed kernel checks): B4 with its load plane on the street canyon's own canvas
+    against its plain version (f64, f32, dead DOFs 0.0); the canyon's
+    fused row (257^2, nt=1001, CN, Chebyshev-8, the 2k check, budget
+    terms against the JAX package's row); the multispecies script's K
+    sweep at 257^2 (M1 and M2 are its other rows); the extrapolation A/B
+    at 513^2, nt=128 (B4-raw); the assimilation, cycling and network
+    design scripts at their defaults (B7a); the wind inversion, the
+    rotating convergence table and the multispecies demo, and the PINN
+    scripts and problem 3's last two, each cut in depth only;
+20. the PINN (slice 11; its levers cell a row of
+    scripts/torch_port_pinn_accuracy_levers.py), then the kernels line
+    (launches on each path,
     errors, times, bounds; for B3 and B7 also the host's time to enqueue
     one launch and the device time alone, from a CUDA graph of 200
     launches replayed; for B4, B4-raw and B9 the launches of slice 12's
@@ -167,14 +184,19 @@ Phases, each printing one JSON line:
     slice 13's as ``cli_launches``, for B3, B4-raw and B7a those of slice
     14's as ``inverse_fits_launches``, for B7a those of slice 15's as
     ``ensemble_fno_launches``, of slice 16's as
-    ``paper_harness_launches`` and for B7a-B10 those of slice 17's as
-    ``distributed_launches``).
+    ``paper_harness_launches``, for B7a-B10 those of slice 17's as
+    ``distributed_launches`` and for B4 (with or without a load: one
+    counter), B4-raw, B6 and B7a those of slice 18's scripts as
+    ``scripts_launches``).
 
 Set-up is shared where it can be: meshes that differ only in nt are one
 MeshData retimed (``retimed``), B8 runs after X1 on the 2049^2 mesh data
 of X1's command, the 1025^2 unstructured mesh's Delaunay runs on a host
-thread beside the kernel build, and D1's two gloo ranks start right after
-the build and set up and solve beside the (untimed) kernel checks.
+thread beside the kernel build, and the work that shares no state with
+the main path runs in background processes (BACKGROUND_GROUPS: slice
+18's scripts, D1's two gloo ranks, X3 and R1) beside the build and the
+untimed kernel checks; their times are upper bounds, and the lines they
+print carry ``ran_beside``.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1262,44 +1284,26 @@ def canvas_kernel_times(meshes, problems, cache):
 
 
 def chain_R(K):
-    """The decay chain A1 -> ... -> AK of scripts/multispecies_fused_demo.py
-    (make_problem): rates 0.4, 0.2, then 0.2 * 0.85^i."""
-    import numpy as np
+    """The decay chain A1 -> ... -> AK of
+    scripts/torch_port_multispecies_fused_demo.py: rates 0.4, 0.2, then
+    0.2 * 0.85^i."""
+    from scripts import torch_port_multispecies_fused_demo as demo
 
-    rates = [0.4, 0.2][:K - 1] + [0.2 * 0.85 ** i
-                                  for i in range(1, K - 2 + 1)][:max(0, K - 3)]
-    R = np.zeros((K, K))
-    for i, r in enumerate(rates):
-        R[i, i] += r
-        R[i + 1, i] -= r
-    return R
-
-
-def demo_species(K):
-    """The demo's species: a Gaussian emitter of A, then K - 1 species with
-    zero initial and boundary values; all with v = (1, 0.2), D = 0.3."""
-    import torch
-
-    import airpollution_tpu_torch as apt
-
-    class Clean(apt.Problem):
-        def initial_condition_fn(self, xy):
-            return torch.zeros(xy.shape[:-1], dtype=xy.dtype,
-                               device=xy.device)
-
-        def boundary_fn(self, xyt):
-            return torch.zeros_like(xyt[..., 0])
-
-    src = apt.GaussianSourceProblem(q=2.0, xs=-6.0, ys=0.0, sigma_s=1.5,
-                                    v=(1.0, 0.2), D=0.3)
-    return [src] + [Clean(v=(1.0, 0.2), D=0.3, sigma=1.0)
-                    for _ in range(K - 1)]
+    return demo.chain_R(K)
 
 
 def demo_problem(K=3):
-    import airpollution_tpu_torch as apt
+    """The demo's chain (make_problem): a Gaussian emitter of A, then K - 1
+    species with zero initial and boundary values; all with v = (1, 0.2),
+    D = 0.3."""
+    from scripts import torch_port_multispecies_fused_demo as demo
 
-    return apt.MultiSpeciesProblem(demo_species(K), chain_R(K))
+    return demo.make_problem(K)
+
+
+def demo_species(K):
+    """The demo chain's first K species (K = 1: its emitter alone)."""
+    return list(demo_problem(max(K, 2)).species)[:K]
 
 
 def walled_source():
@@ -1519,111 +1523,85 @@ def rel_max(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-def multispecies_solver(md, domain, problem, k, impl="fused_hbm", **kw):
-    from airpollution_tpu_torch.models.multispecies import MultiSpeciesSolver
+def multispecies_row(md, ms, k, **kw):
+    """One row of scripts/torch_port_multispecies_fused_demo.py through its
+    run() on ``md`` (the ms^2 mesh, Domain(), f32), counts zeroed just
+    before: (row, its solvers, the B6 and B4 launches, seconds)."""
+    from scripts import torch_port_multispecies_fused_demo as demo
 
-    return MultiSpeciesSolver(domain, problem, md, time_scheme_order=2,
-                              matvec_impl=impl, splitting="strang",
-                              solver_method="chebyshev", chebyshev_iters=k,
-                              **kw)
+    reset_counts()
+    t0 = time.perf_counter()
+    row = demo.run(ms, md.nt, k, mesh_data=md, **kw)
+    seconds = time.perf_counter() - t0
+    return (row, row.pop("solvers"), launches_of("B6"), launches_of("B4"),
+            seconds)
 
 
 def phase_m1(md, domain):
-    """M1, the demo's largest row: 1025^2, nt=4001, K=3, CN, Chebyshev-8,
-    Strang on B6. Warm steps/s, 4,000 B6 launches per solve, chain masses
-    against the f64 oracle, k-vs-2k, and the fuse_chemistry=False path (K
-    B4 launches per step) against it. Returns the B6 launches of the path's
-    run (counts zeroed just before it), the solver and its warm steps/s
-    (B10's block solve is held against this solve)."""
-    import torch
-
-    problem = demo_problem(3)
+    """M1, scripts/torch_port_multispecies_fused_demo.py's 1025^2 row
+    through its run(): nt=4001, K=3, CN, Chebyshev-8, Strang on B6; a first
+    and a warm solve, the 2k solve, and the fuse_chemistry=False path (K
+    B4 launches per step, one timed solve), the last two on the fused
+    solve's operator and interval. Gates: 3 x 4,000 B6 and 3 x 4,000 B4
+    launches; chain masses against the f64 oracle; k-vs-2k < 5e-3 (the
+    script's own); the fuse A/B within 1e-4. Returns the B6 launches of
+    the path's run (counts zeroed just before it), the fused solver and
+    its warm steps/s (B10's block solve is held against this solve)."""
     k = DEMO_ITERS[1025]
     n_steps = md.nt - 1
-    out = {"phase": "m1_multispecies_1025", "card": card_line(), "ms": 1025,
-           "nt": md.nt, "dofs": md.number_of_segments, "K": 3, "k": k}
-    s = multispecies_solver(md, domain, problem, k)
-    t0 = time.perf_counter()
-    reset_counts()
-    s.solve(store_solutions=False)
-    first = launches_of("B6")
-    out["first_solve_s"] = time.perf_counter() - t0
-    check(first == n_steps and launches_of("B4") == 0,
-          f"M1: {first} B6 launches in one solve, not {n_steps}")
-    times = timed_solves(s, 1, warm_up=False)
-    launches = launches_of("B6")
-    out.update({"b6_launches_per_solve": first, "b6_launches": launches,
-                "steps_per_s_best": n_steps / min(times),
-                "steps_per_s_median": n_steps / statistics.median(times),
-                "cheb_bounds": list(s._fused_bounds_cache[1])})
-    U = s.solutions[-1].clone()
-    check(bool(torch.isfinite(U).all()), "M1: non-finite state")
+    import torch
+
+    row, solvers, b6, b4, seconds = multispecies_row(md, 1025, k,
+                                                     scan_check=False)
+    s = solvers["fused"]
+    out = {"phase": "m1_multispecies_1025", "card": card_line(), **row,
+           "seconds": seconds, "b6_launches": b6,
+           "b4_launches_unfused": b4,
+           "cheb_bounds": list(s._fused_bounds_cache[1])}
+    check(b6 == 3 * n_steps and b4 == 3 * n_steps,
+          f"M1: {b6} B6 and {b4} B4 launches, not {3 * n_steps} and "
+          f"{3 * n_steps} (first, warm and 2k fused solves; one unfused)")
+    check(bool(torch.isfinite(s.solutions[-1]).all()),
+          "M1: non-finite state")
     masses = chain_masses(s)
     oracle = ORACLE_MASSES[1025]
     rels = [abs(m - o) / abs(o) for m, o in zip(masses, oracle)]
     out.update({"masses": masses, "oracle_masses": list(oracle),
                 "mass_rel_vs_oracle": max(rels)})
+    emit(out)
     check(max(rels) < MASS_TOL,
           f"M1 masses {masses} not within {MASS_TOL} of {oracle}")
-    bounds = s._fused_bounds_cache[1]
-    s2 = multispecies_solver(md, domain, problem, 2 * k, cheb_bounds=bounds)
-    s2.set_operators(s._ops)
-    s2.solve(store_solutions=False)
-    out["k_vs_2k_rel_maxdiff"] = rel_max(U, s2.solutions[-1])
-    check(out["k_vs_2k_rel_maxdiff"] < 5e-3,
-          f"M1 k-vs-2k {out['k_vs_2k_rel_maxdiff']:.3e} >= 5e-3")
-    unf = multispecies_solver(md, domain, problem, k, cheb_bounds=bounds,
-                              fuse_chemistry=False)
-    unf.set_operators(s._ops)
-    reset_counts()
-    unf.solve(store_solutions=False)
-    out["b4_launches_per_solve_unfused"] = launches_of("B4")
-    check(launches_of("B4") == 3 * n_steps and launches_of("B6") == 0,
-          f"M1 unfused: {launches_of('B4')} B4 launches, not {3 * n_steps}")
-    # The check solve is the timed one: solve_time excludes building the
-    # solve function, as for the warm solves of timed_solves.
-    out["unfused_steps_per_s"] = n_steps / unf.solve_time
-    out["fuse_rel_maxdiff"] = rel_max(U, unf.solutions[-1])
-    check(out["fuse_rel_maxdiff"] < 1e-4,
-          f"M1 fuse A/B {out['fuse_rel_maxdiff']:.3e} >= 1e-4")
-    emit(out)
-    return launches, s, out["steps_per_s_best"]
+    check(row["k_vs_2k_rel_maxdiff"] < 5e-3,
+          f"M1 k-vs-2k {row['k_vs_2k_rel_maxdiff']:.3e} >= 5e-3")
+    check(row["fused_vs_unfused_rel_maxdiff"] < 1e-4,
+          f"M1 fuse A/B {row['fused_vs_unfused_rel_maxdiff']:.3e} >= 1e-4")
+    return {"B6": b6, "B4": b4}, s, row["fused_steps_per_sec"]
 
 
 def phase_m2(md, domain):
-    """M2: 257^2, nt=1001, K=3, CN, Chebyshev-6. B6 against the port's
-    stencil scan (Strang, the same interval), chain masses against the
-    oracle's 257^2 values, and a snapshot_every=100 solve whose last row
-    equals the final-state solve bit for bit."""
+    """M2, the script's 257^2 row through its run(): nt=1001, K=3, CN,
+    Chebyshev-6; the fused solves, 2k, the unfused A/B and the stencil
+    scan, here on the fused solve's interval. Gates: 3 x 1,000 B6 and 3 x
+    1,000 B4 launches (the scan none), fused against the scan within
+    1e-4, chain masses against the oracle's 257^2 values, and a
+    snapshot_every=100 solve whose last row equals the final state bit for
+    bit. Returns the row's B6 and B4 launches."""
     import torch
 
-    problem = demo_problem(3)
     k = DEMO_ITERS[257]
     n_steps = md.nt - 1
-    out = {"phase": "m2_multispecies_257", "card": card_line(), "ms": 257,
-           "nt": md.nt, "dofs": md.number_of_segments, "K": 3, "k": k}
-    reset_counts()
-    s = multispecies_solver(md, domain, problem, k)
-    s.solve(store_solutions=False)
-    out["b6_launches_per_solve"] = launches_of("B6")
-    check(launches_of("B6") == n_steps, "M2: B6 launches per solve")
-    times = timed_solves(s, 3)
-    out["steps_per_s_best"] = n_steps / min(times)
-    out["steps_per_s_median"] = n_steps / statistics.median(times)
-    U = s.solutions[-1].clone()
-    bounds = s._fused_bounds_cache[1]
-    scan = multispecies_solver(md, domain, problem, k, impl="stencil",
-                               cheb_bounds=bounds)
-    scan.set_operators(s._ops)
-    reset_counts()
-    t0 = time.perf_counter()
-    scan.solve(store_solutions=False)
-    out["scan_solve_s"] = time.perf_counter() - t0
-    check(launches_of("B6") == 0 and launches_of("B4") == 0,
-          "M2: the scan path launched a fused kernel")
-    out["fused_vs_scan_rel_maxdiff"] = rel_max(U, scan.solutions[-1])
-    check(out["fused_vs_scan_rel_maxdiff"] <= 1e-4,
-          f"M2 fused vs scan {out['fused_vs_scan_rel_maxdiff']:.3e} > 1e-4")
+    row, solvers, b6, b4, seconds = multispecies_row(
+        md, 257, k, scan_check=True, scan_on_fused_interval=True)
+    s = solvers["fused"]
+    out = {"phase": "m2_multispecies_257", "card": card_line(), **row,
+           "seconds": seconds, "b6_launches": b6,
+           "b4_launches_unfused": b4}
+    check(b6 == 3 * n_steps and b4 == 3 * n_steps,
+          f"M2: {b6} B6 and {b4} B4 launches")
+    check(row["fused_vs_scan_rel_maxdiff"] <= 1e-4,
+          f"M2 fused vs scan {row['fused_vs_scan_rel_maxdiff']:.3e} > 1e-4")
+    check(row["k_vs_2k_rel_maxdiff"] < 5e-3,
+          f"M2 k-vs-2k {row['k_vs_2k_rel_maxdiff']:.3e} >= 5e-3")
     masses = chain_masses(s)
     oracle = ORACLE_MASSES[257]
     out["masses"] = masses
@@ -1631,16 +1609,20 @@ def phase_m2(md, domain):
                                     for m, o in zip(masses, oracle))
     check(out["mass_rel_vs_oracle"] < MASS_TOL,
           f"M2 masses {masses} not within {MASS_TOL} of {oracle}")
-    snap = multispecies_solver(md, domain, problem, k, cheb_bounds=bounds,
-                               snapshot_every=100)
-    snap.set_operators(s._ops)
+    from scripts import torch_port_multispecies_fused_demo as demo
+
+    U = s.solutions[-1].clone()
+    snap = demo.sharing(s, domain=domain, msp=s.problem, md=md, iters=k,
+                         cheb_bounds=s._fused_bounds_cache[1],
+                         snapshot_every=100)
     rows = snap.solve(store_solutions=True)
     out["snapshot_rows"] = rows.shape[0]
     out["snapshot_last_equals_final"] = bool(torch.equal(rows[-1], U))
+    emit(out)
     check(rows.shape[0] == n_steps // 100 + 1
           and out["snapshot_last_equals_final"],
           "M2: the last strided row differs from the final state")
-    emit(out)
+    return {"B6": b6, "B4": b4}
 
 
 def multispecies_kernel_times(meshes, problems, cache):
@@ -4040,10 +4022,10 @@ PINN_LAMBDA = {"pde": 180.0, "ic": 80.0, "bc": 80.0}
 PINN_WIDE = dict(mesh_size=128, batch={"pde": 34744, "ic": 6949,
                                        "bc": 6949},
                  lr=1e-4, patience=1000, epochs=1000, scheduled_epochs=16000)
-PINN_LEVERS = dict(mesh_size=64, batch={"pde": 8595, "ic": 1719,
-                                        "bc": 1719},
-                   lr=1e-4, patience=1000, epochs=1000, lbfgs_steps=50,
-                   fourier_features=64, causal_eps=1.0,
+# The levers cell: a row of scripts/torch_port_pinn_accuracy_levers.py
+# (n_col 8,595 at ms=64), its 16,000 epochs and 1,000 L-BFGS steps cut.
+PINN_LEVERS = dict(variant="fourier+causal+wide+lbfgs", mesh_size=64,
+                   epochs=1000, lbfgs_steps=50, scheduled_epochs=16000,
                    scheduled_lbfgs_steps=1000)
 # The widest cell's loss must fall at least this factor: a tenth of the
 # 8,138-fold and 8,485-fold falls of its first two 2,000-epoch runs on an
@@ -4255,36 +4237,39 @@ def phase_pinn_widest(md):
     return out
 
 
-def phase_pinn_levers(md):
-    """The levers cell on the card (PINN_LEVERS), f32: Fourier 64 and
-    causal weighting, 1,000 Adam epochs, then 50 L-BFGS steps. Gates:
-    finite values, and the L-BFGS loss does not rise."""
+def phase_pinn_levers():
+    """The levers cell on the card (PINN_LEVERS), f32:
+    scripts/torch_port_pinn_accuracy_levers.py's variant
+    "fourier+causal+wide+lbfgs" at ms=64 through its run() (Fourier 64,
+    causal weighting, 64 x 4, lr 1e-3), its schedule cut to 1,000 Adam
+    epochs and 50 L-BFGS steps. Gates: finite values, and the L-BFGS loss
+    does not rise."""
     import math
 
-    import torch
+    from scripts import torch_port_pinn_accuracy_levers as levers
 
-    model, problem, h, seconds, n = pinn_train_cell(
-        PINN_LEVERS, fourier_features=PINN_LEVERS["fourier_features"])
-    t0 = time.perf_counter()
-    h = model.finetune_lbfgs(PINN_LEVERS["batch"], PINN_LEVERS["lbfgs_steps"],
-                             PINN_LAMBDA)
-    torch.cuda.synchronize()
-    lbfgs_s = time.perf_counter() - t0
-    lb = h["total_loss"][n:]
-    rel_l2, l2, max_err = model.compute_errors(md, problem.analytical_solution)
+    (row,) = levers.run(PINN_LEVERS["epochs"], PINN_LEVERS["mesh_size"],
+                        [PINN_LEVERS["variant"]], device="cuda",
+                        epoch_cap=PINN_LEVERS["epochs"],
+                        lbfgs_cap=PINN_LEVERS["lbfgs_steps"])
+    h, n = row["history"]["total_loss"], row["adam_epochs"]
+    lb = h[n:]
+    lbfgs_s = row["warm_train_time_s"] - row["adam_s"]
     out = {"phase": "pinn_levers_ms64", "card": card_line(),
-           "layers": PINN_LAYERS, "batch": PINN_LEVERS["batch"],
-           "fourier_features": PINN_LEVERS["fourier_features"],
-           "causal_eps": PINN_LEVERS["causal_eps"], "adam_epochs": n,
-           "adam_seconds": seconds, "epochs_per_s": n / seconds,
-           "adam_loss_first": h["total_loss"][0],
-           "adam_loss_last": h["total_loss"][n - 1],
-           "lbfgs_steps": len(lb), "lbfgs_seconds": lbfgs_s,
+           "variant": PINN_LEVERS["variant"],
+           "mesh_size": PINN_LEVERS["mesh_size"], "adam_epochs": n,
+           "scheduled_epochs": PINN_LEVERS["scheduled_epochs"],
+           "adam_seconds": row["adam_s"],
+           "epochs_per_s": n / row["adam_s"], "adam_loss_first": h[0],
+           "adam_loss_last": h[n - 1], "lbfgs_steps": len(lb),
+           "scheduled_lbfgs_steps": PINN_LEVERS["scheduled_lbfgs_steps"],
+           "lbfgs_seconds": lbfgs_s,
            "lbfgs_steps_per_s": len(lb) / lbfgs_s,
            "lbfgs_loss_first": lb[0], "lbfgs_loss_last": lb[-1],
-           "rel_l2": rel_l2, "l2": l2, "max_error": max_err}
+           "rel_l2": row["rel_l2"], "l2": row["l2"],
+           "max_error": row["max_error"]}
     emit(out)
-    check(all(math.isfinite(v) for v in h["total_loss"] + [rel_l2]),
+    check(all(math.isfinite(v) for v in h + [row["rel_l2"]]),
           "PINN levers cell: a loss or an error is not finite")
     check(len(lb) == PINN_LEVERS["lbfgs_steps"],
           "PINN levers cell: L-BFGS steps missing")
@@ -4923,15 +4908,16 @@ def phase_x3_cli():
     return {"B1": b1, "B6": b6}
 
 
-def phase_cli(domain):
-    """Slice 13: X1-X3, then the cli line. Returns ({kernel id: launches}
-    of the new phases' fused routes (B2 in X1, B1 and B6 in X3), X1's
-    2049^2 mesh data)."""
+def phase_cli(domain, x3_launches):
+    """Slice 13: X1 and X2, then the cli line; X3 ran in a scripts'
+    process (child_x3), ``x3_launches`` its launches. Returns ({kernel id:
+    launches} of the new phases' fused routes (B2 in X1, B1 and B6 in X3),
+    X1's 2049^2 mesh data)."""
     t0 = time.perf_counter()
     b2, md_2049 = phase_x1_default_route(domain)
     launches = {"B2": b2}
     phase_x2_spectral(domain)
-    launches.update(phase_x3_cli())
+    launches.update(x3_launches)
     emit({"phase": "cli", "card": card_line(),
           "seconds": time.perf_counter() - t0})
     return launches, md_2049
@@ -4946,8 +4932,7 @@ def phase_pinn(domain):
     phase_pinn_card_vs_cpu()
     wide = phase_pinn_widest(apt.MeshData(apt.create_mesh(128, 20.0),
                                           domain, nt=128))
-    levers = phase_pinn_levers(apt.MeshData(apt.create_mesh(64, 20.0),
-                                            domain, nt=128))
+    levers = phase_pinn_levers()
     emit({"phase": "pinn", "card": card_line(),
           "widest_epochs_per_s": wide["epochs_per_s"],
           "levers_epochs_per_s": levers["epochs_per_s"],
@@ -6233,47 +6218,11 @@ def d1_nccl_rank(domain, md_2049, md_257):
     return out, launches
 
 
-def start_d1_ranks():
-    """Start (b) of D1 right after the kernel build: two gloo ranks sharing
-    the card (parallel.launch.spawn, device cuda:0, on a host thread; the
-    kernels are built, so the ranks load them) run d1_rank beside the
-    untimed kernel checks that follow, with their results under build/;
-    wait_d1_ranks ends that before the first timed phase.
-    Returns (a future of the ranks' end time, the results' directory, the
-    start time)."""
-    import tempfile
-
-    from airpollution_tpu_torch.parallel import launch
-
-    def run(out_dir):
-        launch.spawn(d1_rank, 2, backend="gloo", device="cuda:0",
-                     args=(out_dir, "cuda:0"), timeout_s=D1_SPAWN_TIMEOUT)
-        return time.perf_counter()
-
-    build = Path(__file__).resolve().parent / "build"
-    build.mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="d1_", dir=build)
-    t0 = time.perf_counter()
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    future = pool.submit(run, tmp)
-    pool.shutdown(wait=False)
-    return future, tmp, t0
-
-
-def wait_d1_ranks(ranks):
-    """Wait for (b)'s ranks (start_d1_ranks, ``ranks``), so that no timed
-    phase shares the card with them; a failed rank raises here."""
-    t0 = time.perf_counter()
-    t_end = ranks[0].result()
-    emit({"phase": "d1_ranks_wait", "wait_s": time.perf_counter() - t0,
-          "ranks_wall_s": t_end - ranks[2]})
-
-
 def phase_d1_distributed(domain, md_2049, meshes, ranks):
     """D1 (slice 17): (a) d1_nccl_rank, then (b)'s references, the same
     solves on a one-process 2-block BlockMesh, each rank's output (from
-    start_d1_ranks, ``ranks``) held bitwise against them. Returns {kernel
-    id: launches}: (a)'s and both ranks'."""
+    child_d1, ``ranks``) held bitwise against them. Returns {kernel id:
+    launches}: (a)'s and both ranks'."""
     import os
     import shutil
 
@@ -6281,7 +6230,7 @@ def phase_d1_distributed(domain, md_2049, meshes, ranks):
 
     from airpollution_tpu_torch.parallel.device_mesh import BlockMesh
 
-    future, tmp, t_ranks = ranks
+    tmp = ranks["dir"]
     t0 = time.perf_counter()
     out = {"phase": "d1_distributed", "card": card_line()}
     try:
@@ -6296,7 +6245,7 @@ def phase_d1_distributed(domain, md_2049, meshes, ranks):
                 domain, BlockMesh({"mp": 2}, md_2049.device), mds).items():
             refs[case] = run().cpu()
         out["gloo_references_s"] = time.perf_counter() - t0 - out["nccl_s"]
-        out["gloo_ranks_wall_s"] = future.result() - t_ranks
+        out["gloo_ranks_wall_s"] = ranks["ranks_wall_s"]
         infos = []
         for r in range(2):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:
@@ -6325,6 +6274,621 @@ def phase_d1_distributed(domain, md_2049, meshes, ranks):
     out["launches"] = launches
     out["seconds"] = time.perf_counter() - t0
     emit(out)
+    return launches
+
+
+# Slice 18: the last scripts on the card (y1_scripts). The street canyon's
+# budget terms at 257^2, nt=1001 (physics figures, not times): the JAX
+# package's scripts/obstacle_canyon_demo.py run() on a CPU (float32, the
+# stencil row, BiCGStab to 1e-7), which the port's fused row is held to
+# within CANYON_TOL: about 13 times the spread between the port's own
+# fused and stencil rows on a CPU in float32 (7.4e-6, accumulated mass).
+CANYON_JAX_CPU = {"canyon_accumulated": 3.9046974182128906,
+                  "canyon_ground_deposited": 0.13857981003820896,
+                  "canyon_facade_plus_outflow": 5.9567227717489}
+CANYON_TOL = 1e-4
+# The committed fused row (results_snapshot/obstacle_canyon.json, 257^2
+# "fused_hbm", a TPU), printed beside: its canyon terms lie 7.1e-4
+# (accumulated mass) from what the JAX package's run() gives now, its
+# stencil row too, so it is reported and not gated on.
+CANYON_SNAPSHOT = {"canyon_accumulated": 3.901850700378418,
+                   "canyon_ground_deposited": 0.13854623399674892,
+                   "canyon_facade_plus_outflow": 5.959603065624833}
+CANYON = dict(ms=257, nt=1001, every=100, k=8)
+# The K sweep's rows at 257^2 (results_snapshot/multispecies_K_sweep.json).
+K_SWEEP = (6, 8)
+# Figures of results_snapshot/ computed in float64 by the JAX package on a
+# CPU (the rotating convergence table and the multispecies demo's rows)
+# are held at this relative gap; the forecast figures of the assimilation
+# scripts, which draw no EnKF noise, at F32_SNAPSHOT_TOL where the JAX
+# script ran float32 (da_cycling, network_design) and the CSV's rounding
+# (6 places) where it ran float64 (enkf).
+F64_SNAPSHOT_TOL = 1e-6
+F32_SNAPSHOT_TOL = 1e-3
+# The chain's rows (results_snapshot/multispecies.csv) come from solves
+# to the solver's default BiCGStab tolerance, 1e-7, on both sides: 1e-5.
+CHAIN_SNAPSHOT_TOL = 1e-5
+# The canyon PINN script's FEM figures at 49^2, nt=49 (float32, the
+# stencil scan): the JAX package's scripts/canyon_pinn_fem.py on a CPU
+# (APT_PLATFORM=cpu, --epochs 1 --lbfgs 0 --configs base: its FEM does not
+# depend on the PINN's flags), held within CANYON_TOL;
+# results_snapshot/canyon_pinn_fem.json's (printed beside) lie 1.0% off
+# them (the wake mean), like the street canyon's committed rows.
+CANYON_PINN_FEM_JAX_CPU = {"fem_wake_mean": 0.0011815894395112991,
+                           "fem_free_mean": 0.002937580458819866,
+                           "fem_wake_deficit": 0.001755991019308567}
+# Depth cuts of the PINN and inverse scripts (their widths stay): epochs,
+# Adam and L-BFGS steps, mesh-size lists.
+Y1_DEPTH = dict(wind_steps=8, rotating_sizes=(8, 16, 32, 64),
+                ms_sizes=(8, 16, 32), ms_steps=5, pinn_epochs=200,
+                lever_epochs=50, lever_lbfgs=5, canyon_epochs=100,
+                canyon_lbfgs=10, p3_sizes=(4, 8, 16), p3_epochs=100,
+                p3c_epochs=20)
+# A background process may run this long (most start after the build).
+BACKGROUND_TIMEOUT_S = 900
+# One variant per lever of the levers script beside the levers cell (RAD,
+# grad-norm weights, hard IC, Fourier scale, sine, depth, batch, tuned
+# and flat loss weights).
+Y1_LEVERS = ("base", "rad", "adaptive", "hardic", "fcw-scale2-16k",
+             "fcw-sine-16k", "fcw-deep6-16k", "fcw-batch2x-16k",
+             "hpo-tuned", "base-flat-lambdas")
+
+
+def snapshot_csv(name):
+    """results_snapshot/<name> as a list of row dicts (strings)."""
+    import csv
+
+    with open(Path(__file__).resolve().parent / "results_snapshot" / name,
+              newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def close_to(got, want, tol):
+    return abs(got - want) <= tol * abs(want)
+
+
+def y1_mesh_data(ms, nt):
+    """The ms^2 mesh data of a part of slice 18 (Domain(), f32, the
+    card)."""
+    import airpollution_tpu_torch as apt
+
+    return apt.MeshData(apt.create_mesh(ms, 20.0), apt.Domain(), nt=nt)
+
+
+def y1_canyon():
+    """scripts/torch_port_obstacle_canyon_demo.py's fused row at 257^2,
+    nt=1001, a row every 100 steps, CN, Chebyshev-8 on B4 with its load
+    plane (street source), the buildings' dead DOFs and the Robin ground:
+    the canyon and the flat terrain, a first and a warm solve each, and the
+    script's 2k check. The stencil row runs only in the CPU tests. Gates:
+    the script's own (a NaN stops the run, k-vs-2k < 5e-3), B4's launches
+    (5 solves of 1,000 steps), the solids exactly 0.0, and each budget
+    term within CANYON_TOL of the JAX package's (CANYON_JAX_CPU), printed
+    beside the committed fused row's."""
+    from scripts import torch_port_obstacle_canyon_demo as canyon
+
+    c = CANYON
+    md = y1_mesh_data(c["ms"], c["nt"])
+    reset_counts()
+    t0 = time.perf_counter()
+    row = canyon.run(c["ms"], c["nt"], c["every"], warm=True,
+                     matvec_impl="fused_hbm", chebyshev_iters=c["k"],
+                     mesh_data=md)
+    seconds = time.perf_counter() - t0
+    solvers = row.pop("solvers")
+    b4 = launches_of("B4")
+    gaps = {k: abs(row[k] - v) / abs(v) for k, v in CANYON_JAX_CPU.items()}
+    out = {"script": "obstacle_canyon_demo", "seconds": seconds, **row,
+           "b4_launches": b4, "kernel": solvers["canyon"].fused_kernel,
+           "jax_cpu_stencil_row": CANYON_JAX_CPU, "rel_gap_to_jax": gaps,
+           "snapshot_fused_row": CANYON_SNAPSHOT,
+           "rel_gap_to_snapshot": {
+               k: abs(row[k] - v) / abs(v)
+               for k, v in CANYON_SNAPSHOT.items()}}
+    check(solvers["canyon"].fused_kernel == "B4"
+          and b4 == 5 * (c["nt"] - 1),
+          f"canyon: {b4} B4 launches, not {5 * (c['nt'] - 1)}")
+    check(row["solid_max_abs"] == 0.0,
+          f"canyon: the solids reach {row['solid_max_abs']}")
+    check(row["k_vs_2k_rel_maxdiff"] < 5e-3,
+          f"canyon: k-vs-2k {row['k_vs_2k_rel_maxdiff']:.3e} >= 5e-3")
+    check(max(gaps.values()) <= CANYON_TOL,
+          f"canyon: budget terms {gaps} not within {CANYON_TOL} of JAX's")
+    return [out], {"B4": b4}
+
+
+def y1_canyon_kernel(meshes, cache):
+    """B4 with its load plane on the canyon's own canvas against
+    plain_canvas_step: one CN step at 257^2, k=8, the planner's plan, f64
+    and f32, from a nonzero state that is 0 on the buildings: the dead
+    DOFs, the street source (lumped) and the Robin ground row. Gates: the
+    module's tolerances and the dead DOFs exactly 0.0."""
+    import torch
+
+    from airpollution_tpu_torch.ops import fused_hbm, fused_solver
+    from scripts import torch_port_obstacle_canyon_demo as canyon
+
+    problem = canyon.CanyonEmitter(buildings=True)
+    k, rows, worst = CANYON["k"], [], 0.0
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        md = meshes[(257, name)]
+        inp = canvas_inputs(md, problem, 2, dtype, cache)
+        C, cheb, u, masks = canvas_step_inputs(inp, k, dtype)
+        live = 1.0 - fused_solver.to_canvases(inp["pattern"],
+                                              inp["dead"].to(dtype))
+        u = (u + 0.01 * masks) * live
+        (load,), _ = step_loads(inp, md, problem, 1, True, C, masks, True,
+                                dtype)
+        plan = fused_hbm.canvas_plan(k, True, dtype)
+        got = torch.empty_like(u)
+        halt = torch.tensor(-1, dtype=torch.int32, device=u.device)
+        fused_hbm.canvas_kernel_step(C, cheb, k, u, u, got,
+                                     torch.empty_like(u), True, inp["rect"],
+                                     halt, plan, load=load)
+        ref, _ = fused_hbm.plain_canvas_step(C, cheb, k, u, u, True, masks,
+                                             load)
+        torch.cuda.synchronize()
+        abs_e, rel, diff = rel_err(got, ref)
+        dead = dead_max(inp, got, dtype)
+        rows.append({"dtype": name, "plan": plan, "rel_err": rel,
+                     "dead_max_abs": dead, "worst_at": worst_at(diff),
+                     "load_max": float(load.abs().max())})
+        check(rel <= TOL[name], f"B4 canyon {name}: rel err {rel:.3e}")
+        check(dead == 0.0, f"B4 canyon {name}: dead DOFs reach {dead}")
+        if name == "float32":
+            worst = abs_e
+    emit({"phase": "y1_canyon_b4_load_vs_plain", "card": card_line(),
+          "cases": rows})
+    return worst
+
+
+def y1_k_sweep():
+    """The K sweep's rows at 257^2 (K = 6 and 8, nt=1001, Chebyshev-6)
+    through the multispecies script's run(): its k-vs-2k and fuse A/B
+    gates (< 5e-3), B6 and B4 launches counted."""
+    md = y1_mesh_data(257, 1001)
+    out, launches = [], {"B6": 0, "B4": 0}
+    for K in K_SWEEP:
+        row, _, b6, b4, seconds = multispecies_row(
+            md, 257, DEMO_ITERS[257], scan_check=False, K=K)
+        n = md.nt - 1
+        check(b6 == 3 * n and b4 == K * n,
+              f"K sweep K={K}: {b6} B6 and {b4} B4 launches")
+        out.append({**row, "seconds": seconds})
+        launches["B6"] += b6
+        launches["B4"] += b4
+    return [{"script": "multispecies_fused_demo (K sweep)", "rows": out}], \
+        launches
+
+
+def y1_extrapolate():
+    """scripts/torch_port_extrapolate_ab.py at 513^2, nt=128 (I1's shape,
+    full width), its timed Adam steps cut to 2. Gates: every row finite;
+    at each k the extrapolated start lies nearer the tight solve than the
+    cold one; B4-raw launched."""
+    import math
+
+    from scripts import torch_port_extrapolate_ab as ab
+
+    md = y1_mesh_data(513, 128)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = ab.run(513, md.nt, 96, 2, mesh_data=md)
+    seconds = time.perf_counter() - t0
+    raw = launches_of("B4-raw")
+    rows = [{k: v for k, v in r.items() if k != "losses"}
+            for r in res["rows"]]
+    out = {"script": "extrapolate_ab", "seconds": seconds,
+           "tight_s": res["tight_s"], "rows": rows, "b4_raw_launches": raw}
+    check(raw > 0, "extrapolate_ab launched no B4-raw")
+    check(all(math.isfinite(r["primal_rel_maxdiff_vs_tight"])
+              and all(math.isfinite(x) for x in r["losses"])
+              for r in res["rows"]), "extrapolate_ab: a non-finite row")
+    acc = {(r["extrapolate"], r["chebyshev_iters"]):
+           r["primal_rel_maxdiff_vs_tight"] for r in res["rows"]}
+    for k in (12, 8):
+        check(acc[(True, k)] < acc[(False, k)],
+              f"extrapolate_ab k={k}: extrapolated {acc[(True, k)]:.3e} "
+              f"not nearer the tight solve than cold {acc[(False, k)]:.3e}")
+    return [out], {"B4-raw": raw}
+
+
+def y1_assimilation():
+    """The three EnKF scripts at their defaults (each member batch on
+    B7a's stacked mode), the two 24^2 ones on one mesh. Gates: the
+    analysis error below the forecast's (enkf); the last cycle's analysis
+    below the free run (da_cycling); the greedy network at or below the
+    random mean at every size (network_design); and the figures drawn
+    before any EnKF noise against results_snapshot/."""
+    import airpollution_tpu_torch as apt
+    from scripts import torch_port_assimilation_demo as enkf
+    from scripts import torch_port_da_cycling_demo as cycling
+    from scripts import torch_port_network_design_demo as network
+
+    out, b7a = [], 0
+    mesh24 = apt.create_mesh(24, 20.0)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = enkf.run(mesh=mesh24)
+    row = {k: r[k] for k in enkf.COLUMNS}
+    out.append({"script": "assimilation_demo",
+                "seconds": time.perf_counter() - t0, **row,
+                "b7a_launches": launches_of("B7a")})
+    b7a += launches_of("B7a")
+    snap = snapshot_csv("enkf.csv")[0]
+    check(row["rel_err_analysis_mean"] < row["rel_err_forecast_mean"],
+          f"enkf: analysis {row['rel_err_analysis_mean']:.4e} not below "
+          f"forecast {row['rel_err_forecast_mean']:.4e}")
+    for k in ("rel_err_forecast_mean", "station_spread_forecast",
+              "brier_forecast"):
+        check(abs(row[k] - float(snap[k])) <= 5e-7,
+              f"enkf: {k} {row[k]:.7f} against the snapshot's {snap[k]}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = cycling.run()
+    rows = r["rows"]
+    out.append({"script": "da_cycling_demo",
+                "seconds": time.perf_counter() - t0,
+                "truth_s": r["truth_s"], "cycles_s": r["cycles_s"],
+                "rows": rows, "b7a_launches": launches_of("B7a")})
+    b7a += launches_of("B7a")
+    snap = snapshot_csv("da_cycling.csv")
+    last = rows[-1]
+    check(last["rmse_analysis"] < last["rmse_free"],
+          f"da_cycling: last analysis {last['rmse_analysis']} not below "
+          f"the free run {last['rmse_free']}")
+    for k in ("rmse_forecast", "rmse_free"):
+        check(close_to(rows[0][k], float(snap[0][k]), F32_SNAPSHOT_TOL),
+              f"da_cycling: cycle 1 {k} {rows[0][k]:.6f} against the "
+              f"snapshot's {snap[0][k]}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    r = network.run(mesh=mesh24)
+    rows = r["rows"]
+    out.append({"script": "network_design_demo",
+                "seconds": time.perf_counter() - t0,
+                "forecast_s": r["forecast_s"], "rows": rows,
+                "b7a_launches": launches_of("B7a")})
+    b7a += launches_of("B7a")
+    for row in rows:
+        check(row["err_greedy"] <= row["err_random_mean"],
+              f"network_design m={row['n_sensors']}: greedy "
+              f"{row['err_greedy']:.6f} above random "
+              f"{row['err_random_mean']:.6f}")
+    snap = snapshot_csv("network_design.csv")[0]
+    check(close_to(rows[0]["err_prior"], float(snap["err_prior"]),
+                   F32_SNAPSHOT_TOL),
+          f"network_design: prior error {rows[0]['err_prior']:.6f} against "
+          f"the snapshot's {snap['err_prior']}")
+    check(b7a > 0, "the assimilation scripts launched no B7a")
+    return out, {"B7a": b7a}
+
+
+def falls(losses):
+    """Finite losses whose last lies below the first."""
+    import math
+
+    return all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+
+
+def lowers(losses):
+    """Finite losses of a fit that reaches below its start (Adam's first
+    steps may overshoot before the misfit falls)."""
+    import math
+
+    return all(math.isfinite(x) for x in losses) and min(losses) < losses[0]
+
+
+def y1_wind():
+    """wind_inversion_demo at its 64^2, nt=128 (the scan engine there, as
+    the JAX script's 'auto'), the 13-point omega grid, then 8 Adam steps
+    (its lr of 0.02 overshoots first; the misfit falls below its start at
+    the eighth, 7.6e-7 against 1.1e-6 on a CPU and on the card alike).
+    Gate: finite losses that reach below the start."""
+    from scripts import torch_port_wind_inversion_demo as wind
+
+    t0 = time.perf_counter()
+    row = wind.run(steps=Y1_DEPTH["wind_steps"])
+    out = {"script": "wind_inversion_demo",
+           "seconds": time.perf_counter() - t0,
+           **{k: row[k] for k in wind.COLUMNS}, "omega0": row["omega0"],
+           "losses": row["losses"]}
+    check(lowers(row["losses"]), f"wind_inversion: losses {row['losses']}")
+    return [out], {}
+
+
+def y1_rotating():
+    """rotating_convergence in f64 at ms 8-64 (128 cut), BE and CN, held to
+    results_snapshot/rotating_convergence.csv (the JAX package's f64 CPU
+    table, BiCGStab to 1e-11) to its 6 places and F64_SNAPSHOT_TOL."""
+    from scripts import torch_port_rotating_convergence as rotating
+
+    t0 = time.perf_counter()
+    rows = rotating.run(Y1_DEPTH["rotating_sizes"])
+    snap = {(int(r["time_scheme_order"]), int(r["mesh_size"])):
+            float(r["rel_l2"]) for r in snapshot_csv(
+                "rotating_convergence.csv")}
+    for r in rows:
+        want = snap[(r["time_scheme_order"], r["mesh_size"])]
+        check(abs(r["rel_l2"] - want) <= 5e-7 + F64_SNAPSHOT_TOL * want,
+              f"rotating_convergence {r['time_scheme_order']}/"
+              f"{r['mesh_size']}: rel_l2 {r['rel_l2']:.7f} against {want}")
+    return [{"script": "rotating_convergence",
+             "seconds": time.perf_counter() - t0, "rows": rows}], {}
+
+
+def y1_multispecies_demo():
+    """multispecies_demo: the chain's convergence rows at ms 8-32 (64 cut),
+    held to results_snapshot/multispecies.csv within CHAIN_SNAPSHOT_TOL,
+    then Y1_DEPTH["ms_steps"] Adam steps of the rate fit (finite losses
+    that fall)."""
+    from scripts import torch_port_multispecies_demo as chain
+
+    t0 = time.perf_counter()
+    rows = chain.convergence_rows(Y1_DEPTH["ms_sizes"], 129)
+    inv = chain.inversion_row(16, 33, 0.01, Y1_DEPTH["ms_steps"], 0.05)
+    snap = {int(r["mesh_size"]): r for r in snapshot_csv("multispecies.csv")
+            if r["kind"] == "convergence"}
+    for r in rows:
+        for k in ("rel_l2_total", "rel_l2_A", "rel_l2_B", "rel_l2_C"):
+            want = float(snap[r["mesh_size"]][k])
+            check(close_to(r[k], want, CHAIN_SNAPSHOT_TOL),
+                  f"multispecies_demo ms={r['mesh_size']}: {k} {r[k]} "
+                  f"against {want}")
+    check(falls(inv["losses"]), f"multispecies_demo fit: {inv['losses']}")
+    return [{"script": "multispecies_demo",
+             "seconds": time.perf_counter() - t0, "rows": rows,
+             "inversion": inv}], {}
+
+
+def y1_pinn_scripts():
+    """pinn_rotating_demo (32^2 budget, 200 epochs), the levers script's
+    Y1_LEVERS (50 epochs, 5 L-BFGS steps each; its levers cell runs in the
+    PINN phase), canyon_pinn_fem (every config, 100 epochs and 10 L-BFGS
+    steps; the FEM at 49^2), problem3_comparative_analysis (ms 4, 8, 16,
+    100 epochs) and problem3_comprehensive_analysis2 (20 epochs), widths
+    as published, in a temporary directory. Gates: finite losses that
+    fall; the canyon FEM's wake figures against the JAX package's
+    (CANYON_PINN_FEM_JAX_CPU) within CANYON_TOL; finite discrepancies."""
+    import json
+    import math
+    import os
+    import tempfile
+
+    from scripts import torch_port_canyon_pinn_fem as canyon_pinn
+    from scripts import torch_port_pinn_accuracy_levers as levers
+    from scripts import torch_port_pinn_rotating_demo as rotating
+    from scripts import torch_port_problem3_comparative_analysis as p3
+    from scripts import torch_port_problem3_comprehensive_analysis2 as p3c
+
+    d = Y1_DEPTH
+    out = []
+    t0 = time.perf_counter()
+    row = rotating.run(epochs=d["pinn_epochs"])
+    out.append({"script": "pinn_rotating_demo",
+                "seconds": time.perf_counter() - t0,
+                **{k: row[k] for k in rotating.COLUMNS}})
+    check(falls(row["history"]["total_loss"]) and math.isfinite(
+        row["rel_l2"]), "pinn_rotating: losses do not fall")
+
+    t0 = time.perf_counter()
+    rows = levers.run(d["lever_epochs"], 64, Y1_LEVERS, device="cuda",
+                      epoch_cap=d["lever_epochs"],
+                      lbfgs_cap=d["lever_lbfgs"])
+    out.append({"script": "pinn_accuracy_levers",
+                "seconds": time.perf_counter() - t0,
+                "rows": [{k: v for k, v in r.items() if k not in levers.EXTRA}
+                         for r in rows]})
+    for r in rows:
+        check(falls(r["history"]["total_loss"][:r["adam_epochs"]])
+              and math.isfinite(r["rel_l2"]),
+              f"levers {r['variant']}: losses do not fall")
+
+    t0 = time.perf_counter()
+    res = canyon_pinn.run(epochs=d["canyon_epochs"],
+                          lbfgs_cap=d["canyon_lbfgs"])
+    out.append({"script": "canyon_pinn_fem",
+                "seconds": time.perf_counter() - t0, "fem_s": res["fem_s"],
+                "rows": res["rows"]})
+    with open(Path(__file__).resolve().parent / "results_snapshot"
+              / "canyon_pinn_fem.json") as f:
+        snap = json.load(f)["configs"][0]
+    out[-1]["fem_jax_cpu"] = CANYON_PINN_FEM_JAX_CPU
+    out[-1]["fem_snapshot"] = {k: snap[k] for k in CANYON_PINN_FEM_JAX_CPU}
+    for r in res["rows"]:
+        check(falls(res["histories"][r["config"]]["total_loss"]),
+              f"canyon_pinn_fem {r['config']}: losses do not fall")
+    for k, want in CANYON_PINN_FEM_JAX_CPU.items():
+        got = res["rows"][0][k]
+        check(close_to(got, want, CANYON_TOL),
+              f"canyon_pinn_fem: {k} {got} against JAX's {want}")
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            t0 = time.perf_counter()
+            rows = p3.main(["--mesh_sizes", *map(str, d["p3_sizes"]),
+                            "--epochs", str(d["p3_epochs"])], device="cuda")
+            out.append({"script": "problem3_comparative_analysis",
+                        "seconds": time.perf_counter() - t0, "rows": rows})
+            check(len(rows) == len(d["p3_sizes"]) and all(
+                math.isfinite(r["l2_error_diff"])
+                and math.isfinite(r["max_error_diff"]) for r in rows),
+                "problem3_comparative: a non-finite discrepancy")
+            t0 = time.perf_counter()
+            _, stats = p3c.main(["--epochs", str(d["p3c_epochs"])],
+                                device="cuda")
+            out.append({"script": "problem3_comprehensive_analysis2",
+                        "seconds": time.perf_counter() - t0,
+                        **{k: float(v) for k, v in stats.items()}})
+            check(all(math.isfinite(v) for v in stats.values()),
+                  "problem3_comprehensive_analysis2: a non-finite figure")
+        finally:
+            os.chdir(cwd)
+    return out, {}
+
+
+# Work that shares no state with the main path runs in processes of its
+# own (background groups): slice 18's scripts, and earlier slices' phases
+# that need processes anyway or are bound by the host (CHILD_PHASES: D1's
+# gloo ranks; X3, the command line end to end; R1, the paper's harness).
+# The groups that launch no kernel of the port (the scan and PINN scripts)
+# start with the script, beside the kernel build; the others after it, so
+# that they load the built kernels. All of them run beside the untimed
+# kernel checks, so their times are upper bounds (BESIDE). Each part
+# returns (its script lines, its launches by kernel); a child phase
+# returns what the main path reads of it instead of the launches.
+BACKGROUND_GROUPS = {
+    "scans": ("y1_wind",),
+    "pinn": ("y1_pinn_scripts", "y1_rotating", "y1_multispecies_demo"),
+    "d1": ("child_d1",),
+    "kernels": ("y1_canyon", "y1_k_sweep", "y1_extrapolate",
+                "y1_assimilation"),
+    "cli": ("child_x3",),
+    "r1": ("child_r1",),
+}
+Y1_KIDS = ("B4", "B4-raw", "B6", "B7a")
+CHILD_PHASES = ("child_d1", "child_r1", "child_x3")
+BESIDE = ("the kernel build, the untimed kernel checks and the other "
+          "background groups")
+
+
+def child_d1():
+    """D1 (b): two gloo ranks sharing the card (parallel.launch.spawn,
+    device cuda:0) run d1_rank, their results in a directory under build/.
+    Returns {"dir": that directory, "ranks_wall_s": the ranks' seconds}
+    for phase_d1_distributed."""
+    import tempfile
+
+    from airpollution_tpu_torch.parallel import launch
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="d1_", dir=build)
+    t0 = time.perf_counter()
+    launch.spawn(d1_rank, 2, backend="gloo", device="cuda:0",
+                 args=(tmp, "cuda:0"), timeout_s=D1_SPAWN_TIMEOUT)
+    return [], {"dir": tmp, "ranks_wall_s": time.perf_counter() - t0}
+
+
+def child_r1():
+    """R1 (phase_r1_paper_harness): its B7a launches."""
+    return [], {"B7a": phase_r1_paper_harness()}
+
+
+def child_x3():
+    """X3 (phase_x3_cli): its B1 and B6 launches."""
+    return [], phase_x3_cli()
+
+
+def background_child(out_path, group):
+    """One group of BACKGROUND_GROUPS on the card, in a process of its own
+    (start_background), on meshes of its own; writes {"scripts": [...],
+    "launches": {...}, "phases": {child phase: what it returned},
+    "seconds": ...} to ``out_path``. A failed gate raises (SmokeFailure)
+    and a diverged canyon solve exits (SystemExit), so the process ends
+    nonzero."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    launches = {kid: 0 for kid in Y1_KIDS}
+    phases = {}
+    scripts = []
+    for name in BACKGROUND_GROUPS[group]:
+        reset_counts()
+        got, counted = globals()[name]()
+        scripts += got
+        if name in CHILD_PHASES:
+            phases[name] = counted
+            continue
+        for kid in Y1_KIDS:
+            launches[kid] += counted.get(kid, launches_of(kid))
+    Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump({"scripts": scripts, "launches": launches,
+                   "phases": phases, "seconds": time.perf_counter() - t0},
+                  f)
+
+
+def start_background(groups):
+    """Start each of ``groups`` (names in BACKGROUND_GROUPS) in a process
+    of its own (background_child; its log under build/). Returns a list
+    of (group, the process, its result file, its log)."""
+    import atexit
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    started = []
+    for group in groups:
+        tmp = Path(tempfile.mkdtemp(prefix=f"bg_{group}_", dir=build))
+        out, log = tmp / "result.json", tmp / "log.txt"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke as cs; "
+                 f"cs.background_child({str(out)!r}, {group!r})"],
+                cwd=Path(__file__).resolve().parent, stdout=f,
+                stderr=subprocess.STDOUT)
+        # A failure of the parent before its wait must not leave it running.
+        atexit.register(lambda p=proc: p.poll() is None and p.kill())
+        started.append((group, proc, out, log))
+    return started
+
+
+def wait_background(started):
+    """Wait for the background processes (start_background) so that no
+    timed phase shares the card with them; a failed one raises here with
+    the end of its log. Returns their results, merged in
+    BACKGROUND_GROUPS' order."""
+    t0 = time.perf_counter()
+    results = {}
+    for group, proc, out, log in started:
+        rc = proc.wait(timeout=BACKGROUND_TIMEOUT_S)
+        if rc != 0:
+            tail = log.read_text()[-6000:]
+            raise SmokeFailure(f"the {group} background group failed "
+                               f"(rc {rc}):\n{tail}")
+        results[group] = json.loads(out.read_text())
+        # The lines of the earlier phases that ran there (their t_s on
+        # that process's clock), marked as sharing the card.
+        for line in log.read_text().splitlines():
+            if line.startswith('{"phase"'):
+                print(json.dumps({**json.loads(line), "ran_beside": BESIDE}),
+                      flush=True)
+    emit({"phase": "background_wait", "wait_s": time.perf_counter() - t0,
+          "process_seconds": {g: r["seconds"] for g, r in results.items()}})
+    merged = {"scripts": [], "launches": {kid: 0 for kid in Y1_KIDS},
+              "phases": {}, "seconds": {}}
+    for group in BACKGROUND_GROUPS:
+        if group in results:
+            merged["scripts"] += results[group]["scripts"]
+            merged["seconds"][group] = results[group]["seconds"]
+            merged["phases"].update(results[group]["phases"])
+            for kid, n in results[group]["launches"].items():
+                merged["launches"][kid] += n
+    return merged
+
+
+def phase_y1_scripts(result, m_launches):
+    """Slice 18's line (y1_scripts): each script's seconds, rows and gates
+    from the background processes (``result``, wait_background; their
+    times are upper bounds), and each kernel's launches on the scripts'
+    paths, M1's and M2's (``m_launches``) counted in. Returns those
+    launches."""
+    launches = dict(result["launches"])
+    for kid, v in m_launches.items():
+        launches[kid] += v
+    emit({"phase": "y1_scripts", "card": card_line(),
+          "process_seconds": result["seconds"],
+          "ran_beside": BESIDE,
+          "launches": launches, "scripts": result["scripts"]})
     return launches
 
 
@@ -6376,9 +6940,13 @@ def main() -> int:
     pool = concurrent.futures.ThreadPoolExecutor(1)
     setup = pool.submit(host_setup, domain)
     pool.shutdown(wait=False)
+    # Slice 18: the scripts that launch no kernel of the port start now,
+    # beside the kernel build, in processes of their own.
+    background = start_background(("scans", "pinn"))
     phase_toolchain()
-    # Slice 17: D1's gloo ranks set up and solve beside the kernel checks.
-    d1_ranks = start_d1_ranks()
+    # D1's gloo ranks, slice 18's scripts that launch kernels, X3 and R1
+    # run beside the kernel checks.
+    background += start_background(("d1", "kernels", "cli", "r1"))
     t0 = time.perf_counter()
     meshes, (md_u1025, u1025_setup) = setup.result()
     emit({"phase": "host_setup", "wait_s": time.perf_counter() - t0})
@@ -6402,7 +6970,8 @@ def main() -> int:
     worst.update(phase_b4_flux(meshes, cache))
     meshes[(513, "float64")] = meshes[(513, "float32")]
     phase_plan_variants(meshes, problems, cache)
-    wait_d1_ranks(d1_ranks)
+    worst["B4"] = max(worst["B4"], y1_canyon_kernel(meshes, cache))
+    y1_result = wait_background(background)
     times = kernel_times(meshes, problem)
     times.update(canvas_kernel_times(meshes, problems, cache))
     times.update(multispecies_kernel_times(meshes, problems, cache))
@@ -6424,11 +6993,14 @@ def main() -> int:
         meshes[(257, "float32")], md_257_65, problems["C3"], domain)
     cache.clear()
     md_m1 = retimed(meshes[(1025, "float32")], 4001)
-    launches["B6"], *m1 = phase_m1(md_m1, domain)
+    # M1 and M2 are rows of scripts/torch_port_multispecies_fused_demo.py.
+    m_launches, *m1 = phase_m1(md_m1, domain)
+    launches["B6"] = m_launches["B6"]
     # Slice 7: B10 on M1's chain, against M1's solve.
     launches["B10"] = phase_b10_m1(m1, domain)
     del m1
-    phase_m2(meshes[(257, "float32")], domain)
+    for kid, n in phase_m2(meshes[(257, "float32")], domain).items():
+        m_launches[kid] += n
     del md_m1
     launches["B1-load"], s1 = phase_s1(meshes[(257, "float32")], domain)
     launches["B2-load"] = phase_s2(meshes[(513, "float32")], domain)
@@ -6481,7 +7053,8 @@ def main() -> int:
         launches[kid] += n
     # Slice 13: the command line, the uniform scan route at 2049^2 and
     # the spectral preconditioner.
-    cli_launches, md_2049 = phase_cli(domain)
+    cli_launches, md_2049 = phase_cli(domain,
+                                      y1_result["phases"]["child_x3"])
     for kid, n in cli_launches.items():
         launches[kid] += n
     # Slice 7: B8 on the 2049^2 mesh data of X1's command, retimed to
@@ -6492,7 +7065,8 @@ def main() -> int:
     del md_2049_b8
     # Slice 17: multi-device on torch.distributed, D1: one NCCL rank here,
     # then B8-B10 and the stencil solver on 2 gloo ranks sharing the card.
-    d1_launches = phase_d1_distributed(domain, md_2049, meshes, d1_ranks)
+    d1_launches = phase_d1_distributed(domain, md_2049, meshes,
+                                       y1_result["phases"]["child_d1"])
     for kid, n in d1_launches.items():
         launches[kid] += n
     del md_2049
@@ -6509,8 +7083,11 @@ def main() -> int:
         launches[kid] += n
     # Slice 16: the paper's experiment harness; B7a under its unstructured
     # sweep.
-    r1_b7a = phase_r1_paper_harness()
+    r1_b7a = y1_result["phases"]["child_r1"]["B7a"]
     launches["B7a"] += r1_b7a
+    # Slice 18: the last scripts (B4, B4-raw, B6 and B7a on their paths;
+    # M1 and M2 counted in).
+    y1_launches = phase_y1_scripts(y1_result, m_launches)
     # Slice 11: the PINN (its path launches no kernel of the port).
     phase_pinn(domain)
     kernels = []
@@ -6534,6 +7111,8 @@ def main() -> int:
             **({"paper_harness_launches": r1_b7a} if kid == "B7a" else {}),
             **({"distributed_launches": d1_launches[kid]}
                if kid in d1_launches else {}),
+            **({"scripts_launches": y1_launches[kid]}
+               if kid in y1_launches else {}),
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card_line(), flush=True)

@@ -102,6 +102,52 @@ def test_members_and_iterations_match_jax(order):
                                    atol=1e-13)
 
 
+@pytest.mark.parametrize("order,quadrature", [
+    (1, "mass_lumped"), (2, "reference")], ids=["BE-lumped", "CN-reference"])
+def test_gaussian_source_forecast_matches_jax_forecast(order, quadrature):
+    """Members that differ in their emitter (rate, position, width) and
+    transport, held against JAX's own ensemble_forecast: the stacked
+    problem's (K, 1) source columns in the member loop's load, under both
+    source quadratures."""
+    jd, td, jmd, tmd = _meshes()
+    params = [dict(q=q, xs=xs, ys=ys, sigma_s=s, v=(1.0, vy), D=d)
+              for q, xs, ys, s, vy, d in ((1.0, -2.0, 1.0, 1.5, 0.5, 0.1),
+                                          (2.5, 0.0, -1.0, 2.0, 0.2, 0.3),
+                                          (0.5, 3.0, 2.0, 1.0, -0.4, 0.05))]
+    kw = dict(order=order, source_quadrature=quadrature)
+    want = jens.ensemble_forecast(
+        jmd, jd, [japt.GaussianSourceProblem(**p) for p in params], **kw)
+    got = tens.ensemble_forecast(
+        tmd, td, [tapt.GaussianSourceProblem(**p) for p in params], **kw)
+    w = np.asarray(want["members"])
+    assert float(np.abs(w).max()) > 0.0
+    np.testing.assert_allclose(got["members"].numpy(), w, rtol=0, atol=TOL)
+
+
+def test_square_pulse_restart_matches_jax_forecast():
+    """Square-pulse members restarted from given states at t0 (the cycling
+    filter's windows, scripts/da_cycling_demo.py): two windows, the second
+    started from the first's members, CN, each against JAX's
+    ensemble_forecast(u0_members=, t0=) from the same states."""
+    jd, td, jmd, tmd = _meshes(nt=5, T=1.0)
+    params = [dict(v=(1.0 + a, 0.5 - a), D=d)
+              for a, d in ((0.0, 0.1), (0.3, 0.05), (-0.2, 0.2))]
+    jp = [japt.SquarePulseProblem(**p) for p in params]
+    tp = [tapt.SquarePulseProblem(**p) for p in params]
+    rng = np.random.default_rng(3)
+    X = np.abs(rng.standard_normal((len(params), tmd.number_of_segments)))
+    for t0 in (0.0, 1.0):
+        want = jens.ensemble_forecast(jmd, jd, jp, order=2,
+                                      u0_members=jnp.asarray(X), t0=t0)
+        got = tens.ensemble_forecast(tmd, td, tp, order=2,
+                                     u0_members=torch.tensor(X), t0=t0)
+        X = np.asarray(want["members"])
+        np.testing.assert_allclose(got["members"].numpy(), X, rtol=0,
+                                   atol=TOL)
+        np.testing.assert_allclose(got["std"].numpy(),
+                                   np.asarray(want["std"]), rtol=0, atol=TOL)
+
+
 @pytest.mark.parametrize("order", [1, 2], ids=["BE", "CN"])
 def test_member_state_refuses_chebyshev(order):
     """The member axis has BiCGStab only (the solver ensemble_forecast and

@@ -90,6 +90,37 @@ PORT_MODULES = [
 ]
 
 
+# The port's scripts that import the package at module level (the JAX
+# package's demo and experiment scripts, ported).
+PORT_SCRIPTS = [
+    "torch_port_source_inversion",
+    "torch_port_unsteady_scale",
+    "torch_port_unsteady_wind",
+    "torch_port_unsteady_checks",
+    "torch_port_large_mesh_policy",
+    "torch_port_wind_fit_stability",
+    "torch_port_dispatch_count",
+    "torch_port_ensemble_demo",
+    "torch_port_fno_surrogate",
+    "torch_port_problem3",
+    "torch_port_problem3_comprehensive_analysis",
+    "torch_port_problem3_comprehensive_analysis2",
+    "torch_port_problem3_comparative_analysis",
+    "torch_port_assimilation_demo",
+    "torch_port_da_cycling_demo",
+    "torch_port_network_design_demo",
+    "torch_port_wind_inversion_demo",
+    "torch_port_extrapolate_ab",
+    "torch_port_obstacle_canyon_demo",
+    "torch_port_multispecies_fused_demo",
+    "torch_port_multispecies_demo",
+    "torch_port_rotating_convergence",
+    "torch_port_pinn_rotating_demo",
+    "torch_port_pinn_accuracy_levers",
+    "torch_port_canyon_pinn_fem",
+]
+
+
 def _run(code, env=None):
     return subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
                           cwd=REPO, env=env, capture_output=True, text=True,
@@ -102,17 +133,8 @@ def test_port_imports_no_jax():
         for m in {PORT_MODULES!r}:
             importlib.import_module(m)
         import chip_smoke
-        import scripts.torch_port_source_inversion
-        import scripts.torch_port_unsteady_scale
-        import scripts.torch_port_unsteady_wind
-        import scripts.torch_port_unsteady_checks
-        import scripts.torch_port_large_mesh_policy
-        import scripts.torch_port_wind_fit_stability
-        import scripts.torch_port_dispatch_count
-        import scripts.torch_port_ensemble_demo
-        import scripts.torch_port_fno_surrogate
-        import scripts.torch_port_problem3
-        import scripts.torch_port_problem3_comprehensive_analysis
+        for name in {PORT_SCRIPTS!r}:
+            importlib.import_module("scripts." + name)
         bad = [m for m in sys.modules
                if m in ("jax", "optax", "airpollution_tpu", "experiments",
                         "pandas")
@@ -128,18 +150,7 @@ def test_port_sources_name_no_jax():
     files = list((REPO / "airpollution_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "scripts" / "torch_port_production_scenario.py")
-    files.append(REPO / "scripts" / "torch_port_source_inversion.py")
-    files.append(REPO / "scripts" / "torch_port_unsteady_scale.py")
-    files.append(REPO / "scripts" / "torch_port_unsteady_wind.py")
-    files.append(REPO / "scripts" / "torch_port_unsteady_checks.py")
-    files.append(REPO / "scripts" / "torch_port_large_mesh_policy.py")
-    files.append(REPO / "scripts" / "torch_port_wind_fit_stability.py")
-    files.append(REPO / "scripts" / "torch_port_dispatch_count.py")
-    files.append(REPO / "scripts" / "torch_port_ensemble_demo.py")
-    files.append(REPO / "scripts" / "torch_port_fno_surrogate.py")
-    files.append(REPO / "scripts" / "torch_port_problem3.py")
-    files.append(REPO / "scripts"
-                 / "torch_port_problem3_comprehensive_analysis.py")
+    files += [REPO / "scripts" / f"{name}.py" for name in PORT_SCRIPTS]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
@@ -150,6 +161,31 @@ def test_port_sources_name_no_jax():
                                           "from experiments")) \
                     and "airpollution_tpu." not in \
                     s.replace("airpollution_tpu_torch", ""), (f, s)
+
+
+def test_port_scripts_default_outside_results_snapshot():
+    """No default of a port script (an argparse flag's or a function
+    argument's) names a path under results_snapshot/: those files were
+    committed before the port began."""
+    import ast
+
+    for name in PORT_SCRIPTS:
+        tree = ast.parse((REPO / "scripts" / f"{name}.py").read_text())
+        defaults = [kw.value for node in ast.walk(tree)
+                    if isinstance(node, ast.Call)
+                    for kw in node.keywords if kw.arg == "default"]
+        defaults += [d for node in ast.walk(tree)
+                     if isinstance(node, ast.FunctionDef)
+                     for d in node.args.defaults + node.args.kw_defaults
+                     if d is not None]
+        defaults += [node.value for node in tree.body
+                     if isinstance(node, ast.Assign)]
+        for d in defaults:
+            for leaf in ast.walk(d):
+                if isinstance(leaf, ast.Constant) and isinstance(
+                        leaf.value, str):
+                    assert "results_snapshot" not in leaf.value, (name,
+                                                                  leaf.value)
 
 
 def test_kernel_modules_import_without_nvcc():

@@ -8,8 +8,11 @@ import jax.numpy as jnp
 import torch
 
 import airpollution_tpu.problems as jprob
+from airpollution_tpu.models import pinn as jpinn
+from airpollution_tpu.ops import sampling as jsampling
 import airpollution_tpu_torch as tapt
 from airpollution_tpu_torch.interop import pinn_params_from_numpy
+from airpollution_tpu_torch.ops import sampling as tsampling
 
 F64 = torch.float64
 BOX = (-20.0, 20.0, -20.0, 20.0)
@@ -157,3 +160,71 @@ def problem_pair(name):
             pair.append(p)
         return tuple(pair)
     raise KeyError(name)
+
+
+# --- the script parity tests (tests/test_torch_port_scripts_*.py) ----------
+
+def _facade(n, obstacles, time_range):
+    walls, counts = tsampling.facade_counts(n, obstacles)
+    rng = np.random.default_rng(14)
+    pts, nrm = [], []
+    for (x0, y0, dx, dy, nx, ny), c in zip(walls, counts):
+        u = (np.arange(c) + 0.5) / c
+        pts.append(np.stack([x0 + u * dx, y0 + u * dy], axis=1))
+        nrm.append(np.tile([nx, ny], (c, 1)))
+    t = rng.uniform(*time_range, sum(counts))
+    return (np.concatenate([np.concatenate(pts), t[:, None]], axis=1),
+            np.concatenate(nrm).astype(float))
+
+
+def same_points(monkeypatch):
+    """Both packages' samplers return the same seeded points for a count:
+    LHS space-time (or space) points, boundary blocks, facade points and
+    their normals."""
+
+    def lhs(n, xy, rest, kw):
+        t_range = rest[0] if rest else kw.get("time_range")
+        if t_range is None:
+            return points(n, 12, box=xy)[:, :2]
+        return points(n, 11, t_range=t_range, box=xy)
+
+    def bc(n, xy, t_range):
+        return boundary_points(n, 13, t_range=t_range, box=xy)
+
+    def as_jax(x):
+        return jnp.asarray(x, jnp.float64)
+
+    def as_torch(x):
+        return torch.tensor(x, dtype=torch.float64)
+
+    for mod, conv in ((jsampling, as_jax), (tsampling, as_torch)):
+        monkeypatch.setattr(
+            mod, "lhs_sampling",
+            lambda _k, n, xy, *rest, _c=conv, **kw: _c(lhs(n, xy, rest, kw)))
+        monkeypatch.setattr(
+            mod, "sample_boundary_points",
+            lambda _k, n, xy, t, *rest, _c=conv, **kw: _c(bc(n, xy, t)))
+        monkeypatch.setattr(
+            mod, "sample_facade_points",
+            lambda _k, n, obs, t, *rest, _c=conv, **kw: tuple(
+                map(_c, _facade(n, obs, t))))
+    monkeypatch.setattr(jpinn, "_TRAIN_FN_CACHE", {})
+
+
+def same_weights(monkeypatch, script, cls, lib):
+    """``script.PINN`` as a float64 model that starts from the seeded
+    numpy parameters of its layout; returns the list of models made."""
+    made = []
+
+    class Seeded(cls):
+        def __init__(self, layers, problem, domain, *a, **k):
+            k["dtype"] = jnp.float64 if lib == "jax" else torch.float64
+            super().__init__(layers, problem, domain, *a, **k)
+            params = np_params(layers, self.activation,
+                               fourier=self.fourier_features,
+                               amp=self.output_scale, seed=5)
+            self.params = jax_params(params) if lib == "jax" else params
+            made.append(self)
+
+    monkeypatch.setattr(script, "PINN", Seeded)
+    return made
