@@ -9,7 +9,9 @@ runs when the module is imported.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch; a
 ``Kernel`` raises when that is not 0, and counts the launches that went
-through.
+through. While the port's tracing is on (``utils.profiling``), a kernel
+also sums the host's ns inside its launches, and loading a library is the
+span ``kernel.load`` (counters ``kernel_builds``, ``kernel_loads``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from airpollution_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
@@ -70,6 +74,7 @@ def build(sources) -> dict:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[src] = (proc, tmp, out, time.perf_counter())
+    profiling.count("kernel_builds", len(started))
     failures = []
     for src, (proc, tmp, out, t0) in started.items():
         log, _ = proc.communicate()
@@ -89,7 +94,10 @@ class Kernel:
 
     ``launches`` counts the launches that returned no error; callers that
     want to see whether a run went through the kernel set it to 0 before
-    the run and read it after. Each dtype's C function is resolved once,
+    the run and read it after. ``host_ns`` sums the host's ns in those
+    launches, from the C call through the error check, only while the
+    port's tracing is on (``utils.profiling``, which zeroes it at its
+    ``reset``). Each dtype's C function is resolved once,
     on its first launch, with its ``argtypes`` set, so that a launch is
     one ctypes call on plain ints (pointers from :func:`pointer`, the
     stream from :func:`current_stream`).
@@ -101,15 +109,20 @@ class Kernel:
         self.symbols = symbols  # torch dtype -> C symbol
         self.argtypes = argtypes
         self.launches = 0
+        self.host_ns = 0
         self._lib = None
         self._entry = {}  # torch dtype -> resolved C function
+        profiling.track_kernel(self)
 
     def _library(self):
         if self._lib is None:
-            build([self.source])
-            self._lib = ctypes.CDLL(str(library_path(self.source)))
-            self._lib.crbe_error_string.argtypes = [ctypes.c_int]
-            self._lib.crbe_error_string.restype = ctypes.c_char_p
+            with profiling.span("kernel.load"):
+                build([self.source])
+                lib = ctypes.CDLL(str(library_path(self.source)))
+                profiling.count("kernel_loads")
+            lib.crbe_error_string.argtypes = [ctypes.c_int]
+            lib.crbe_error_string.restype = ctypes.c_char_p
+            self._lib = lib
         return self._lib
 
     def _resolve(self, dtype):
@@ -127,11 +140,15 @@ class Kernel:
         fn = self._entry.get(dtype)
         if fn is None:
             fn = self._resolve(dtype)
+        timed = profiling.is_on()
+        t0 = time.perf_counter_ns() if timed else 0
         err = fn(*args)
         if err != 0:
             msg = self._lib.crbe_error_string(err).decode()
             raise RuntimeError(f"{self.name} launch failed: {msg} ({err})")
         self.launches += 1
+        if timed:
+            self.host_ns += time.perf_counter_ns() - t0
 
 
 def pointer(t: torch.Tensor | None) -> int | None:

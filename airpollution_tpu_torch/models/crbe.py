@@ -73,6 +73,7 @@ from airpollution_tpu_torch.problems import (
     robin_g_customized,
     robin_g_xy_provided,
 )
+from airpollution_tpu_torch.utils.profiling import count, span
 
 #: Edge DOFs past which ``matvec_impl="auto"`` takes the uniform operator
 #: and ``assembly="auto"`` the patch scalars (global assembly of a 2049^2
@@ -880,10 +881,10 @@ class CRBESolver:
     # --- assembly ---
 
     def build_global_matrices(self) -> GlobalOperators:
-        return self.set_operators(assemble(
-            self.mesh_data, self.problem, self.dt, self.time_scheme_order,
-            self.stiffness_convention,
-        ))
+        with span("crbe.assemble"):
+            ops = assemble(self.mesh_data, self.problem, self.dt,
+                           self.time_scheme_order, self.stiffness_convention)
+        return self.set_operators(ops)
 
     def set_operators(self, ops: GlobalOperators) -> GlobalOperators:
         """Install an assembled operator (e.g. one carried over from the JAX
@@ -1299,12 +1300,14 @@ class CRBESolver:
             return run
 
         def solve_fused(ops, u0):
-            if dead is not None:
-                u0 = torch.where(dead, torch.zeros_like(u0), u0)
-            # u0 goes in full (boundary values included): CN's first RHS
-            # reads boundary columns; the kernels mask the warm start.
-            u0_fam = u0[perm]
-            run = prepare(ops)
+            with span("crbe.prepare"):
+                if dead is not None:
+                    u0 = torch.where(dead, torch.zeros_like(u0), u0)
+                # u0 goes in full (boundary values included): CN's first
+                # RHS reads boundary columns; the kernels mask the warm
+                # start.
+                u0_fam = u0[perm]
+                run = prepare(ops)
             ref_norm = torch.linalg.norm(u0_fam)
             if strided:
                 u, rows = u0_fam, []
@@ -1328,7 +1331,9 @@ class CRBESolver:
                 u, _ = run(u0_fam, n_steps, 0.0, None)
                 bad = torch.where(linalg.diverged_state(u, ref_norm),
                                   n_steps, -1).to(torch.int32)
-            sols = lifting.lifted_final_state(lift_at, u[inv], dt, n_steps)
+            with span("crbe.lift"):
+                sols = lifting.lifted_final_state(lift_at, u[inv], dt,
+                                                  n_steps)
             return sols, None, bad
 
         return solve_fused
@@ -1370,12 +1375,13 @@ class CRBESolver:
             matvec = partial(sparse.ell_matvec, ops.system)
             scale = 1.0 / torch.sqrt(ops.system_diag)
             example = torch.zeros_like(ops.system_diag)
-        if self._fixed_bounds is None:
-            lo, hi = linalg.power_bounds(matvec, example, scale=scale)
-            self._cheb_bounds = (float(lo), float(hi))
-        else:
-            self._cheb_bounds = self._fixed_bounds
-        beta = linalg.skew_norm(matvec, example, scale=scale)
+        with span("crbe.interval"):
+            if self._fixed_bounds is None:
+                lo, hi = linalg.power_bounds(matvec, example, scale=scale)
+                self._cheb_bounds = (float(lo), float(hi))
+            else:
+                self._cheb_bounds = self._fixed_bounds
+            beta = linalg.skew_norm(matvec, example, scale=scale)
         self._cheb_checked = True
         self._cheb_skew = float(beta)
         self._cheb_factor = linalg.chebyshev_convergence_factor(
@@ -1520,56 +1526,60 @@ class CRBESolver:
     def solve(self, store_solutions: bool = True, collect_iters: bool = False):
         """Run the full time horizon; returns (nt, n_seg) solutions (or the
         (1, n_seg) final state when ``store_solutions=False``)."""
-        ops = None if self._use_patch() else self._require_ops()
-        if self._large_mesh_policy_due():
-            self._large_mesh_policy_applied = True
-            self._apply_large_mesh_solver_policy(ops)
-        if self.solver_method == "chebyshev":
-            reroute = self.chebyshev_policy == "reroute"
-            self._check_chebyshev_applicable(ops, warn=not reroute)
-            if reroute:
-                if not self._cheb_factor < linalg.CHEBYSHEV_FACTOR_GATE:
-                    self._reroute_divergent_chebyshev()
-                    # Rerouted to BiCGStab: at the large-mesh size its
-                    # float32 tolerance floor still applies.
-                    if self._large_mesh_policy_due():
-                        self._large_mesh_policy_applied = True
-                        self._apply_large_mesh_solver_policy(ops)
-                elif not self._cheb_warn_evaluated:
-                    self._cheb_warn_evaluated = True
-                    self._warn_cheb_factor()
-        if self._u0_cache is None:
-            self._u0_cache = self.set_initial_condition()
-        u0 = self._u0_cache
-        key = (store_solutions, collect_iters) + self._config_key()
-        if key not in self._solve_fn_cache:
-            self._solve_fn_cache[key] = self._build_solve_fn(
-                store_solutions, collect_iters
-            )
-        sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                else (lambda: None))
-        start = time.perf_counter()
-        solutions, iters, bad = self._solve_fn_cache[key](ops, u0)
-        sync()
-        self.solve_time = time.perf_counter() - start
-        self.solutions = solutions
-        self.solver_iterations = iters
-        # Divergence guard, read on the host once per configuration: a
-        # configuration's divergence is deterministic, and each read is a
-        # device synchronisation.
-        if key not in self._guard_checked:
-            self._guard_checked.add(key)
-            n_steps = self.mesh_data.nt - 1
-            k = (self.chebyshev_iters if self.solver_method == "chebyshev"
-                 else None)
-            if bad is not None and int(bad) >= 0:
-                raise FloatingPointError(linalg.divergence_message(
-                    "CRBESolver fused solve", int(bad), n_steps, k))
-            if bool(linalg.diverged_state(solutions[-1],
-                                          torch.linalg.norm(u0))):
-                raise FloatingPointError(linalg.divergence_message(
-                    "CRBESolver.solve", n_steps, n_steps, k))
-        return solutions
+        with span("crbe.solve", solve=True):
+            ops = None if self._use_patch() else self._require_ops()
+            if self._large_mesh_policy_due():
+                self._large_mesh_policy_applied = True
+                self._apply_large_mesh_solver_policy(ops)
+            if self.solver_method == "chebyshev":
+                reroute = self.chebyshev_policy == "reroute"
+                self._check_chebyshev_applicable(ops, warn=not reroute)
+                if reroute:
+                    if not self._cheb_factor < linalg.CHEBYSHEV_FACTOR_GATE:
+                        self._reroute_divergent_chebyshev()
+                        # Rerouted to BiCGStab: at the large-mesh size its
+                        # float32 tolerance floor still applies.
+                        if self._large_mesh_policy_due():
+                            self._large_mesh_policy_applied = True
+                            self._apply_large_mesh_solver_policy(ops)
+                    elif not self._cheb_warn_evaluated:
+                        self._cheb_warn_evaluated = True
+                        self._warn_cheb_factor()
+            if self._u0_cache is None:
+                self._u0_cache = self.set_initial_condition()
+            u0 = self._u0_cache
+            key = (store_solutions, collect_iters) + self._config_key()
+            if key not in self._solve_fn_cache:
+                count("solve_fn_builds")
+                with span("crbe.solve_fn"):
+                    self._solve_fn_cache[key] = self._build_solve_fn(
+                        store_solutions, collect_iters)
+            sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                    else (lambda: None))
+            start = time.perf_counter()
+            solutions, iters, bad = self._solve_fn_cache[key](ops, u0)
+            with span("crbe.sync"):
+                sync()
+            self.solve_time = time.perf_counter() - start
+            self.solutions = solutions
+            self.solver_iterations = iters
+            # Divergence guard, read on the host once per configuration: a
+            # configuration's divergence is deterministic, and each read is a
+            # device synchronisation.
+            if key not in self._guard_checked:
+                self._guard_checked.add(key)
+                n_steps = self.mesh_data.nt - 1
+                k = (self.chebyshev_iters if self.solver_method == "chebyshev"
+                     else None)
+                with span("crbe.guard_read"):
+                    if bad is not None and int(bad) >= 0:
+                        raise FloatingPointError(linalg.divergence_message(
+                            "CRBESolver fused solve", int(bad), n_steps, k))
+                    if bool(linalg.diverged_state(solutions[-1],
+                                                  torch.linalg.norm(u0))):
+                        raise FloatingPointError(linalg.divergence_message(
+                            "CRBESolver.solve", n_steps, n_steps, k))
+            return solutions
 
     # --- evaluation ---
 

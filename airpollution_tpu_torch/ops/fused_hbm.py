@@ -73,6 +73,7 @@ from airpollution_tpu_torch.ops import fused_solver, linalg, stencil
 from airpollution_tpu_torch.ops.fused_stencil import StencilOperator
 from airpollution_tpu_torch.ops.loads import EmissionLoads, RobinFluxLoads
 from airpollution_tpu_torch.problems import mix_species
+from airpollution_tpu_torch.utils.profiling import count, span
 
 # B2 takes a uniform plan's tile rows and columns and depth, and a work
 # buffer (null at depth 1).
@@ -518,20 +519,23 @@ def _step_loop(step, u, up, n_steps, guard_every, keep=None):
     """Run ``step`` n_steps times in guard chunks; returns ``(u, bad)``,
     ``bad`` the device-side divergence flag (see fused_solve_uniform_hbm).
     ``step(u, up, bad) -> (u, up)``; ``keep(u)``, when given, sees the
-    state at the end of every chunk."""
-    device = u.device
-    ref_norm = torch.linalg.norm(u)
-    bad = torch.tensor(-1, dtype=torch.int32, device=device)
+    state at the end of every chunk. The span ``fused.steps``, each
+    chunk's check ``fused.guard`` (counter ``guard_chunks``)."""
     chunk = n_steps if guard_every is None else guard_every
     if n_steps % chunk:
         raise ValueError("guard_every must divide n_steps")
-    for i in range(n_steps // chunk):
-        for _ in range(chunk):
-            u, up = step(u, up, bad)
-        tripped = (bad < 0) & linalg.diverged_state(u, ref_norm)
-        bad.copy_(torch.where(tripped, (i + 1) * chunk, bad))
-        if keep is not None:
-            keep(u)
+    with span("fused.steps"):
+        ref_norm = torch.linalg.norm(u)
+        bad = torch.tensor(-1, dtype=torch.int32, device=u.device)
+        for i in range(n_steps // chunk):
+            for _ in range(chunk):
+                u, up = step(u, up, bad)
+            count("guard_chunks")
+            with span("fused.guard"):
+                tripped = (bad < 0) & linalg.diverged_state(u, ref_norm)
+                bad.copy_(torch.where(tripped, (i + 1) * chunk, bad))
+            if keep is not None:
+                keep(u)
     return u, bad
 
 
@@ -574,38 +578,41 @@ def fused_solve_uniform_hbm(spec, consts, mass_consts, inv_diag_consts,
     if n_steps == 0:
         bad = torch.tensor(-1, dtype=torch.int32, device=device)
         return (u0_fam, bad) if guard_every is not None else u0_fam
-    scal = fused_solver.step_scalars(
-        consts, mass_consts, inv_diag_consts, bounds, n_iters, dtype
-    )
-    u = fused_solver.to_canvases(spec, u0_fam)
-    masks = fused_solver.rect_masks(u.shape[-1], dtype, device)
-    loads = fused_solver.uniform_loads(
-        source_fn, source_steady, mass_consts, masks, grid=grid, dt=dt,
-        t0=t0, use_ka=use_ka, lumped=source_lumped,
-    ) if source_fn is not None else None
+    with span("fused.operator"):
+        scal = fused_solver.step_scalars(
+            consts, mass_consts, inv_diag_consts, bounds, n_iters, dtype
+        )
+        u = fused_solver.to_canvases(spec, u0_fam)
+        masks = fused_solver.rect_masks(u.shape[-1], dtype, device)
+        loads = fused_solver.uniform_loads(
+            source_fn, source_steady, mass_consts, masks, grid=grid, dt=dt,
+            t0=t0, use_ka=use_ka, lumped=source_lumped,
+        ) if source_fn is not None else None
 
-    def load_of_step():
-        return None if loads is None else loads.advance()[0]
+        def load_of_step():
+            return None if loads is None else loads.advance()[0]
 
-    if u.is_cuda:
-        plan = fused_solver.uniform_plan(n_iters, use_ka, dtype, u.shape[-1])
-        work = fused_solver.uniform_work(plan, u)
-        step = _pingpong(
-            lambda u, up, u_out, up_out, bad: kernel_step(
-                scal, n_iters, u, up, u_out, up_out, use_ka, bad, plan,
-                load=load_of_step(), work=work),
-            u, extrapolate)
-    else:
-        def step(u, up, bad):
-            load = load_of_step()
-            if int(bad) >= 0:  # a free read on the CPU
-                return u, up
-            return fused_solver.plain_step(scal, n_iters, u, up, use_ka,
-                                           masks, load)
+        if u.is_cuda:
+            plan = fused_solver.uniform_plan(n_iters, use_ka, dtype,
+                                             u.shape[-1])
+            work = fused_solver.uniform_work(plan, u)
+            step = _pingpong(
+                lambda u, up, u_out, up_out, bad: kernel_step(
+                    scal, n_iters, u, up, u_out, up_out, use_ka, bad, plan,
+                    load=load_of_step(), work=work),
+                u, extrapolate)
+        else:
+            def step(u, up, bad):
+                load = load_of_step()
+                if int(bad) >= 0:  # a free read on the CPU
+                    return u, up
+                return fused_solver.plain_step(scal, n_iters, u, up, use_ka,
+                                               masks, load)
 
-    u, bad = _step_loop(step, u, u.clone() if extrapolate else None,
-                        n_steps, guard_every)
-    out = fused_solver.from_canvases(spec, u)
+        up = u.clone() if extrapolate else None
+    u, bad = _step_loop(step, u, up, n_steps, guard_every)
+    with span("crbe.lift"):
+        out = fused_solver.from_canvases(spec, u)
     return (out, bad) if guard_every is not None else out
 
 
@@ -665,43 +672,45 @@ def fused_solve_canvas_hbm(pattern, coeffs, mass_masked_fam, inv_diag_fam,
         return (u0_fam, bad) if guard_every is not None else u0_fam
     n, c = pattern.n, pattern.c
     rect = tuple(rect) if rect is not None else (1, c, 1, c)
-    C = canvas_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam,
-                        dtype)
-    cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, device)
-    u = fused_solver.to_canvases(pattern, u0_fam)
-    masks = fused_solver.rect_masks(n, dtype, device, rect)
-    live = canvas_live(pattern, dead_fam, dtype)
-    load_of_step = load_planes(
-        EmissionLoads(
-            (source_fn,), (source_steady,), grid=grid, dt=dt, t0=t0,
-            use_ka=use_ka, lumped=source_lumped, mass3=C[15:18],
-            masks=masks, live=live,
-        ) if source_fn is not None else None,
-        RobinFluxLoads(
-            robin_g_fn, tuple(robin_sides), grid=grid, dt=dt, use_ka=use_ka,
-            masks=masks, live=live,
-        ) if robin_g_fn is not None else None,
-        t0, dt, u)
+    with span("fused.operator"):
+        C = canvas_operator(pattern, coeffs, mass_masked_fam, inv_diag_fam,
+                            dtype)
+        cheb = fused_solver.cheb_scalars(bounds, n_iters, dtype, device)
+        u = fused_solver.to_canvases(pattern, u0_fam)
+        masks = fused_solver.rect_masks(n, dtype, device, rect)
+        live = canvas_live(pattern, dead_fam, dtype)
+        load_of_step = load_planes(
+            EmissionLoads(
+                (source_fn,), (source_steady,), grid=grid, dt=dt, t0=t0,
+                use_ka=use_ka, lumped=source_lumped, mass3=C[15:18],
+                masks=masks, live=live,
+            ) if source_fn is not None else None,
+            RobinFluxLoads(
+                robin_g_fn, tuple(robin_sides), grid=grid, dt=dt,
+                use_ka=use_ka, masks=masks, live=live,
+            ) if robin_g_fn is not None else None,
+            t0, dt, u)
 
-    if u.is_cuda:
-        plan = canvas_plan(n_iters, use_ka, dtype)
-        work = work_buffer(plan, u)
-        step = _pingpong(
-            lambda u, up, u_out, up_out, bad: canvas_kernel_step(
-                C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect, bad,
-                plan, load=load_of_step(), work=work),
-            u, extrapolate)
-    else:
-        def step(u, up, bad):
-            load = load_of_step()
-            if int(bad) >= 0:  # a free read on the CPU
-                return u, up
-            return plain_canvas_step(C, cheb, n_iters, u, up, use_ka, masks,
-                                     load)
+        if u.is_cuda:
+            plan = canvas_plan(n_iters, use_ka, dtype)
+            work = work_buffer(plan, u)
+            step = _pingpong(
+                lambda u, up, u_out, up_out, bad: canvas_kernel_step(
+                    C, cheb, n_iters, u, up, u_out, up_out, use_ka, rect,
+                    bad, plan, load=load_of_step(), work=work),
+                u, extrapolate)
+        else:
+            def step(u, up, bad):
+                load = load_of_step()
+                if int(bad) >= 0:  # a free read on the CPU
+                    return u, up
+                return plain_canvas_step(C, cheb, n_iters, u, up, use_ka,
+                                         masks, load)
 
-    u, bad = _step_loop(step, u, u.clone() if extrapolate else None,
-                        n_steps, guard_every)
-    out = fused_solver.from_canvases(pattern, u)
+        up = u.clone() if extrapolate else None
+    u, bad = _step_loop(step, u, up, n_steps, guard_every)
+    with span("crbe.lift"):
+        out = fused_solver.from_canvases(pattern, u)
     return (out, bad) if guard_every is not None else out
 
 

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from airpollution_tpu_torch import _build
 from airpollution_tpu_torch.ops.loads import EmissionLoads
+from airpollution_tpu_torch.utils.profiling import span
 
 # B1 takes the plan's tile rows and columns and depth, and a work buffer
 # (null at depth 1).
@@ -700,38 +701,42 @@ def fused_solve_uniform(spec, consts, mass_consts, inv_diag_consts, u0_fam,
     if source_fn is not None and (grid is None or dt is None):
         raise ValueError("source_fn requires grid=(xmin, ymin, h) and dt")
     dtype = u0_fam.dtype
-    if method == "chebyshev":
-        scal = step_scalars(consts, mass_consts, inv_diag_consts, bounds,
-                            n_iters, dtype)
-    else:
-        scal = uniform_scalars(consts, mass_consts, inv_diag_consts, dtype)
-    u3 = to_canvases(spec, u0_fam)
-    if u3.is_cuda:
-        run = kernel_solve if method == "chebyshev" \
-            else kernel_uniform_bicgstab_solve
-    elif u3.device.type == "cpu":
-        run = plain_solve if method == "chebyshev" \
-            else plain_uniform_bicgstab_solve
-    else:
-        raise ValueError(f"unsupported device {u3.device}")
+    with span("fused.operator"):
+        if method == "chebyshev":
+            scal = step_scalars(consts, mass_consts, inv_diag_consts, bounds,
+                                n_iters, dtype)
+        else:
+            scal = uniform_scalars(consts, mass_consts, inv_diag_consts,
+                                   dtype)
+        u3 = to_canvases(spec, u0_fam)
+        if u3.is_cuda:
+            run = kernel_solve if method == "chebyshev" \
+                else kernel_uniform_bicgstab_solve
+        elif u3.device.type == "cpu":
+            run = plain_solve if method == "chebyshev" \
+                else plain_uniform_bicgstab_solve
+        else:
+            raise ValueError(f"unsupported device {u3.device}")
+        loads = None if source_fn is None else uniform_loads(
+            source_fn, source_steady, mass_consts,
+            rect_masks(spec.n, dtype, u3.device), grid=grid, dt=dt, t0=t0,
+            use_ka=use_ka, lumped=source_lumped)
     kw = dict(n_iters=n_iters, use_ka=use_ka, extrapolate=extrapolate)
-    if source_fn is None:
-        out, _ = run(scal, u3, n_steps=n_steps, **kw)
-        return from_canvases(spec, out)
-    loads = uniform_loads(source_fn, source_steady, mass_consts,
-                          rect_masks(spec.n, dtype, u3.device), grid=grid,
-                          dt=dt, t0=t0, use_ka=use_ka, lumped=source_lumped)
-    if source_steady:
-        out, _ = run(scal, u3, n_steps=n_steps, load=loads.planes[0], **kw)
-        return from_canvases(spec, out)
-    window = load_window(spec.n, dtype, n_steps)
-    u, up, done = u3, None, 0
-    while done < n_steps:
-        count = min(window, n_steps - done)
-        u, up = run(scal, u, n_steps=count, up=up,
-                    load=loads.window(count)[:, 0], **kw)
-        done += count
-    return from_canvases(spec, u)
+    with span("fused.steps"):
+        if loads is None:
+            u, _ = run(scal, u3, n_steps=n_steps, **kw)
+        elif source_steady:
+            u, _ = run(scal, u3, n_steps=n_steps, load=loads.planes[0], **kw)
+        else:
+            window = load_window(spec.n, dtype, n_steps)
+            u, up, done = u3, None, 0
+            while done < n_steps:
+                count = min(window, n_steps - done)
+                u, up = run(scal, u, n_steps=count, up=up,
+                            load=loads.window(count)[:, 0], **kw)
+                done += count
+    with span("crbe.lift"):
+        return from_canvases(spec, u)
 
 
 def coeff_canvases(pattern, coeffs):

@@ -6,6 +6,16 @@ memory (``torch.cuda.memory_allocated``, the counterpart of XLA's
 ``bytes_in_use``), a :func:`memory_delta` span with the drivers' two
 memory columns, and :func:`profiler_trace`, a ``torch.profiler`` span
 that writes a Chrome trace.
+
+The port's own tracing: :func:`span` names a phase of the program and
+:func:`count` counts an event in it. Both do nothing until tracing is
+switched on (:func:`tracing`); then each span is also a
+``torch.profiler.record_function`` range named ``apt.<name>``, on the
+profiler's clock beside the device's operations, and :func:`snapshot`
+sums what was recorded since :func:`reset`: calls, total and self ns per
+span name, every counter, and the launches and host ns of every CUDA
+kernel (``_build.Kernel``). The spans of one ``CRBESolver.solve`` share
+its solve id. Tracing is process-wide and meant for one thread.
 """
 
 from __future__ import annotations
@@ -14,8 +24,14 @@ import contextlib
 import os
 import resource
 import time
+import weakref
+from collections import defaultdict
+from typing import NamedTuple
 
 import torch
+
+#: The prefix of the port's spans among the profiler's events.
+PREFIX = "apt."
 
 
 def get_cpu_memory_mb() -> float:
@@ -88,7 +104,8 @@ def memory_delta(device=None):
 @contextlib.contextmanager
 def profiler_trace(log_dir: str | None):
     """A ``torch.profiler`` span over the CPU and, where present, the
-    card, written on exit as a Chrome trace
+    card, with the port's tracing on inside it (so the trace holds its
+    ``apt.<name>`` spans), written on exit as a Chrome trace
     ``<log_dir>/trace_<pid>_<ns>.json``. An empty ``log_dir`` profiles
     nothing."""
     if not log_dir:
@@ -100,7 +117,142 @@ def profiler_trace(log_dir: str | None):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profile(activities=activities) as prof, tracing():
         yield
     prof.export_chrome_trace(os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+class SpanRecord(NamedTuple):
+    """One closed span: times in ns on the profiler's clock (Unix time),
+    its own ns (the total less its child spans'), the name of the span
+    that held it (None at the top) and the id of the solve it belongs to
+    (None outside every solve)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    self_ns: int
+    parent: str | None
+    solve_id: int | None
+
+
+class _State:
+    on = False
+    records: list[SpanRecord] = []
+    counters: defaultdict = defaultdict(int)
+    stack: list = []  # open spans: [name, start_ns, child_ns, solve_id]
+    solves = 0
+    kernels: weakref.WeakSet = weakref.WeakSet()
+    launch_base: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+_NULL = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "solve", "_rf")
+
+    def __init__(self, name: str, solve: bool):
+        self.name = name
+        self.solve = solve
+        self._rf = torch.profiler.record_function(PREFIX + name)
+
+    def __enter__(self):
+        if self.solve:
+            _State.solves += 1
+            solve_id = _State.solves
+        else:
+            solve_id = _State.stack[-1][3] if _State.stack else None
+        self._rf.__enter__()
+        _State.stack.append([self.name, time.time_ns(), 0, solve_id])
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self._rf.__exit__(*exc)
+        name, start, child, solve_id = _State.stack.pop()
+        parent = _State.stack[-1] if _State.stack else None
+        if parent is not None:
+            parent[2] += end - start
+        _State.records.append(SpanRecord(
+            name, start, end, end - start - child,
+            None if parent is None else parent[0], solve_id))
+        return False
+
+
+def span(name: str, *, solve: bool = False):
+    """A phase of the program named ``name``. Off, the one shared null
+    context; on, a ``record_function("apt.<name>")`` range that is also
+    recorded in memory. ``solve=True`` opens a new solve id, which every
+    span inside it shares."""
+    if not _State.on:
+        return _NULL
+    return _Span(name, solve)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while tracing is on."""
+    if _State.on:
+        _State.counters[name] += n
+
+
+def is_on() -> bool:
+    return _State.on
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """Tracing switched to ``on`` inside the block, and back after it."""
+    was = _State.on
+    _State.on = on
+    try:
+        yield
+    finally:
+        _State.on = was
+
+
+def track_kernel(kernel) -> None:
+    """Watch a kernel's ``launches`` and ``host_ns`` for :func:`snapshot`
+    (each ``_build.Kernel`` calls this for itself)."""
+    _State.kernels.add(kernel)
+    _State.launch_base[kernel] = kernel.launches
+
+
+def reset() -> None:
+    """Forget every span and counter recorded, and count the kernels'
+    launches and host ns from here."""
+    _State.records.clear()
+    _State.counters.clear()
+    for k in _State.kernels:
+        k.host_ns = 0
+        _State.launch_base[k] = k.launches
+
+
+def records() -> list[SpanRecord]:
+    """Every span closed since :func:`reset`, in the order they closed."""
+    return list(_State.records)
+
+
+def snapshot() -> dict:
+    """What was recorded since :func:`reset`: ``spans`` (per name: calls,
+    total_ns, self_ns), ``counters``, and ``kernels`` (per kernel name
+    that launched: launches, host_ns)."""
+    spans = {}
+    for r in _State.records:
+        s = spans.setdefault(r.name,
+                             {"calls": 0, "total_ns": 0, "self_ns": 0})
+        s["calls"] += 1
+        s["total_ns"] += r.end_ns - r.start_ns
+        s["self_ns"] += r.self_ns
+    kernels = {}
+    for k in _State.kernels:
+        n = k.launches - _State.launch_base.get(k, 0)
+        if n < 0:  # its caller set ``launches`` back to 0 since
+            n = k.launches
+        if n or k.host_ns:
+            s = kernels.setdefault(k.name, {"launches": 0, "host_ns": 0})
+            s["launches"] += n
+            s["host_ns"] += k.host_ns
+    return {"spans": spans, "counters": dict(_State.counters),
+            "kernels": kernels}
